@@ -1,0 +1,393 @@
+"""Stream Smith-Waterman on lane-packed chunks: the CUDA kernels and their
+plain PyTorch versions.
+
+Port of ``swipe_tpu/ops/sw_stream.py``.  Three kernels, hand-written CUDA
+C++ for sm_90a under ``csrc/`` and bound through a plain C interface with
+ctypes:
+
+* ``build_dprofile_series`` (``csrc/dprofile.cu``) — the block score
+  profiles of a chunk;
+* ``sw_scores_stream`` (``csrc/stream.cu``) — exact affine-gap scores of
+  NQ queries against every lane of a chunk, dumped per block;
+* ``sw_hint_stream`` (``csrc/hint.cu``) — alignment-endpoint hints with
+  search16s tie rules.
+
+Each wrapper takes its kernel for CUDA tensors and its plain version
+(``*_plain``, same module) for CPU tensors, and nothing else: a failed
+launch raises.  Each counts its kernel launches in ``.launches``.
+
+The recurrence, shared by all of them (Q = gapopen + gapextend,
+R = gapextend):
+
+    E = max(E_left - R, H_left - Q)    (db-gap chain, along columns)
+    F = max(F_up - R, H_up - Q)        (query-gap chain, along rows)
+    H = max(diag + profile, E, F, 0)
+    S = max(S, H)
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..batching import NEG_INF, PAD_SYMBOL
+
+__all__ = ["KSEG", "build_matrix8", "build_qcodes", "chunk_tensors",
+           "build_dprofile_series", "build_dprofile_series_plain",
+           "sw_scores_stream", "sw_scores_stream_plain", "gather_scores",
+           "sw_hint_stream", "sw_hint_stream_plain"]
+
+KSEG = 16   # db columns per block = lane-refill granularity of the packs
+
+
+def build_matrix8(matrix: np.ndarray) -> np.ndarray:
+    """[32, 32] int8 score matrix with the PAD row/column forced to -128."""
+    m = np.asarray(matrix, dtype=np.int64)
+    if m.min() < -128 or m.max() > 127:
+        raise ValueError("score matrix must fit int8 for the stream kernels")
+    m8 = m.astype(np.int8).copy()
+    m8[PAD_SYMBOL, :] = -128
+    m8[:, PAD_SYMBOL] = -128
+    return m8
+
+
+def build_qcodes(queries: list[np.ndarray], qlen_pad: int
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """([NQ, qlen_pad] int32 codes, [NQ] int32 lengths) for the kernels."""
+    nq = len(queries)
+    qc = np.full((nq, qlen_pad), PAD_SYMBOL, dtype=np.int32)
+    ql = np.zeros((nq,), dtype=np.int32)
+    for n, q in enumerate(queries):
+        L = len(q)
+        if L > qlen_pad:
+            raise ValueError(f"query {n} longer than qlen_pad ({L})")
+        qc[n, :L] = np.asarray(q, dtype=np.int32)
+        ql[n] = L
+    return qc, ql
+
+
+def chunk_tensors(data_t: np.ndarray, start: np.ndarray,
+                  end_block: np.ndarray, lane: np.ndarray, device):
+    """Device tensors of one stream chunk (either package's packer).
+
+    ``data_t`` is the lane-major [NSEQS, L] plane; it is uploaded as is
+    and transposed once on the device, so the kernels read [L, NSEQS]
+    with neighbouring lanes at neighbouring addresses.  Returns
+    (data [L, NSEQS] int8, start [L // KSEG, NSEQS] int8,
+    end_block [n] int64, lane [n] int64)."""
+    data = torch.from_numpy(np.ascontiguousarray(data_t, dtype=np.int8))
+    data = data.to(device).t().contiguous()
+    st = torch.from_numpy(np.ascontiguousarray(start, dtype=np.int8))
+    eb = torch.from_numpy(np.asarray(end_block, dtype=np.int64))
+    ln = torch.from_numpy(np.asarray(lane, dtype=np.int64))
+    return data, st.to(device), eb.to(device), ln.to(device)
+
+
+# ---- binding ---------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "swipe_dprofile": ("dprofile", [_P, _P, _P, ctypes.c_longlong, _I, _P]),
+    "swipe_stream": ("stream", [_P] * 9 + [_I] * 8 + [_P]),
+    "swipe_hint": ("hint", [_P] * 10 + [_I] * 6 + [_P]),
+}
+_FUNCS: dict[str, ctypes._CFuncPtr] = {}
+
+
+def _kernel(fn: str):
+    """The C entry point ``fn``, building the kernels at first use."""
+    if fn not in _FUNCS:
+        source, argtypes = _SIGNATURES[fn]
+        lib = ctypes.CDLL(_build.kernel_library(source))
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _FUNCS[fn] = f
+    return _FUNCS[fn]
+
+
+def _launch(fn: str, device: torch.device, *args) -> None:
+    _COUNTED[fn].launches += 1
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _kernel(fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with error {rc}")
+
+
+def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
+    if t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim}-D {dtype}, got "
+                         f"{t.dim()}-D {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+# ---- K1: block score profiles ---------------------------------------------
+
+def build_dprofile_series_plain(matrix8: torch.Tensor, db: torch.Tensor
+                                ) -> torch.Tensor:
+    """Plain version of build_dprofile_series."""
+    L, nseqs = db.shape
+    prof = matrix8.to(torch.int32)[:, db.long()]          # [32, L, NSEQS]
+    return prof.view(32, L // KSEG, KSEG, nseqs).permute(1, 0, 2, 3) \
+        .contiguous()
+
+
+def build_dprofile_series(matrix8: torch.Tensor, db: torch.Tensor
+                          ) -> torch.Tensor:
+    """Block score profiles of a chunk:
+    ``out[b, sym, j, lane] = matrix8[sym, db[b * KSEG + j, lane]]``.
+
+    matrix8: [32, 32] int8 (build_matrix8); db: [L, NSEQS] int8 chunk,
+    L a multiple of KSEG, NSEQS a multiple of 4, symbols 0..31.  Returns
+    [L // KSEG, 32, KSEG, NSEQS] int32 — the memory order of the JAX
+    package's [nblocks, 32, KSEG * 8, NSEQS / 8] array, so a ``view``
+    turns one into the other.  128 bytes per db byte: callers budget
+    device memory (pipeline.SearchEngine.DPROF_MAX_BYTES)."""
+    dev = db.device
+    _check("matrix8", matrix8, torch.int8, 2, dev)
+    _check("db", db, torch.int8, 2, dev)
+    L, nseqs = db.shape
+    if tuple(matrix8.shape) != (32, 32):
+        raise ValueError(f"matrix8 shape {tuple(matrix8.shape)} != (32, 32)")
+    if L % KSEG:
+        raise ValueError(f"db length {L} not a multiple of {KSEG}")
+    if dev.type != "cuda":
+        return build_dprofile_series_plain(matrix8, db)
+    if nseqs % 4:
+        raise ValueError(f"NSEQS {nseqs} not a multiple of 4")
+    out = torch.empty((L // KSEG, 32, KSEG, nseqs), dtype=torch.int32,
+                      device=dev)
+    _launch("swipe_dprofile", dev, _ptr(matrix8), _ptr(db), _ptr(out), L,
+            nseqs)
+    return out
+
+
+
+# ---- K2: grouped stream scoring -------------------------------------------
+
+def _row_shift(h: torch.Tensor, fill: int) -> torch.Tensor:
+    """h moved down one query row (dim 1), ``fill`` entering at row 0."""
+    top = torch.full_like(h[:, :1], fill)
+    return torch.cat([top, h[:, :-1]], dim=1)
+
+
+def _column(h, e, p, Q: int, R: int, iota, clamp):
+    """One db column of the recurrence over all query rows at once
+    ([NQ, QLEN, lanes] tensors): F resolves with a weighted prefix max
+    (cummax) instead of the kernels' row walk."""
+    e = torch.maximum(e - R, h - Q)
+    hnof = torch.clamp_min(torch.maximum(_row_shift(h, 0) + p, e), 0)
+    if clamp is not None:
+        hnof = torch.clamp_max(hnof, clamp)
+    t = torch.cummax(hnof + iota * R, dim=1).values
+    f = _row_shift(t, NEG_INF) - (Q + torch.clamp_min(iota - 1, 0) * R)
+    h = torch.maximum(hnof, f)
+    if clamp is not None:
+        h = torch.clamp_max(h, clamp)
+    return h, e
+
+
+def sw_scores_stream_plain(qcodes, qlens, matrix8, db, start, *,
+                           gapopenextend: int, gapextend: int,
+                           clamp: int | None = None, dprof=None
+                           ) -> torch.Tensor:
+    """Plain version of sw_scores_stream: a column loop with the query
+    rows vectorized (after the JAX package's _stream_lax_core)."""
+    nq, qlen_pad = qcodes.shape
+    L, nseqs = db.shape
+    dev = db.device
+    nblocks = L // KSEG
+    Q, R = gapopenextend, gapextend
+    iota = torch.arange(qlen_pad, dtype=torch.int32, device=dev)[None, :,
+                                                                  None]
+    qmask = iota < qlens[:, None, None]                   # [NQ, QLEN, 1]
+    qflat = qcodes.long().flatten()
+    qprof = matrix8.to(torch.int32)[qcodes.long()]        # [NQ, QLEN, 32]
+    pad_pen = -128            # the PAD row of build_matrix8
+    h = torch.zeros((nq, qlen_pad, nseqs), dtype=torch.int32, device=dev)
+    e = torch.full_like(h, NEG_INF)
+    s = torch.zeros((nq, nseqs), dtype=torch.int32, device=dev)
+    out = torch.empty((nq, nblocks, nseqs), dtype=torch.int32, device=dev)
+    for b in range(nblocks):
+        reset = start[b] != 0
+        h = torch.where(reset, 0, h)
+        e = torch.where(reset, NEG_INF, e)
+        s = torch.where(reset, 0, s)
+        for j in range(KSEG):
+            if dprof is None:
+                p = qprof.index_select(2, db[b * KSEG + j].long())
+            else:                                         # [NQ, QLEN, NSEQS]
+                p = dprof[b, :, j].index_select(0, qflat).view(
+                    nq, qlen_pad, nseqs)
+            p = torch.where(qmask, p, pad_pen)
+            h, e = _column(h, e, p, Q, R, iota, clamp)
+            s = torch.maximum(s, h.amax(dim=1))
+        out[:, b] = s
+    return out
+
+
+def sw_scores_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
+                     matrix8: torch.Tensor, db: torch.Tensor,
+                     start: torch.Tensor, *, gapopenextend: int,
+                     gapextend: int, clamp: int | None = None,
+                     dprof: torch.Tensor | None = None) -> torch.Tensor:
+    """Score queries against a lane-packed chunk.
+
+    qcodes:  [NQ, QLEN] int32 query codes, PAD_SYMBOL padded (build_qcodes)
+    qlens:   [NQ] int32 true query lengths (<= QLEN)
+    matrix8: [32, 32] int8 score matrix (build_matrix8)
+    db:      [L, NSEQS] int8 lane-packed chunk (batching.pack_stream,
+             chunk_tensors), L a multiple of KSEG
+    start:   [L // KSEG, NSEQS] int8 — 1 where a lane begins a new
+             sequence at that block
+    clamp:   saturate H at this value (the reference's narrow tiers)
+    dprof:   the chunk's block profiles (build_dprofile_series); without
+             them the kernel looks scores up in the matrix
+    Returns [NQ, L // KSEG, NSEQS] int32: each lane's running max after
+    every block; a sequence's score is the value at its end block
+    (gather_scores)."""
+    dev = db.device
+    _check("qcodes", qcodes, torch.int32, 2, dev)
+    _check("qlens", qlens, torch.int32, 1, dev)
+    _check("matrix8", matrix8, torch.int8, 2, dev)
+    _check("db", db, torch.int8, 2, dev)
+    _check("start", start, torch.int8, 2, dev)
+    nq, qlen_pad = qcodes.shape
+    L, nseqs = db.shape
+    nblocks = L // KSEG
+    if L % KSEG:
+        raise ValueError(f"db length {L} not a multiple of {KSEG}")
+    if tuple(start.shape) != (nblocks, nseqs) or qlens.shape[0] != nq \
+            or tuple(matrix8.shape) != (32, 32):
+        raise ValueError("sw_scores_stream: inconsistent shapes "
+                         f"qcodes {tuple(qcodes.shape)} qlens "
+                         f"{tuple(qlens.shape)} db {tuple(db.shape)} start "
+                         f"{tuple(start.shape)}")
+    if dprof is not None:
+        _check("dprof", dprof, torch.int32, 4, dev)
+        if tuple(dprof.shape) != (nblocks, 32, KSEG, nseqs):
+            raise ValueError(f"dprof shape {tuple(dprof.shape)} != "
+                             f"{(nblocks, 32, KSEG, nseqs)}")
+    if dev.type != "cuda":
+        return sw_scores_stream_plain(
+            qcodes, qlens, matrix8, db, start, gapopenextend=gapopenextend,
+            gapextend=gapextend, clamp=clamp, dprof=dprof)
+    out = torch.empty((nq, nblocks, nseqs), dtype=torch.int32, device=dev)
+    hst = torch.empty((nq, qlen_pad, nseqs), dtype=torch.int32, device=dev)
+    est = torch.empty_like(hst)
+    _launch("swipe_stream", dev, _ptr(qcodes), _ptr(qlens), _ptr(matrix8),
+            _ptr(db), _ptr(start), _ptr(dprof), _ptr(out), _ptr(hst),
+            _ptr(est), nq, qlen_pad, nblocks, nseqs, int(gapopenextend),
+            int(gapextend), int(clamp is not None),
+            int(clamp) if clamp is not None else 0)
+    return out
+
+
+
+def gather_scores(out: torch.Tensor, end_block: torch.Tensor,
+                  lane: torch.Tensor) -> torch.Tensor:
+    """[NQ, nseq] scores from the per-block dump: out[:, end_block, lane]
+    with the per-sequence coordinates of batching.pack_stream."""
+    return out[:, end_block, lane]
+
+
+# ---- K4: endpoint hints ---------------------------------------------------
+
+def sw_hint_stream_plain(qcodes, qlens, matrix8, db, starts, *,
+                         gapopenextend: int, gapextend: int):
+    """Plain version of sw_hint_stream: a column loop over [NQ, QLEN,
+    NSEQS] state (after the JAX package's _hint_lax_impl); the smallest
+    row attaining a column's max is taken by an explicit minimum."""
+    nq, qlen_pad = qcodes.shape
+    _, L, nseqs = db.shape
+    dev = db.device
+    Q, R = gapopenextend, gapextend
+    iota = torch.arange(qlen_pad, dtype=torch.int32, device=dev)[None, :,
+                                                                  None]
+    rowvalid = iota < qlens[:, None, None]
+    qprof = matrix8.to(torch.int32)[qcodes.long()]        # [NQ, QLEN, 32]
+    h = torch.zeros((nq, qlen_pad, nseqs), dtype=torch.int32, device=dev)
+    e = torch.full_like(h, NEG_INF)
+    S = torch.zeros((nq, nseqs), dtype=torch.int32, device=dev)
+    bq = torch.full_like(S, -1)
+    bp = torch.zeros_like(S)
+    for j in range(L):
+        sym = db[:, j].long()[:, None, :].expand(nq, qlen_pad, nseqs)
+        p = torch.where(rowvalid, torch.gather(qprof, 2, sym), -128)
+        h, e = _column(h, e, p, Q, R, iota, None)
+        hv = torch.where(rowvalid, h, 0)
+        colmax = hv.amax(dim=1)                           # [NQ, NSEQS]
+        rows = torch.where(hv == colmax[:, None], iota, qlen_pad).amin(dim=1)
+        improve = (colmax > S) & (j >= starts)
+        S = torch.where(improve, colmax, S)
+        bp = torch.where(improve, j, bp)
+        bq = torch.where(improve, rows, bq)
+    return S, bq, bp
+
+
+def sw_hint_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
+                   matrix8: torch.Tensor, db: torch.Tensor,
+                   starts: torch.Tensor, *, gapopenextend: int,
+                   gapextend: int):
+    """Endpoint hints for a batch of query bins, each against its own
+    subjects, one subject per lane.
+
+    qcodes: [NQ, QLEN] int32 (build_qcodes), qlens: [NQ] int32,
+    matrix8: [32, 32] int8, db: [NQ, L, NSEQS] int8 — bin q's subject i in
+    lane (q, i), PAD_SYMBOL padded; starts: [NQ, NSEQS] int32 per-lane
+    first-tracked column (zeros for whole subjects).  Returns
+    (S, bestq, bestpos), each [NQ, NSEQS] int32, with search16s tie
+    rules: bestpos is the first column attaining the final maximum,
+    bestq the smallest query row attaining it there, -1 when the lane
+    never scores above 0."""
+    dev = db.device
+    _check("qcodes", qcodes, torch.int32, 2, dev)
+    _check("qlens", qlens, torch.int32, 1, dev)
+    _check("matrix8", matrix8, torch.int8, 2, dev)
+    _check("db", db, torch.int8, 3, dev)
+    _check("starts", starts, torch.int32, 2, dev)
+    nq, qlen_pad = qcodes.shape
+    nqd, L, nseqs = db.shape
+    if nqd != nq or qlens.shape[0] != nq \
+            or tuple(starts.shape) != (nq, nseqs) \
+            or tuple(matrix8.shape) != (32, 32):
+        raise ValueError("sw_hint_stream: inconsistent shapes "
+                         f"qcodes {tuple(qcodes.shape)} db "
+                         f"{tuple(db.shape)} starts {tuple(starts.shape)}")
+    if L % KSEG:
+        raise ValueError(f"db length {L} not a multiple of {KSEG}")
+    if dev.type != "cuda":
+        return sw_hint_stream_plain(qcodes, qlens, matrix8, db, starts,
+                                    gapopenextend=gapopenextend,
+                                    gapextend=gapextend)
+    outs = [torch.empty((nq, nseqs), dtype=torch.int32, device=dev)
+            for _ in range(3)]
+    hst = torch.empty((nq, qlen_pad, nseqs), dtype=torch.int32, device=dev)
+    est = torch.empty_like(hst)
+    _launch("swipe_hint", dev, _ptr(qcodes), _ptr(qlens), _ptr(matrix8),
+            _ptr(db), _ptr(starts), *map(_ptr, outs), _ptr(hst), _ptr(est),
+            nq, qlen_pad, L // KSEG, nseqs, int(gapopenextend),
+            int(gapextend))
+    return tuple(outs)
+
+
+# each wrapper's launch count, a plain int raised by _launch where the
+# kernel launches (held here, so a caller that wraps a wrapper still
+# counts on the original)
+_COUNTED = {"swipe_dprofile": build_dprofile_series,
+            "swipe_stream": sw_scores_stream, "swipe_hint": sw_hint_stream}
+for _f in _COUNTED.values():
+    _f.launches = 0
+del _f

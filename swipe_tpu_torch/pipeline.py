@@ -1,0 +1,511 @@
+"""Search pipeline: pack -> profile + score on the card -> top-K -> hits ->
+align.
+
+Port of ``swipe_tpu/pipeline.py`` for the plain lane-pack route.  The
+host decisions are the JAX engine's, so the same packs and the same hits
+come out: the lane counts of STREAM_CONFIGS, qlen_bucket, SLOT_BATCH with
+power-of-two slot padding, the 8192-column chunks and the 65,536-column
+giant threshold, the device cache budget, the reversed tie order of the
+top-K, the init/upper thresholds and kbase, and the cascade counters.
+
+Per slot group, one walk over the chunks cached on the device builds
+each chunk's block profiles (K1), scores it (K2), gathers each
+sequence's score and reduces to the top K with torch ops; one
+device-to-host copy per group feeds hit entry.  The align phase's
+endpoint hints run the hint kernel (K4) through
+ops.align_hint.hint_endpoints_grid.
+
+Routes of the JAX engine that this port does not cover yet raise
+NotImplementedError naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from .batching import PAD_SYMBOL, pack_stream
+from .hits import HitList
+from .io.db import Database
+from .io.fasta import Query
+from .matrices import ScoreMatrix
+from .stats import EvalueModel
+
+__all__ = ["SearchEngine", "SearchParams", "SearchTimings", "chunk_reduce",
+           "resolve_device", "reverse_tie_order"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The engine's device: CUDA unless the caller asks for the CPU.  With
+    no card and no explicit "cpu" this raises; the port never drops to
+    the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("swipe_tpu_torch runs on a CUDA device; none is "
+                           "available (pass device='cpu' to run the plain "
+                           "PyTorch versions on the CPU)")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def reverse_tie_order(meta: np.ndarray) -> np.ndarray:
+    """Column order for the device-side top-K: units must ascend in the
+    REVERSE of the hit list's tie preference (score desc, seqno desc,
+    dstrand asc, dframe asc — hits.finalize), because the top-K prefers
+    the highest column on ties.  ``meta`` is [n, 3] rows of (seqno,
+    dstrand, dframe)."""
+    return np.lexsort((-meta[:, 2], -meta[:, 1], meta[:, 0]))
+
+
+def chunk_reduce(sc: torch.Tensor, init_thr: torch.Tensor,
+                 upper: torch.Tensor, k: int, sl7: int, sl16: int):
+    """Per-chunk hit reduction on the device: top-K candidates and the
+    counters of one [NQ, n] score block.
+
+    Scores above the per-slot upper cutoff (-u / -k) count in ``obvious``
+    and are masked to -1 (callers drop them), so the top-K stays exact.
+    Candidates are ordered by (score desc, column desc) — the JAX
+    engine's reversed lax.top_k.  torch.topk promises no order among
+    ties, so the order is made explicit: each entry's key is
+    (score << 32) | column, unique per row.  With k >= n every column is
+    kept in its own order.  Returns (vals, idx, totalh, obvious, n16,
+    n63); idx holds columns of ``sc``."""
+    totalh = (sc >= init_thr[:, None]).sum(dim=1, dtype=torch.int32)
+    obvious = (sc > upper[:, None]).sum(dim=1, dtype=torch.int32)
+    n16 = (sc >= sl7).sum(dtype=torch.int32)
+    n63 = (sc >= sl16).sum(dtype=torch.int32)
+    sc = torch.where(sc > upper[:, None], -1, sc)
+    n = sc.shape[1]
+    col = torch.arange(n, dtype=torch.int64, device=sc.device)
+    if k < n:
+        key = torch.topk((sc.to(torch.int64) << 32) | col, k, dim=1).values
+        vals = (key >> 32).to(torch.int32)
+        idx = key & 0xFFFFFFFF
+    else:
+        vals = sc
+        idx = col.expand(sc.shape[0], n)
+    return vals, idx, totalh, obvious, n16, n63
+
+
+@dataclass
+class SearchParams:
+    symtype: int = 1
+    querystrands: int = 3
+    matrixname: str = "BLOSUM62"
+    matchscore: int = 1
+    mismatchscore: int = -3
+    gapopen: int = 11
+    gapextend: int = 1
+    descriptions: int = 250   # -v
+    alignments: int = 100     # -b
+    minscore: int = 1         # -c
+    maxscore: int = 2**63 - 1  # -u
+    expect: float = 10.0      # -e
+    minexpect: float = 0.0    # -k
+    effdbsize: int = 0        # -z
+    query_gencode: int = 1
+    db_gencode: int = 1
+    threads: int = 1          # -a: align-phase worker pool width
+
+    @property
+    def gapopenextend(self) -> int:
+        return self.gapopen + self.gapextend
+
+
+@dataclass
+class SearchTimings:
+    """GCUPS meter (parity: clock_start/clock_stop swipe.cc:1716-1790)."""
+
+    start: float = 0.0
+    elapsed: float = 0.0
+    speed: float = 0.0
+    starttime: str = ""
+    endtime: str = ""
+    # precision-cascade counters (compute*/rounds*, swipe.cc:111-119)
+    compute: dict = field(default_factory=lambda: {7: 0, 16: 0, 32: 0, 63: 0})
+    rounds: dict = field(default_factory=lambda: {7: 0, 16: 0, 32: 0, 63: 0})
+
+    def begin(self):
+        self.start = time.time()
+        self.starttime = time.strftime(
+            "%a, %e %b %Y %H:%M:%S UTC", time.gmtime(self.start))
+
+    @staticmethod
+    def _work_multiplier(query, symtype: int, querystrands: int) -> float:
+        """Per-query cell multiplier of the GCUPS formula
+        (clock_stop, swipe.cc:1744-1775)."""
+        if symtype == 0:
+            w = len(query.nt[0])
+            return 2 * w if querystrands == 3 else w
+        if symtype in (1, 5):
+            return len(query.aa[0])
+        if symtype == 2:
+            w = len(query.nt[0])
+            return 2 * w if querystrands == 3 else w
+        if symtype == 3:
+            return 2 * len(query.aa[0])
+        if symtype == 4:
+            w = 2 * len(query.nt[0])
+            return 2 * w if querystrands == 3 else w
+        return 0
+
+    def end_batch(self, db_symcount: int, queries, symtype: int,
+                  querystrands: int):
+        now = time.time()
+        self.endtime = time.strftime(
+            "%a, %e %b %Y %H:%M:%S UTC", time.gmtime(now))
+        self.elapsed = now - self.start
+        speed = float(db_symcount) * sum(
+            self._work_multiplier(q, symtype, querystrands)
+            for q in queries)
+        self.speed = speed / self.elapsed if self.elapsed > 0 else 0.0
+
+
+class SearchEngine:
+    """Holds the lane-packed database on the device and runs queries
+    against it."""
+
+    # (lanes, query-row cap): the JAX engine's configurations, kept so
+    # both packages pack and group identically
+    STREAM_CONFIGS = ((2048, 512), (1024, 1024))
+    # block profiles are built per chunk when they fit this budget
+    # (bytes = 128 x chunk bytes)
+    DPROF_MAX_BYTES = 3 << 30
+    # packed chunks stay on the device up to this budget; larger
+    # databases upload per search
+    DEVICE_CACHE_BYTES = 8 << 30
+    # slots scored per kernel pass: bounds the [nslots, nblocks, nseqs]
+    # per-block dump and the row-state scratch
+    SLOT_BATCH = 16
+    # flow-route heuristic (JAX engine _flow_cols): heavy length tails
+    # over small databases take the flow series instead of the plain pack
+    FLOW_TAIL_RATIO = 1.25
+    FLOW_MIN_AVG_LANE = 512
+
+    def __init__(self, db: Database, params: SearchParams, *, device=None,
+                 nseqs: int | None = None, max_cols: int | None = None):
+        self.db = db
+        self.params = params
+        self.device = resolve_device(device)
+        self.matrix = self._build_matrix()
+        if not self.matrix.fits_int8:
+            raise NotImplementedError(
+                "score matrices outside int8 take the JAX package's lax "
+                "route; not ported yet (ROADMAP Queue 1 item 10)")
+        valid = tuple(n for n, _ in self.STREAM_CONFIGS)
+        self._forced_nseqs = None
+        if nseqs is None:
+            nseqs = valid[0]
+        elif nseqs not in valid:
+            raise ValueError(
+                f"stream lane counts are {valid}, got {nseqs}")
+        else:
+            self._forced_nseqs = nseqs
+        if max_cols is None:
+            # 2048 lanes x 8192 columns = 16 MB per chunk, whose block
+            # profiles (2 GB) fit DPROF_MAX_BYTES; units up to 65536
+            # columns stay in the plain pack as oversized chunks
+            max_cols = 8192
+            self._giant_cols = 65536
+        else:
+            self._giant_cols = max_cols
+        self._max_cols = max_cols
+        self._pack(nseqs)
+
+    def _build_matrix(self) -> ScoreMatrix:
+        p = self.params
+        if p.symtype == 0:
+            return ScoreMatrix.nucleotide(p.matchscore, p.mismatchscore,
+                                          p.gapopen, p.gapextend)
+        return ScoreMatrix.from_name_or_file(
+            p.matrixname, p.gapopen, p.gapextend, symtype=p.symtype)
+
+    def _pack(self, nseqs: int) -> None:
+        units = list(self.db.search_units(self.params.symtype))
+        self._unit_seqs = [u.codes for u in units]
+        self.unit_meta = np.array(
+            [(u.seqno, u.dstrand, u.dframe) for u in units], dtype=np.int64
+        ).reshape(len(units), 3)
+        lens = np.array([len(s) for s in self._unit_seqs], dtype=np.int64)
+        if (lens > self._giant_cols).any():
+            raise NotImplementedError(
+                f"database units longer than {self._giant_cols} columns "
+                "take the giant route; not ported yet (ROADMAP Queue 1 "
+                "item 7)")
+        self._lens = lens
+        self._stream_packs: dict[int, list] = {}
+        self._dev_stream: dict[int, list] = {}
+        self._check_plain_route(nseqs)
+        self.chunks = self._stream_chunks(nseqs)
+
+    @property
+    def unit_count(self) -> int:
+        """Number of (seqno, strand, frame) scoring units in the database."""
+        return len(self.unit_meta)
+
+    def _flow_cols(self, nseqs: int) -> int | None:
+        """Full-chunk height for the flow route, or None to keep the
+        plain lane pack (the JAX engine's heuristic)."""
+        if self._lens.size == 0:
+            return None
+        total = int(self._lens.sum())
+        longest = int(self._lens.max())
+        avg_lane = total / nseqs
+        if avg_lane < self.FLOW_MIN_AVG_LANE \
+                or longest <= self.FLOW_TAIL_RATIO * avg_lane:
+            return None
+        mc = (int(avg_lane) // 2 + 64) // 128 * 128
+        return min(max(mc, 256), self._max_cols)
+
+    def _check_plain_route(self, nseqs: int) -> None:
+        if self._flow_cols(nseqs) is not None:
+            raise NotImplementedError(
+                "this database takes the flow route (a heavy length tail "
+                f"at {nseqs} lanes); not ported yet (ROADMAP Queue 1 "
+                "item 4)")
+
+    def _stream_chunks(self, nseqs: int):
+        """Lane-packed chunks at a lane count (built once)."""
+        if nseqs not in self._stream_packs:
+            self._stream_packs[nseqs] = pack_stream(
+                self._unit_seqs, nseqs=nseqs, max_cols=self._max_cols,
+                seqnos=np.arange(len(self._unit_seqs), dtype=np.int64))
+        return self._stream_packs[nseqs]
+
+    def query_frames(self, query: Query) -> list[tuple[int, int, np.ndarray]]:
+        return query.frames()
+
+    def search(self, query: Query, timings: SearchTimings | None = None
+               ) -> HitList:
+        """Run the full search+align pipeline for one query."""
+        return self.search_batch([query], timings)[0]
+
+    def search_batch(self, queries: list[Query],
+                     timings: SearchTimings | None = None) -> list[HitList]:
+        """Search a batch of queries, one kernel pass per db chunk and
+        slot group; returns one finalized and aligned HitList per query,
+        in order."""
+        p = self.params
+        hitlists = []
+        for query in queries:
+            evmodel = EvalueModel(
+                p.symtype, query.length, self.db.seqcount_masked(),
+                self.db.symcount_masked(),
+                matrixname=p.matrixname if p.symtype != 0 else None,
+                matchscore=p.matchscore, mismatchscore=p.mismatchscore,
+                gapopen=p.gapopen, gapextend=p.gapextend,
+                effdbsize=p.effdbsize)
+            hitlists.append(
+                HitList(p.descriptions, p.alignments, p.minscore,
+                        p.maxscore, p.minexpect, p.expect, evmodel, self.db,
+                        p.symtype, p.querystrands))
+
+        # flat (hitlist, qstrand, qframe, codes) slots across the batch
+        slots = []
+        for query, hits in zip(queries, hitlists):
+            for qstrand, qframe, codes in self.query_frames(query):
+                slots.append((hits, qstrand, qframe, codes))
+
+        if slots:
+            if timings is not None:
+                timings.begin()
+            for (qlen_pad, nseqs), group in self._slot_groups(slots):
+                for i in range(0, len(group), self.SLOT_BATCH):
+                    self._search_stream_group(
+                        group[i:i + self.SLOT_BATCH], qlen_pad, nseqs,
+                        timings)
+            if timings is not None:
+                timings.end_batch(self.db.symcount_masked(), queries,
+                                  p.symtype, p.querystrands)
+
+        # align phase: the hint pass runs across the whole batch, all
+        # (query, qstrand, qframe) bins in one set of kernel launches
+        from .ops.align_hint import hint_endpoints_grid
+        prepared = []
+        jobs = []
+        for query, hits in zip(queries, hitlists):
+            hits.finalize()
+            shown, bins = hits.align_prepare(
+                query, self.matrix.scorelimit_16)
+            prepared.append((query, hits, shown, bins))
+            for qseq, items in bins:
+                jobs.append((qseq, [h.dseq for _, h in items]))
+        res = hint_endpoints_grid(jobs, self.matrix.matrix, p.gapopen,
+                                  p.gapextend, device=self.device)
+        k = 0
+        for query, hits, shown, bins in prepared:
+            hints: dict[int, tuple[int, int, int]] = {}
+            for qseq, items in bins:
+                for (i, h), (score, bestq, bestpos) in zip(items, res[k]):
+                    if bestq > 0 and bestpos:
+                        hints[i] = (score, bestq, bestpos)
+                k += 1
+            hits.align_finish(query, self.matrix.matrix, p.gapopen,
+                              p.gapextend, shown, hints,
+                              threads=p.threads)
+        return hitlists
+
+    def _slot_groups(self, slots):
+        """Slots sorted by length and grouped by (qlen bucket, lanes), so
+        one long query does not push the batch onto a slower
+        configuration."""
+        groups: list[tuple] = []
+        caps = dict(self.STREAM_CONFIGS)
+        for s in sorted(slots, key=lambda s: len(s[3])):
+            qlen_pad = self.qlen_bucket(len(s[3]))
+            if self._forced_nseqs is not None \
+                    and qlen_pad <= caps[self._forced_nseqs]:
+                nseqs = self._forced_nseqs
+            else:
+                nseqs = next((n for n, cap in self.STREAM_CONFIGS
+                              if qlen_pad <= cap), None)
+            if nseqs is None:
+                raise NotImplementedError(
+                    f"queries over {max(caps.values())} rows take the "
+                    "query-tiled route; not ported yet (ROADMAP Queue 1 "
+                    "item 8)")
+            cfg = (qlen_pad, nseqs)
+            if groups and groups[-1][0] == cfg:
+                groups[-1][1].append(s)
+            else:
+                groups.append((cfg, [s]))
+        return groups
+
+    @staticmethod
+    def qlen_bucket(L: int) -> int:
+        """Query-row bucket for a query of length L: short queries bucket
+        to 32 rows, longer ones to 128."""
+        if L <= 128:
+            return max(32, -(-L // 32) * 32)
+        return -(-L // 128) * 128
+
+    def _dev_stream_chunks(self, nseqs: int):
+        """Device tensors per chunk, with the score-gather coordinates in
+        reverse tie order (the order the top-K relies on).  Yields
+        lazily; chunks stay cached on the device while the total is
+        within DEVICE_CACHE_BYTES."""
+        from .ops.sw_stream import chunk_tensors
+
+        def prep(c):
+            order = reverse_tie_order(self.unit_meta[c.seqnos])
+            data, start, eb, ln = chunk_tensors(
+                c.data_t, c.start, c.end_block[order], c.lane[order],
+                self.device)
+            ud = torch.from_numpy(c.seqnos[order].astype(np.int32))
+            return data, start, eb, ln, ud.to(self.device)
+
+        chunks = self._stream_chunks(nseqs)
+        if sum(c.data_t.size for c in chunks) <= self.DEVICE_CACHE_BYTES:
+            if nseqs not in self._dev_stream:
+                self._dev_stream[nseqs] = [prep(c) for c in chunks]
+            yield from self._dev_stream[nseqs]
+        else:
+            for c in chunks:
+                yield prep(c)
+
+    def _search_stream_group(self, slots, qlen_pad, nseqs, timings):
+        from .ops.sw_stream import build_matrix8, build_qcodes
+        self._check_plain_route(nseqs)
+        qc, ql = build_qcodes([s[3] for s in slots], qlen_pad)
+        # pad the slot count to a power of two, as the JAX engine does;
+        # a dead slot has length 0 and scores 0
+        nslots = len(slots)
+        nslots_pad = 1 << (nslots - 1).bit_length()
+        if nslots_pad != nslots:
+            qc = np.concatenate(
+                [qc, np.full((nslots_pad - nslots, qlen_pad), PAD_SYMBOL,
+                             qc.dtype)], axis=0)
+            ql = np.concatenate(
+                [ql, np.zeros(nslots_pad - nslots, ql.dtype)], axis=0)
+        dev = self.device
+        qc = torch.from_numpy(qc).to(dev)
+        ql = torch.from_numpy(ql).to(dev)
+        m8 = torch.from_numpy(build_matrix8(self.matrix.matrix)).to(dev)
+        # dead padding slots get INT32_MAX thresholds: they count no
+        # hits and mask nothing
+        pad_hi = [2**31 - 1] * (nslots_pad - nslots)
+
+        def thresholds(attr):
+            return torch.tensor(
+                [max(min(getattr(s[0], attr), 2**31 - 1), -2**31)
+                 for s in slots] + pad_hi, dtype=torch.int32, device=dev)
+
+        init_thr = thresholds("init_threshold")
+        # upper cutoff (-u/-k): chunk_reduce masks scores above it
+        upper_thr = thresholds("upperscorethreshold")
+        kbase = max(s[0].keephits for s in slots) + 64
+        packed, n_units = self._stream_walk(
+            self._dev_stream_chunks(nseqs), qc, ql, m8, init_thr, upper_thr,
+            kbase)
+        self._enter_packed(slots, packed, n_units, timings)
+
+    def _stream_walk(self, chunks, qc, ql, m8, init_thr, upper, kbase):
+        """Score, gather and reduce every chunk on the device; returns the
+        packed host array [nq, 2K + 4] = [scores | unit ids | totalh |
+        obvious | n16 | n63] (one device-to-host copy) and the unit
+        count."""
+        from .ops.sw_stream import (build_dprofile_series, gather_scores,
+                                    sw_scores_stream)
+        p = self.params
+        nq = qc.shape[0]
+        dev = self.device
+        sl7 = self.matrix.scorelimit_7
+        sl16 = self.matrix.scorelimit_16
+        vals_parts, unit_parts = [], []
+        totalh = torch.zeros(nq, dtype=torch.int32, device=dev)
+        obvious = torch.zeros_like(totalh)
+        n16 = torch.zeros((), dtype=torch.int32, device=dev)
+        n63 = torch.zeros_like(n16)
+        n_units = 0
+        for data, start, eb, ln, ud in chunks:
+            # one profile build serves the whole slot group
+            dp = build_dprofile_series(m8, data) \
+                if data.numel() * 128 <= self.DPROF_MAX_BYTES else None
+            out = sw_scores_stream(qc, ql, m8, data, start,
+                                   gapopenextend=p.gapopenextend,
+                                   gapextend=p.gapextend, dprof=dp)
+            del dp
+            sc = gather_scores(out, eb, ln)
+            del out
+            v, idx, th, ob, a, b = chunk_reduce(sc, init_thr, upper, kbase,
+                                                sl7, sl16)
+            totalh += th
+            obvious += ob
+            n16 += a
+            n63 += b
+            vals_parts.append(v)
+            unit_parts.append(ud[idx])
+            n_units += ud.shape[0]
+        V = torch.cat(vals_parts, dim=1)
+        U = torch.cat(unit_parts, dim=1)
+        packed = torch.cat(
+            [V, U, totalh[:, None], obvious[:, None],
+             n16.expand(nq, 1), n63.expand(nq, 1)], dim=1)
+        return packed.cpu().numpy(), n_units
+
+    def _enter_packed(self, slots, packed, n_units, timings):
+        """Unpack one [nq, 2K+4] walk result and enter all hits."""
+        K = (packed.shape[1] - 4) // 2
+        V, U = packed[:, :K], packed[:, K:2 * K]
+        totalh = packed[:, 2 * K]
+        obvious = packed[:, 2 * K + 1]
+        n16, n63 = int(packed[0, 2 * K + 2]), int(packed[0, 2 * K + 3])
+        for fi, (hits, qstrand, qframe, _) in enumerate(slots):
+            sel = V[fi] >= 0
+            meta = self.unit_meta[U[fi][sel]]
+            hits.enter_batch(meta[:, 0], V[fi][sel], qstrand, qframe,
+                             meta[:, 1], meta[:, 2],
+                             counts=(int(totalh[fi]), int(obvious[fi])))
+        if timings is not None:
+            timings.compute[7] += n_units * len(slots)
+            timings.compute[16] += n16
+            timings.compute[63] += n63
+            timings.rounds[7] += len(slots)
+            if n16:
+                timings.rounds[16] += len(slots)
+            if n63:
+                timings.rounds[63] += len(slots)
