@@ -16,14 +16,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
              database: 570,000 random sequences with the published
              Swiss-Prot composition and length model, 16 queries of
              200 aa, BLOSUM62 11/1, -v 250 -b 100.  Every kernel's launch
-             count must be > 0; the top 20 hit scores of every query must
-             equal the NumPy oracle and every shown alignment must re-walk
-             to its hit's score.  The search then runs once more under
+             count must be > 0; the top 20 hit scores of every query and
+             the scores of its three planted homologs must equal the
+             NumPy oracle, and every shown alignment must re-walk to its
+             hit's score.  The search then runs once more under
              torch.profiler for the device time by kernel and the busy
              share;
 4. time    — each kernel, its plain version and its bound at the inputs of
              its largest launch in the search (the kernel is held against
-             its plain version there too);
+             its plain version there too), and the stream kernel there
+             without profiles too.  The bound counts the real cells and
+             the least instructions a cell takes on sm_90a;
 5. cli     — ``python -m swipe_tpu_torch -m 8`` on a small FASTA database.
 
 The last three lines are the kernels' JSON record, the card's name and
@@ -44,7 +47,7 @@ import numpy as np
 import torch
 
 from swipe_tpu_torch import _build
-from swipe_tpu_torch.batching import pack_stream
+from swipe_tpu_torch.batching import PAD_SYMBOL, pack_stream
 from swipe_tpu_torch.io.db import FastaDatabase
 from swipe_tpu_torch.io.fasta import preprocess_query
 from swipe_tpu_torch.matrices import ScoreMatrix
@@ -66,16 +69,23 @@ SWISSPROT_AA_PERCENT = {
 }
 LEN_MU, LEN_SIGMA, LEN_MIN, LEN_MAX = 5.677, 0.651, 2, 35213
 
-# H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s; int32 add/max on
-# the CUDA cores: 64 int32 lanes per SM against 128 fp32 lanes, so a
-# quarter of the 67 TFLOP/s fp32 rate, which counts an FMA as 2
+# H100 SXM (NVIDIA data sheet, 700 W): HBM 3.35 TB/s; 67 TFLOP/s fp32,
+# an FMA counted as two, on 128 lanes per SM at 1.98 GHz.  No SM issues
+# more than 4 warp instructions (128 lanes) a clock, whatever the pipe, so
+# 33.5 T thread instructions a second is the ceiling of any instruction
+# mix; the int32 pipe alone has 64 lanes per SM, 16.75 T a second.  Both
+# are derived from the data sheet, not measured on the card.
 HBM_BYTES_PER_S = 3.35e12
+ISSUE_PER_S = 67e12 / 2
 INT32_OPS_PER_S = 67e12 / 4
-# int32 operations per DP cell: H = max(max(diag + p, 0), max(E, F)),
-# S = max(S, H), H - Q, E = max(E - R, H - Q), F = max(F - R, H - Q)
-OPS_PER_CELL = 10
-# the hint kernel adds the column-max compare and two selects
-HINT_OPS_PER_CELL = 13
+# Instructions per DP cell.  The least on sm_90a, with the DPX
+# instructions: h = max(diag + p, E, 0) (__viaddmax_s32_relu), h =
+# max(h, F), S = max(S, h), t = h - Q, E = max(E - R, t) and
+# F = max(F - R, t) (__viaddmax_s32): 6.  The hint kernel keeps a column
+# max and its row instead of S: a packed (score, row) key and its max, 7.
+# The kernels as written use two-operand int32 add/max: 10 and 13.
+OPS_PER_CELL, HINT_OPS_PER_CELL = 6, 7
+INT32_OPS_PER_CELL, HINT_INT32_OPS_PER_CELL = 10, 13
 
 KERNELS = {   # wrapper -> (source, TPU kernel it replaces)
     "build_dprofile_series": ("swipe_tpu_torch/csrc/dprofile.cu",
@@ -106,7 +116,8 @@ def swissprot_fasta(path: str, n: int, nq: int, qlen: int,
     residues.  Each query is a window of a database sequence with a
     fifth of its residues redrawn, and two more mutated copies are
     planted in other records, so every query has true homologs besides
-    the random hits.  Returns (residue count, query strings)."""
+    the random hits.  Returns (residue count, query strings, each
+    query's three homologous records: its source and the two copies)."""
     letters = np.frombuffer("".join(SWISSPROT_AA_PERCENT).encode(),
                             dtype=np.uint8)
     freqs = np.array(list(SWISSPROT_AA_PERCENT.values()))
@@ -135,7 +146,7 @@ def swissprot_fasta(path: str, n: int, nq: int, qlen: int,
     with open(path, "wb") as f:
         for i, (st, L) in enumerate(zip(starts.tolist(), lens.tolist())):
             f.write(b">s%d seq %d\n%s\n" % (i, i, blob[st:st + L]))
-    return int(lens.sum()), queries
+    return int(lens.sum()), queries, hosts.reshape(nq, 3).tolist()
 
 
 def swissprot_letters(n: int, rng: np.random.Generator) -> str:
@@ -200,6 +211,7 @@ def check_kernels(dev, report, nseqs=2048, nblocks=64, seed=1):
                 s = rng.integers(1, 26, size=int(rng.integers(1, L)),
                                  dtype=np.int8)
             dense[b, :len(s), j] = s
+    dense[:, :, -40:] = PAD_SYMBOL     # empty lanes, as in a bin's last warp
     starts = np.zeros((nb, 1024), np.int32)
     starts[:, 1::7] = rng.integers(0, 100, size=starts[:, 1::7].shape)
     args = [torch.from_numpy(a).to(dev) for a in
@@ -243,7 +255,7 @@ def search(dev, workdir, nseq, nq, card, seed=2):
     rng = np.random.default_rng(seed)
     t0 = time.time()
     path = os.path.join(workdir, "swissprot_like.fa")
-    residues, qstr = swissprot_fasta(path, nseq, nq, 200, rng)
+    residues, qstr, homologs = swissprot_fasta(path, nseq, nq, 200, rng)
     db = FastaDatabase(path, "aa", title="swissprot-like")
     os.remove(path)
     queries = [preprocess_query(f"q{i}", s, 1, 3)
@@ -277,16 +289,22 @@ def search(dev, workdir, nseq, nq, card, seed=2):
             raise RuntimeError(f"{fn} was not launched by the search")
 
     buf = io.StringIO()
-    for q, hl in zip(queries, hitlists):
+    for q, hl, homs in zip(queries, hitlists, homologs):
         Reporter(buf, 0, 1, engine.matrix.matrix, query=q).show(hl, "db")
         top = hl.hits[:20]
-        if len(top) < 3:       # at least the planted homologs
-            raise RuntimeError(f"{q.description}: only {len(top)} hits")
         want = [int(sw_numpy_many(q.aa[0], [h.dseq], engine.matrix.matrix,
                                   11, 1)[0]) for h in top]
         if [h.score for h in top] != want:
             raise RuntimeError(f"{q.description}: top scores "
                                f"{[h.score for h in top]} != oracle {want}")
+        # a lane or sequence the kernels dropped would lose a true hit
+        found = {h.seqno: h.score for h in hl.hits}
+        for rec in homs:
+            want = int(sw_numpy_many(q.aa[0], [db.get_sequence(rec, 1)[0]],
+                                     engine.matrix.matrix, 11, 1)[0])
+            if found.get(rec) != want:
+                raise RuntimeError(f"{q.description}: homolog s{rec} "
+                                   f"scored {found.get(rec)}, oracle {want}")
         for h in hl.hits[:hl.showalignments]:
             if h.score_align != h.score:
                 raise RuntimeError(f"{q.description}: seq {h.seqno} aligns "
@@ -295,8 +313,8 @@ def search(dev, workdir, nseq, nq, card, seed=2):
     log(f"search: scoring {timings.elapsed:.3f} s = {gcups:.1f} GCUPS "
         f"({cells} cells), align phase {wall - timings.elapsed:.3f} s, "
         f"wall {wall:.3f} s, report {len(buf.getvalue())} bytes; "
-        f"top scores ({sum(min(20, h.count) for h in hitlists)} hits) of "
-        f"{nq} queries equal the oracle [{card}]")
+        f"top scores ({sum(min(20, h.count) for h in hitlists)} hits) and "
+        f"3 homologs of each of {nq} queries equal the oracle [{card}]")
     stats = {"gcups": gcups, "scoring_s": timings.elapsed,
              "align_s": wall - timings.elapsed, "wall_s": wall,
              "cells": cells}
@@ -353,47 +371,71 @@ def _nbytes(*ts):
 
 
 def _work(name, args, kw, out):
-    """(bytes the function must move, int32 operations it must do) for
-    one call: inputs read once, outputs written once, cells counted at
-    the true query lengths."""
+    """(bytes the function must move, its least instruction count, its
+    two-operand int32 operation count) for one call: inputs read once,
+    outputs written once, the cells of the true query lengths against
+    the real residues (PAD columns excluded)."""
     if name == "build_dprofile_series":
         m8, db = args
-        return _nbytes(m8, db, out), 0
+        return _nbytes(m8, db, out), 0, 0
     if name == "sw_scores_stream":
         qc, ql, m8, db, start = args
-        cells = int(ql.sum()) * db.numel()
+        cells = int(ql.sum()) * int((db != PAD_SYMBOL).sum())
+        extra = kw.get("clamp") is not None          # one min a cell
         return (_nbytes(qc, ql, m8, db, start, kw.get("dprof"), out),
-                cells * (OPS_PER_CELL + (kw.get("clamp") is not None)))
+                cells * (OPS_PER_CELL + extra),
+                cells * (INT32_OPS_PER_CELL + extra))
     qc, ql, m8, db, starts = args
-    cells = int(ql.sum()) * db.shape[1] * db.shape[2]
-    return _nbytes(qc, ql, m8, db, starts, *out), cells * HINT_OPS_PER_CELL
+    residues = (db != PAD_SYMBOL).sum(dim=(1, 2))     # per bin
+    cells = int((ql.long() * residues).sum())
+    return (_nbytes(qc, ql, m8, db, starts, *out), cells * HINT_OPS_PER_CELL,
+            cells * HINT_INT32_OPS_PER_CELL)
+
+
+def time_without_profiles(args, kw, out, ms, report):
+    """K2 at the search's call with the scores looked up in the matrix in
+    shared memory, beside the profile path (K1 then K2)."""
+    kw0 = dict(kw, dprof=None)
+    _compare("sw_scores_stream", sw.sw_scores_stream(*args, **kw0), out,
+             report)
+    ms0 = _time(lambda: sw.sw_scores_stream(*args, **kw0), 5)
+    k1 = _time(lambda: sw.build_dprofile_series(args[2], args[3]), 5)
+    log(f"time: sw_scores_stream without profiles {ms0:.3f} ms; with "
+        f"profiles {ms:.3f} ms + build_dprofile_series {k1:.3f} ms = "
+        f"{ms + k1:.3f} ms")
 
 
 def time_kernels(calls, report):
     rows = {}
+    counts = {name: getattr(sw, name).launches for name in KERNELS}
     for name in KERNELS:
         args, kw = calls[name]
         fn = getattr(sw, name)
         plain = getattr(sw, name + "_plain")
-        n0 = fn.launches
         out = fn(*args, **kw)
         ref = plain(*args, **kw)          # also the plain version's warm-up
         _compare(name, out, ref, report)
         del ref
         ms = _time(lambda: fn(*args, **kw), 5)
         plain_ms = _time(lambda: plain(*args, **kw), 1, warm=False)
-        fn.launches = n0          # timing launches are not the path's
-        nbytes, ops = _work(name, args, kw, out)
+        nbytes, ops, int32_ops = _work(name, args, kw, out)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / INT32_OPS_PER_S * 1e3
+        ops_ms = ops / ISSUE_PER_S * 1e3
         rows[name] = dict(ms=ms, plain_ms=plain_ms,
                           bound_ms=max(bytes_ms, ops_ms),
                           bound_by="bytes" if bytes_ms >= ops_ms
                           else "operations")
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         log(f"time: {name} at {shapes}: {ms:.3f} ms, plain {plain_ms:.1f} "
-            f"ms, bound {rows[name]['bound_ms']:.3f} ms "
-            f"({rows[name]['bound_by']})")
+            f"ms, bound {rows[name]['bound_ms']:.4f} ms "
+            f"({rows[name]['bound_by']}; bytes {bytes_ms:.4f} ms, "
+            f"{ops} least instructions {ops_ms:.4f} ms; as two-operand "
+            f"int32 on the int32 pipe "
+            f"{int32_ops / INT32_OPS_PER_S * 1e3:.4f} ms)")
+        if name == "sw_scores_stream" and kw.get("dprof") is not None:
+            time_without_profiles(args, kw, out, ms, report)
+    for name, n in counts.items():      # timing launches are not the path's
+        getattr(sw, name).launches = n
     return rows
 
 

@@ -10,16 +10,24 @@
 //     only on a strict increase and only at columns >= the lane's first
 //     tracked column (starts[q, lane]);
 //   * bestq stays -1 when a lane never scores above 0.
-// Columns past a subject's end hold PAD (-128) and can never improve S.
+// Columns past a subject's end hold PAD (-128).  There a column's max
+// never rises (while above 0 it falls by min(R, 128) a column), so once
+// a lane is past its last residue and its first tracked column no column
+// can raise S: the lane stops at the block that holds the later of the
+// two.
 //
 // Design: as stream.cu -- one thread per (query bin, lane), the db
 // blocks walked in order, the 16 columns' previous-row H/F and their
 // column max and argmax row in registers, the last column's H/E per row
-// in a global scratch [NQ, QLEN, NSEQS].
+// in a global scratch [NQ, QLEN, NSEQS].  An align phase has few bins of
+// few subjects, so few warps run and nothing hides the latency of the
+// scratch: each row's H/E is loaded one row ahead, behind the current
+// row's 16 cells.
 //
-// Bound: operations, as stream.cu, plus one compare-select pair per cell
-// for the column max.  An align phase has few bins, so the grid of
-// NQ x NSEQS / 128 thread blocks is small and leaves most SMs idle.
+// Bound: latency.  A lane's qlen x length cells are one dependent chain
+// in one thread, so the longest subject sets the time; the roofline of
+// the real cells is far below it.  Spreading a subject's rows over a
+// warp is the lever.
 #include "sw_common.cuh"
 
 using namespace swipe;
@@ -45,8 +53,12 @@ hint_kernel(const int32_t* __restrict__ qcodes,
   int32_t* E = est + (long long)q * qlen_pad * n + lane;
   const int first = starts[q * n + lane];
 
+  int last = nblocks * KSEG - 1;     // the lane's last residue
+  while (last >= 0 && (dbq[last * n] & (NSYM - 1)) == PAD_SYMBOL) --last;
+  const int lane_blocks = min(max(last, first) / KSEG + 1, nblocks);
+
   int S = 0, bestq = -1, bestpos = 0;
-  for (int b = 0; b < nblocks; ++b) {
+  for (int b = 0; b < lane_blocks; ++b) {
     const bool fresh = b == 0;
     const int8_t* col = dbq + (long long)b * KSEG * n;
     int dsym[KSEG], hrow[KSEG], frow[KSEG], cm[KSEG], ra[KSEG];
@@ -58,11 +70,20 @@ hint_kernel(const int32_t* __restrict__ qcodes,
       cm[j] = 0;
       ra[j] = 0;
     }
+    int hnext = 0, enext = NEG_INF;
+    if (!fresh && qlen > 0) {
+      hnext = H[0];
+      enext = E[0];
+    }
     int d0 = 0;
     for (int i = 0; i < qlen; ++i) {
       const long long at = i * n;
-      const int hold = fresh ? 0 : H[at];
-      int e = fresh ? NEG_INF : E[at];
+      const int hold = hnext;
+      int e = enext;
+      if (!fresh && i + 1 < qlen) {
+        hnext = H[at + n];
+        enext = E[at + n];
+      }
       const int* mrow = m8s + (qc[i] & (NSYM - 1)) * NSYM;
       int diag = d0;
       int h = 0;

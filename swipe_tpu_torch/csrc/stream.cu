@@ -22,11 +22,14 @@
 // given, else from the matrix in shared memory indexed by the query
 // symbol and the column's db symbol.
 //
-// Bound: operations.  About ten int32 add/max per cell against one
-// profile read (4 bytes) and one byte of row state, so at full rate the
-// ALUs, not memory, set the pace; the simple design leaves the SMs
-// partly idle when NQ x NSEQS / 128 thread blocks do not fill the card
-// (tuning, DPX max-add and 16-bit lanes are later work).
+// Bound: operations.  As written a cell takes ten two-operand int32
+// add/max against one profile read (4 bytes, from L2) and one byte of row
+// state; with the DPX add-max instructions it would take six, and no SM
+// issues more than 128 thread instructions a clock, which sets the least
+// time (chip_smoke.py).  The simple design is far from it: a cell's
+// add/max form one dependent chain per thread, and NQ x NSEQS / 128
+// thread blocks leave few warps per SM to cover it (tuning, DPX and
+// 16-bit lanes are later work).
 //
 // Running exactly qlen rows is enough: the TPU kernel's round-up to 4
 // rows only added PAD rows, which decay and never raise S.

@@ -13,6 +13,7 @@ namespace swipe {
 
 constexpr int KSEG = 16;               // db columns per block
 constexpr int NSYM = 32;               // alphabet incl. PAD
+constexpr int PAD_SYMBOL = NSYM - 1;   // scores -128 against everything
 constexpr int NEG_INF = -(1 << 30);    // survives adds without overflow
 constexpr int THREADS = 128;           // lanes per thread block
 

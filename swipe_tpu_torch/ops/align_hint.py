@@ -42,8 +42,13 @@ NEG32 = -(1 << 28)
 # phase for -b 100 against long db sequences)
 DEVICE_CELLS = 50_000_000
 
-# lanes of one hint-kernel bin (subjects per bin at most)
-HINT_LANES = 1024
+# subjects of one hint-kernel bin at most (the kernel's domain, as in the
+# JAX package); a bin's lanes round up to whole warps and its columns to
+# whole blocks, nothing more
+MAX_BIN_SUBJECTS = 1024
+WARP = 32
+# footprint cap of one launch: bins x columns x lanes int8
+_LAUNCH_BYTES = 64 << 20
 
 
 def _span_bound(m: int, maxS: int, R: int) -> int | None:
@@ -86,8 +91,19 @@ def hint_endpoints_many(qseq: np.ndarray, dseqs: list[np.ndarray],
                        gapopen + gapextend, gapextend, device)
 
 
-# sub-batch footprint cap for the grid pass: bins x len_pad x lanes int8
-_GRID_BYTES = 64 << 20
+def _launch_dims(bins) -> tuple[int, int]:
+    """(columns, lanes) of one hint launch over ``bins`` [(qseq,
+    subjects)]: the longest subject rounded to whole blocks, the largest
+    bin to whole warps."""
+    from .sw_stream import KSEG
+    cols = max(len(d) for _, ds in bins for d in ds)
+    lanes = max(len(ds) for _, ds in bins)
+    return -(-cols // KSEG) * KSEG, -(-lanes // WARP) * WARP
+
+
+def _launch_bytes(bins) -> int:
+    cols, lanes = _launch_dims(bins)
+    return len(bins) * cols * lanes
 
 
 def hint_endpoints_grid(jobs, matrix, gapopen: int, gapextend: int,
@@ -97,12 +113,12 @@ def hint_endpoints_grid(jobs, matrix, gapopen: int, gapextend: int,
     ``jobs`` is a list of (qseq, dseqs) — one bin per (query, qstrand,
     qframe) of an align phase.  When ``device`` is CUDA, every bin in the
     kernel's domain rides the hint kernel's query axis
-    (ops.sw_stream.sw_hint_stream): bins are sorted by subject length,
-    grouped under a footprint cap, and each group is one launch.  A
-    couple of small bins (at most 4, at most DEVICE_CELLS cells) stay on
-    the host, where a launch would cost more than the pass.  Bins
-    outside the domain (non-int8 matrices, queries over 1024 rows, over
-    1024 subjects, subjects over the byte cap) take hint_endpoints_many.
+    (ops.sw_stream.sw_hint_stream): bins are sorted by subject length and
+    cut into launches under a footprint cap.  A couple of small bins (at
+    most 4, at most DEVICE_CELLS cells) stay on the host, where a launch
+    would cost more than the pass.  Bins outside the domain (non-int8
+    matrices, queries over 1024 rows, over MAX_BIN_SUBJECTS subjects,
+    over the footprint cap alone) take hint_endpoints_many.
     ``force_device`` takes the kernel route whatever the size and
     device — on a CPU ``device`` that is the kernel's plain version.
 
@@ -112,21 +128,15 @@ def hint_endpoints_grid(jobs, matrix, gapopen: int, gapextend: int,
     if not jobs:
         return results
     mat = np.asarray(matrix, dtype=np.int64).reshape(32, 32)
-    Q, R = gapopen + gapextend, gapextend
     on_dev = force_device or _on_cuda(device)
     batch = []
     total_cells = 0
     for bi, (q, dseqs) in enumerate(jobs):
-        lens = [len(d) for d in dseqs]
-        if (on_dev and _fits_kernel(mat, len(q)) and dseqs
-                and 0 < len(dseqs) <= HINT_LANES
-                # a single subject beyond _GRID_BYTES / HINT_LANES
-                # columns would form a one-bin group over the footprint
-                # cap: it takes the per-bin route instead
-                and (-(-max(lens) // 512) * 512) * HINT_LANES
-                <= _GRID_BYTES):
-            batch.append((bi, max(lens)))
-            total_cells += len(q) * sum(lens)
+        if (on_dev and _fits_kernel(mat, len(q))
+                and 0 < len(dseqs) <= MAX_BIN_SUBJECTS
+                and _launch_bytes([(q, dseqs)]) <= _LAUNCH_BYTES):
+            batch.append(bi)
+            total_cells += len(q) * sum(len(d) for d in dseqs)
         else:
             results[bi] = hint_endpoints_many(np.asarray(q), dseqs,
                                               matrix, gapopen, gapextend,
@@ -136,59 +146,62 @@ def hint_endpoints_grid(jobs, matrix, gapopen: int, gapextend: int,
     if not force_device and total_cells <= DEVICE_CELLS \
             and len(batch) <= 4:
         # a couple of small bins: the launch would dominate
-        for bi, _ in batch:
+        for bi in batch:
             q, dseqs = jobs[bi]
             results[bi] = hint_endpoints_many(np.asarray(q), dseqs,
                                               matrix, gapopen, gapextend,
                                               device)
         return results
 
+    # bins of like subject lengths share a launch, so a short bin is not
+    # padded to a long one's columns; in this order a bin added to a
+    # group is the group's widest yet
+    def launch(group):
+        out = _hint_launch([jobs[i] for i in group], mat,
+                           gapopen + gapextend, gapextend, device)
+        for i, r in zip(group, out):
+            results[i] = r
+
+    batch.sort(key=lambda bi: max(len(d) for d in jobs[bi][1]))
+    group: list[int] = []
+    lanes = 0
+    for bi in batch:
+        cols, n = _launch_dims([jobs[bi]])
+        if group and (len(group) + 1) * cols * max(lanes, n) \
+                > _LAUNCH_BYTES:
+            launch(group)
+            group, lanes = [], 0
+        group.append(bi)
+        lanes = max(lanes, n)
+    launch(group)
+    return results
+
+
+def _hint_launch(bins, mat, Q, R, device):
+    """One hint-kernel launch over ``bins`` [(qseq, subjects)]: bin b's
+    subject i in lane (b, i), PAD-padded to _launch_dims.  Returns each
+    bin's [(S, bestq, bestpos)]."""
     import torch
 
     from ..batching import PAD_SYMBOL
     from .sw_stream import build_matrix8, build_qcodes, sw_hint_stream
 
+    cols, lanes = _launch_dims(bins)
+    qc, ql = build_qcodes([np.asarray(q) for q, _ in bins],
+                          max(len(q) for q, _ in bins))
+    dense = np.full((len(bins), cols, lanes), PAD_SYMBOL, dtype=np.int8)
+    for b, (_, ds) in enumerate(bins):
+        for i, d in enumerate(ds):
+            dense[b, : len(d), i] = np.asarray(d, dtype=np.int8)
     dev = torch.device("cpu" if device is None else device)
-    m8 = torch.from_numpy(build_matrix8(mat)).to(dev)
-    # sort by subject length so same-scale bins share a group; columns
-    # round to 512 and the bin count to a power of two (pad bins repeat
-    # bin 0's query over all-PAD lanes; their results are dropped)
-    batch.sort(key=lambda t: t[1])
-    i = 0
-    while i < len(batch):
-        group = [batch[i]]
-        len_pad = -(-batch[i][1] // 512) * 512
-        i += 1
-        while i < len(batch):
-            lp = -(-batch[i][1] // 512) * 512
-            npad = 1 << len(group).bit_length()     # padded size if added
-            if lp * HINT_LANES * npad > _GRID_BYTES:
-                break
-            len_pad = lp
-            group.append(batch[i])
-            i += 1
-        qlen_pad = max(128, -(-max(len(jobs[bi][0])
-                                   for bi, _ in group) // 128) * 128)
-        nb = len(group)
-        nbp = 1 << (nb - 1).bit_length() if nb > 1 else 1
-        qlist = [np.asarray(jobs[bi][0]) for bi, _ in group]
-        qlist += [qlist[0]] * (nbp - nb)
-        qc, ql = build_qcodes(qlist, qlen_pad)
-        dense = np.full((nbp, len_pad, HINT_LANES), PAD_SYMBOL,
-                        dtype=np.int8)
-        for gi, (bi, _) in enumerate(group):
-            for j, d in enumerate(jobs[bi][1]):
-                dense[gi, : len(d), j] = np.asarray(d, dtype=np.int8)
-        starts = np.zeros((nbp, HINT_LANES), dtype=np.int32)
-        S, bq, bp = (t.cpu().numpy() for t in sw_hint_stream(
-            torch.from_numpy(qc).to(dev), torch.from_numpy(ql).to(dev), m8,
-            torch.from_numpy(dense).to(dev), torch.from_numpy(starts).to(dev),
-            gapopenextend=int(Q), gapextend=int(R)))
-        for gi, (bi, _) in enumerate(group):
-            n = len(jobs[bi][1])
-            results[bi] = [(int(S[gi, j]), int(bq[gi, j]), int(bp[gi, j]))
-                           for j in range(n)]
-    return results
+    S, bq, bp = (t.cpu().numpy() for t in sw_hint_stream(
+        torch.from_numpy(qc).to(dev), torch.from_numpy(ql).to(dev),
+        torch.from_numpy(build_matrix8(mat)).to(dev),
+        torch.from_numpy(dense).to(dev),
+        torch.zeros((len(bins), lanes), dtype=torch.int32, device=dev),
+        gapopenextend=int(Q), gapextend=int(R)))
+    return [[(int(S[b, i]), int(bq[b, i]), int(bp[b, i]))
+             for i in range(len(ds))] for b, (_, ds) in enumerate(bins)]
 
 
 def _hint_batch(q, dseqs, mat, Q, R, device=None):
@@ -198,12 +211,12 @@ def _hint_batch(q, dseqs, mat, Q, R, device=None):
     m = len(q)
     maxlen = int(lens.max())
 
-    # the kernel route pads the bin to HINT_LANES-lane groups; one
-    # chromosome-scale subject (over 512 MB of padded lanes) stays on
-    # the host instead
+    # the kernel route: one launch holds the bin; a chromosome-scale
+    # subject (over 512 MB of padded lanes) stays on the host instead
     if (n * maxlen * m > DEVICE_CELLS and _on_cuda(device)
-            and _fits_kernel(mat, m) and maxlen * HINT_LANES <= (512 << 20)):
-        return _hint_endpoints_kernel(q, dseqs, lens, mat, Q, R, device)
+            and _fits_kernel(mat, m)
+            and _launch_bytes([(q, dseqs)]) <= (512 << 20)):
+        return _hint_launch([(q, dseqs)], mat, Q, R, device)[0]
 
     QP = mat[q, :].T.astype(np.int32)                 # (32, m)
     dense = np.zeros((n, maxlen), dtype=np.int8)
@@ -240,31 +253,3 @@ def _hint_batch(q, dseqs, mat, Q, R, device=None):
         H = np.where(active[:, None], H, 0)
         E = np.where(active[:, None], E, NEG32)
     return [(int(S[i]), int(bestq[i]), int(bestpos[i])) for i in range(n)]
-
-
-def _hint_endpoints_kernel(q, dseqs, lens, mat, Q, R, device):
-    """Hint-kernel route for one bin of any size: one subject per lane,
-    lanes in HINT_LANES groups that ride the kernel's query axis."""
-    import torch
-
-    from ..batching import PAD_SYMBOL
-    from .sw_stream import build_matrix8, build_qcodes, sw_hint_stream
-
-    n = len(dseqs)
-    ng = -(-n // HINT_LANES)
-    len_pad = -(-int(lens.max()) // 2048) * 2048
-    qlen_pad = max(128, -(-len(q) // 128) * 128)
-    qc, ql = build_qcodes([np.asarray(q)] * ng, qlen_pad)
-    dense = np.full((ng * HINT_LANES, len_pad), PAD_SYMBOL, dtype=np.int8)
-    for i, d in enumerate(dseqs):
-        dense[i, : len(d)] = np.asarray(d, dtype=np.int8)
-    dense = dense.reshape(ng, HINT_LANES, len_pad).transpose(0, 2, 1)
-    st = np.zeros((ng, HINT_LANES), dtype=np.int32)
-    dev = torch.device(device)
-    S, bq, bp = (t.cpu().numpy().reshape(-1) for t in sw_hint_stream(
-        torch.from_numpy(qc).to(dev), torch.from_numpy(ql).to(dev),
-        torch.from_numpy(build_matrix8(mat)).to(dev),
-        torch.from_numpy(np.ascontiguousarray(dense)).to(dev),
-        torch.from_numpy(st).to(dev),
-        gapopenextend=int(Q), gapextend=int(R)))
-    return [(int(S[i]), int(bq[i]), int(bp[i])) for i in range(n)]

@@ -73,6 +73,7 @@ def test_hint_kernel_matches_plain(dev, chunk):
             s = np.concatenate([q, q]) if j % 2 else rng.integers(
                 1, 26, size=int(rng.integers(1, 256)), dtype=np.int8)
             db[b, :len(s), j] = s[:256]
+    db[:, :, -40:] = 31                 # empty lanes
     starts = np.zeros((2, 1024), np.int32)
     starts[:, 3::5] = 17
     args = [torch.from_numpy(a).to(dev)
@@ -84,6 +85,23 @@ def test_hint_kernel_matches_plain(dev, chunk):
                                        gapextend=R)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+def test_hint_grid_route_on_card_matches_host_pass(dev):
+    from swipe_tpu_torch.ops import align_hint
+    rng = np.random.default_rng(4)
+    m = ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix
+    jobs = []
+    for nsub in (1, 5, 33, 70, 16, 2):       # over 4 bins: the kernel route
+        q = rng.integers(1, 26, size=int(rng.integers(20, 200)),
+                         dtype=np.int8)
+        jobs.append((q, [rng.integers(1, 26, size=int(n), dtype=np.int8)
+                         for n in rng.integers(1, 900, size=nsub)]))
+    n = sw.sw_hint_stream.launches
+    got = align_hint.hint_endpoints_grid(jobs, m, 11, 1, device=dev)
+    assert sw.sw_hint_stream.launches > n
+    assert got == [align_hint.hint_endpoints_many(q, subs, m, 11, 1)
+                   for q, subs in jobs]
 
 
 def test_engine_on_card_matches_cpu(dev):

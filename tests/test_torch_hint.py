@@ -127,3 +127,33 @@ def test_hint_host_passes_match_jax():
     q, subs = _bins(rng, 1, 16, 10, 40, 1, 60)[0]
     assert tah.hint_endpoints_many(q, subs, m.matrix, 11, 1) == \
         jah.hint_endpoints_many(q, subs, m.matrix, 11, 1)
+
+
+def test_hint_kernel_routes_split_launches_and_single_bin(monkeypatch):
+    # on the kernel's plain version: bins cut into several launches under
+    # the footprint cap, and one large bin on the per-bin route
+    m = ScoreMatrix.builtin("BLOSUM62", gapopen=11, gapextend=1)
+    rng = np.random.default_rng(7)
+    jobs = _bins(rng, 4, 10, 10, 40, 1, 70)
+    want = [jah.hint_endpoints_many(q, subs, m.matrix, 11, 1)
+            for q, subs in jobs]
+    calls, kernel = [], tsw.sw_hint_stream
+
+    def counted(*a, **k):
+        calls.append(tuple(a[3].shape))
+        return kernel(*a, **k)
+
+    monkeypatch.setattr(tah, "_LAUNCH_BYTES", 2 * 80 * 32)
+    monkeypatch.setattr(tsw, "sw_hint_stream", counted)
+    got = tah.hint_endpoints_grid(jobs, m.matrix, 11, 1, device="cpu",
+                                  force_device=True)
+    assert got == want
+    # columns round to whole blocks, lanes to a warp: 2 bins a launch
+    assert len(calls) == 2 and all(c[1] % 16 == 0 and c[2] == 32
+                                   for c in calls)
+    monkeypatch.setattr(tah, "_on_cuda", lambda device: True)
+    monkeypatch.setattr(tah, "DEVICE_CELLS", 0)
+    q, subs = jobs[0]
+    assert tah.hint_endpoints_many(q, subs, m.matrix, 11, 1,
+                                   device="cpu") == want[0]
+    assert len(calls) == 3
