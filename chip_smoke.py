@@ -4,33 +4,65 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. build   — compile the CUDA kernels (nvcc, sm_90a) and the host library
-             from the sources in this checkout;
-2. check   — hold each kernel against its plain PyTorch version on the
-             card, exact equality (integer DP): the profile build and the
-             stream kernel on a 2048-lane, 64-block chunk with 4 queries of
-             32-512 rows (with and without profiles, with a clamp), the
-             hint kernel on 1024-lane bins with forced ties;
-3. search  — the port's normal entry points (FastaDatabase ->
-             SearchEngine.search_batch -> Reporter) on a Swiss-Prot-scale
-             database: 570,000 random sequences with the published
-             Swiss-Prot composition and length model, 16 queries of
-             200 aa, BLOSUM62 11/1, -v 250 -b 100.  Every kernel's launch
-             count must be > 0; the top 20 hit scores of every query and
-             the scores of its three planted homologs must equal the
-             NumPy oracle, and every shown alignment must re-walk to its
-             hit's score.  The search then runs once more under
-             torch.profiler for the device time by kernel and the busy
-             share;
-4. time    — each kernel, its plain version and its bound at the inputs of
-             its largest launch in the search (the kernel is held against
-             its plain version there too), and the stream kernel there
-             without profiles too.  The bound counts the real cells and
-             the least instructions a cell takes on sm_90a;
-5. cli     — ``python -m swipe_tpu_torch -m 8`` on a small FASTA database.
+1. build    — compile the CUDA kernels (nvcc, sm_90a, one process per
+              source) and the host library from the sources in this
+              checkout;
+2. check    — hold each kernel against its plain PyTorch version on the
+              card, exact equality (integer DP): the profile build and the
+              stream kernel on a 2048-lane, 64-block chunk with 4 queries
+              of 32-512 rows (with and without profiles, with a clamp), the
+              hint kernel on 1024-lane bins with forced ties, the carry
+              kernel over a 2048-lane flow series (lane permutes, a
+              narrowing drain, no carry-in at its head, no carry-out at its
+              tail) and a compact carry series, every chunk's dump and
+              carried state, and the wavefront kernel over a 3-segment
+              giant with hits and a gap across the segment cuts;
+3. search   — the port's normal entry points (FastaDatabase ->
+              SearchEngine.search_batch -> Reporter) on a Swiss-Prot-scale
+              database: 570,000 random sequences with the published
+              Swiss-Prot composition and length model, 16 queries of
+              200 aa, BLOSUM62 11/1, -v 250 -b 100 (the plain-pack route).
+              The top 20 hit scores of every query and the scores of its
+              three planted homologs must equal the NumPy oracle, and every
+              shown alignment must re-walk to its hit's score.  The search
+              then runs once more under torch.profiler for the device time
+              by kernel and the busy share;
+4. proteome — the flow route: 20,000 sequences from the same model (the
+              size of UniProt's human reference proteome, UP000005640)
+              plus one of 35,213 aa (the model's titin-length clip); the
+              same queries' shape, scoring and checks;
+5. genome   — blastn, +1/-3, gaps 5/2, 16 queries of 500 nt, against one
+              chromosome of E. coli K-12 MG1655's length (4,641,652 bp,
+              NC_000913.3) at its GC share (50.8%), synthesised from a
+              seed, beside 4,000 gene-length records (200-3,000 nt) cut
+              from it: the chromosome takes the segmented giant route, the
+              genes the plain pack.  Each query has mutated copies planted
+              on both strands of the chromosome, one of them inside a gene;
+6. tblastn  — the same database under tblastn (db_gencode 11), 16 queries
+              of 400 aa with mutated back-translated copies planted the
+              same way: the six chromosome frames take the wavefront
+              kernel; then the same search with WAVEFRONT_MAX_GIANTS = 0
+              (the carry series), whose hit list must be the same.
+              Chromosome hits are held against the oracle over a window
+              of +-2 query lengths around each plant, gene hits against
+              the oracle over the whole gene;
+7. time     — every kernel a search launched held against its plain
+              version at that search's largest call of it (the inputs as
+              they came in, exact equality), so each path is checked at its
+              own shapes; then each kernel's time and bound at its largest
+              call over all the searches, its plain version's time at that
+              call, and the stream kernel there without profiles too.  The
+              bound counts the real cells and the least instructions a cell
+              takes on sm_90a;
+8. cli      — ``python -m swipe_tpu_torch -m 8`` on a small FASTA database.
 
-The last three lines are the kernels' JSON record, the card's name and
-power limit (nvidia-smi), and the result line.
+Every search phase sets the launch counts to 0 before it runs and reads
+them after; each kernel its route runs must have launched.  Each search
+also splits its align phase into host seconds by step (finalize, fetch
+and bin, the hint pass with the hint kernel's share, traceback).  The
+last three
+lines are the kernels' JSON record, the card's name and power limit
+(nvidia-smi), and the result line.
 """
 
 from __future__ import annotations
@@ -47,11 +79,16 @@ import numpy as np
 import torch
 
 from swipe_tpu_torch import _build
-from swipe_tpu_torch.batching import PAD_SYMBOL, pack_stream
+from swipe_tpu_torch.alphabet import GENETIC_CODES
+from swipe_tpu_torch.hits import HitList
+from swipe_tpu_torch.batching import (PAD_SYMBOL, pack_stream,
+                                      pack_stream_carry, pack_stream_flow)
 from swipe_tpu_torch.io.db import FastaDatabase
 from swipe_tpu_torch.io.fasta import preprocess_query
 from swipe_tpu_torch.matrices import ScoreMatrix
+from swipe_tpu_torch.ops import align_hint
 from swipe_tpu_torch.ops import sw_stream as sw
+from swipe_tpu_torch.ops import sw_wavefront as wf
 from swipe_tpu_torch.ops.sw_ref import sw_numpy_many
 from swipe_tpu_torch.pipeline import SearchEngine, SearchParams, SearchTimings
 from swipe_tpu_torch.report import Reporter
@@ -87,14 +124,33 @@ INT32_OPS_PER_S = 67e12 / 4
 OPS_PER_CELL, HINT_OPS_PER_CELL = 6, 7
 INT32_OPS_PER_CELL, HINT_INT32_OPS_PER_CELL = 10, 13
 
-KERNELS = {   # wrapper -> (source, TPU kernel it replaces)
-    "build_dprofile_series": ("swipe_tpu_torch/csrc/dprofile.cu",
+KERNELS = {   # wrapper -> (its module, source, TPU kernel it replaces)
+    "build_dprofile_series": (sw, "swipe_tpu_torch/csrc/dprofile.cu",
                               "swipe_tpu/ops/sw_stream.py:154"),
-    "sw_scores_stream": ("swipe_tpu_torch/csrc/stream.cu",
+    "sw_scores_stream": (sw, "swipe_tpu_torch/csrc/stream.cu",
                          "swipe_tpu/ops/sw_stream.py:568"),
-    "sw_hint_stream": ("swipe_tpu_torch/csrc/hint.cu",
+    "sw_scores_stream_carry": (sw, "swipe_tpu_torch/csrc/stream.cu",
+                               "swipe_tpu/ops/sw_stream.py:733"),
+    "sw_hint_stream": (sw, "swipe_tpu_torch/csrc/hint.cu",
                        "swipe_tpu/ops/sw_stream.py:990"),
+    "sw_wavefront": (wf, "swipe_tpu_torch/csrc/wavefront.cu",
+                     "swipe_tpu/ops/sw_wavefront.py:227"),
 }
+# state arguments each wrapper updates in place (cloned before a replay)
+STATE_ARGS = {"sw_scores_stream_carry": (5, 6, 7), "sw_wavefront": (2, 3, 4)}
+# the align phase's steps, timed on the host in every search: step ->
+# (owner, attribute); the hint kernel's seconds are part of the hint pass
+ALIGN_STEPS = {"finalize": (HitList, "finalize"),
+               "fetch_and_bin": (HitList, "align_prepare"),
+               "hint_pass": (align_hint, "hint_endpoints_grid"),
+               "hint_kernel": (sw, "sw_hint_stream"),
+               "traceback": (HitList, "align_finish")}
+
+# E. coli K-12 MG1655 (NCBI NC_000913.3): length and GC share
+ECOLI_BP, ECOLI_GC = 4_641_652, 0.508
+# the genome searches: gene records beside the chromosome, queries and
+# their lengths (blastn nucleotides, tblastn residues)
+GENOME_GENES, GENOME_QUERIES, NT_QUERY_LEN, AA_QUERY_LEN = 4000, 16, 500, 400
 
 
 def log(msg: str) -> None:
@@ -110,23 +166,26 @@ def card_line() -> str:
 
 
 def swissprot_fasta(path: str, n: int, nq: int, qlen: int,
-                    rng: np.random.Generator):
+                    rng: np.random.Generator, longest: int | None = None):
     """Write n Swiss-Prot-like protein records to ``path`` (one line per
     sequence; all residues from one draw) and make nq queries of qlen
     residues.  Each query is a window of a database sequence with a
     fifth of its residues redrawn, and two more mutated copies are
     planted in other records, so every query has true homologs besides
-    the random hits.  Returns (residue count, query strings, each
-    query's three homologous records: its source and the two copies)."""
+    the random hits.  ``longest`` sets the last record's length.
+    Returns (residue count, query strings, each query's three homologous
+    records: its source and the two copies)."""
     letters = np.frombuffer("".join(SWISSPROT_AA_PERCENT).encode(),
                             dtype=np.uint8)
     freqs = np.array(list(SWISSPROT_AA_PERCENT.values()))
     freqs /= freqs.sum()
     lens = np.clip(rng.lognormal(LEN_MU, LEN_SIGMA, n).astype(np.int64),
                    LEN_MIN, LEN_MAX)
+    if longest is not None:
+        lens[-1] = longest
     res = rng.choice(letters, size=int(lens.sum()), p=freqs)
     starts = np.cumsum(lens) - lens
-    hosts = rng.choice(np.flatnonzero(lens >= qlen), size=3 * nq,
+    hosts = rng.choice(np.flatnonzero(lens[:n - 1] >= qlen), size=3 * nq,
                        replace=False)
 
     def mutate(seq):
@@ -170,6 +229,7 @@ def _compare(name, got, want, report):
     r["max_abs_err"] = max(r["max_abs_err"], err)
     r["mismatches"] += bad
     r["launches"] += 1        # one kernel launch per comparison
+    return err
 
 
 def check_kernels(dev, report, nseqs=2048, nblocks=64, seed=1):
@@ -221,29 +281,125 @@ def check_kernels(dev, report, nseqs=2048, nblocks=64, seed=1):
         kw = dict(gapopenextend=go + 1, gapextend=1)
         _compare("sw_hint_stream", sw.sw_hint_stream(*args, **kw),
                  sw.sw_hint_stream_plain(*args, **kw), report)
+    check_carry(dev, m8, qc, ql, rng, report)
+    check_wavefront(dev, m8, rng, report)
     sync(dev)
 
 
-# ---- phase 3: the search ---------------------------------------------------
+def check_carry(dev, m8, qc, ql, rng, report):
+    """K3 over a 2048-lane flow series (cut chains continued on permuted
+    lanes, a drain narrowed to 1024 lanes, no carry-in at the head, no
+    carry-out at the tail, profiles on) and a compact carry series (two
+    giants cut across chunks, the state at the compact width rounded to a
+    warp): every chunk's dump and carried (h, e, s)."""
+    lens = np.concatenate([rng.integers(5, 300, 6000), [3000, 2100],
+                           [700] * 1100])
+    seqs = [rng.integers(1, 26, size=int(n), dtype=np.int8) for n in lens]
+    flow = pack_stream_flow(seqs, nseqs=2048, max_cols=256, drain_cols=128)
+    giants = [rng.integers(1, 26, size=int(n), dtype=np.int8)
+              for n in [20000, 15000] + list(rng.integers(1, 900, 40))]
+    carry = pack_stream_carry(giants, nseqs=1024, max_cols=2048)
+    if {c.nseqs for c in flow} != {1024, 2048} or len(carry) < 3:
+        raise RuntimeError("check: the K3 series lack a drain or chunks")
+    for chunks, width, profiles in ((flow, 2048, True), (carry, 64, False)):
+        got = sw.make_stream_state(qc.shape[0], qc.shape[1], width, dev)
+        want = tuple(x.clone() for x in got)
+        for i, ch in enumerate(chunks):
+            if i and profiles:
+                src = torch.from_numpy(ch.carry_src).to(dev)
+                got = sw.permute_stream_state(*got, src)
+                want = sw.permute_stream_state(*want, src)
+            data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
+                                                 ch.end_block, ch.lane, dev)
+            kw = dict(gapopenextend=12, gapextend=1, carry_in=i > 0,
+                      carry_out=i < len(chunks) - 1,
+                      dprof=sw.build_dprofile_series(m8, data)
+                      if profiles else None)
+            d1, *got = sw.sw_scores_stream_carry(qc, ql, m8, data, start,
+                                                 *got, **kw)
+            d2, *want = sw.sw_scores_stream_carry_plain(
+                qc, ql, m8, data, start, *want, **kw)
+            _compare("sw_scores_stream_carry", (d1, *got), (d2, *want),
+                     report)
 
-def record_calls(names):
+
+def check_wavefront(dev, m8, rng, report):
+    """K7 over a giant in three 4-strip segments (SEG_STRIPS cut down),
+    hits and a gap across the segment cuts, queries of 40, 300 and 1000
+    rows: the running max of the series and one segment's H/E rows."""
+    qs = [rng.integers(1, 26, size=n, dtype=np.int8) for n in (40, 300, 1000)]
+    seq = rng.integers(1, 26, size=10000, dtype=np.int8)
+    seq[4080:4120] = qs[0]
+    seq[8000:8150] = qs[1][:150]
+    seq[8160:8310] = qs[1][150:]                # after a 10-column gap
+    mq = torch.from_numpy(wf.build_mq(sw.build_qcodes(qs, 1024)[0],
+                                      m8.cpu().numpy())).to(dev)
+    kw = dict(gapopenextend=12, gapextend=1)
+    seg_strips, wf.SEG_STRIPS = wf.SEG_STRIPS, 4
+    try:
+        if len(wf._segments(len(seq))) != 3:
+            raise RuntimeError("check: the wavefront giant is not 3 segments")
+        got = wf.sw_wavefront_scores(mq, seq, **kw)
+    finally:
+        wf.SEG_STRIPS = seg_strips
+    dbd = torch.from_numpy(seq).to(dev)
+    want = wf.sw_wavefront_plain(mq, dbd, *wf.make_wavefront_state(3, 1024,
+                                                                   dev), **kw)
+    _compare("sw_wavefront", got, want[2], report)
+    a = wf.make_wavefront_state(3, 1024, dev)
+    b = tuple(x.clone() for x in a)
+    wf.sw_wavefront(mq, dbd[:4096], *a, **kw)
+    wf.sw_wavefront_plain(mq, dbd[:4096], *b, **kw)
+    _compare("sw_wavefront", a, b, report)
+
+
+# ---- phases 3-6: the searches ----------------------------------------------
+
+def record_calls(label, calls):
     """Wrap the kernel wrappers so each one's arguments at its largest
-    call are kept for the timing phase; the wrapped functions (and their launch counts)
-    are the originals."""
-    calls, sizes = {}, {}
-
+    call in the search ``label`` (by the elements of its tensor arguments)
+    are kept in ``calls[label, name]`` for the timing phase, the state it
+    updates in place cloned as it came in.  The wrapped functions (and
+    their launch counts) are the originals.  Returns the originals."""
     def wrap(name, fn):
         def recorded(*a, **k):
-            size = max(t.numel() for t in a if torch.is_tensor(t))
-            if size >= sizes.get(name, 0):   # keep the largest call
-                calls[name], sizes[name] = (a, k), size
+            size = sum(t.numel() for t in a if torch.is_tensor(t))
+            if size >= calls.get((label, name), (0,))[0]:
+                calls[label, name] = (size, _fresh(name, a), k)
             return fn(*a, **k)
         return recorded
 
-    originals = {n: getattr(sw, n) for n in names}
+    originals = {n: getattr(mod, n) for n, (mod, _, _) in KERNELS.items()}
     for n, fn in originals.items():
-        setattr(sw, n, wrap(n, fn))
-    return calls, originals
+        setattr(KERNELS[n][0], n, wrap(n, fn))
+    return originals
+
+
+def time_steps(split, dev):
+    """Wrap the align phase's steps (ALIGN_STEPS) so their host seconds
+    add up in ``split``; the hint kernel's are taken to its end on the
+    card.  Returns the originals."""
+    def wrap(step, fn):
+        def timed(*a, **k):
+            if step == "hint_kernel":
+                sync(dev)
+            t = time.time()
+            try:
+                return fn(*a, **k)
+            finally:
+                if step == "hint_kernel":
+                    sync(dev)
+                split[step] = split.get(step, 0.0) + time.time() - t
+        return timed
+
+    originals = {s: getattr(o, a) for s, (o, a) in ALIGN_STEPS.items()}
+    for s, fn in originals.items():
+        setattr(ALIGN_STEPS[s][0], ALIGN_STEPS[s][1], wrap(s, fn))
+    return originals
+
+
+def launch_counts():
+    return {n: getattr(mod, n).launches for n, (mod, _, _) in KERNELS.items()}
 
 
 def sync(dev) -> None:
@@ -251,7 +407,72 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def search(dev, workdir, nseq, nq, card, seed=2):
+def run_search(label, engine, queries, expect, calls):
+    """One search through the port's entry point with the launch counts
+    set to 0 before it and read after it; every kernel in ``expect`` must
+    have launched.  Returns (hit lists, timings, wall seconds, launch
+    counts, the align phase's host seconds by step)."""
+    for n, (mod, _, _) in KERNELS.items():
+        getattr(mod, n).launches = 0
+    originals = record_calls(label, calls)
+    split: dict = {}
+    steps = time_steps(split, engine.device)
+    try:
+        timings = SearchTimings()
+        sync(engine.device)
+        w0 = time.time()
+        hitlists = engine.search_batch(queries, timings)
+        sync(engine.device)
+        wall = time.time() - w0
+    finally:
+        for s, fn in steps.items():
+            setattr(ALIGN_STEPS[s][0], ALIGN_STEPS[s][1], fn)
+        for n, fn in originals.items():
+            setattr(KERNELS[n][0], n, fn)
+    launches = launch_counts()
+    log(f"{label}: launches {json.dumps(launches)}; align phase by step "
+        f"{json.dumps(split)}")
+    for fn in expect:
+        if launches[fn] <= 0:
+            raise RuntimeError(f"{label}: {fn} was not launched")
+    return hitlists, timings, wall, launches, split
+
+
+def check_alignments(label, q, hl):
+    for h in hl.hits[:hl.showalignments]:
+        if h.score_align != h.score:
+            raise RuntimeError(f"{label} {q.description}: seq {h.seqno} "
+                               f"aligns to {h.score_align}, scored {h.score}")
+
+
+def check_protein_hits(label, db, engine, queries, hitlists, homologs):
+    """Top 20 hit scores and each query's planted homologs against the
+    NumPy oracle; every shown alignment re-walks to its score.  Returns
+    the report's bytes."""
+    buf = io.StringIO()
+    for q, hl, homs in zip(queries, hitlists, homologs):
+        Reporter(buf, 0, 1, engine.matrix.matrix, query=q).show(hl, "db")
+        top = hl.hits[:20]
+        want = [int(sw_numpy_many(q.aa[0], [h.dseq], engine.matrix.matrix,
+                                  11, 1)[0]) for h in top]
+        if [h.score for h in top] != want:
+            raise RuntimeError(f"{label} {q.description}: top scores "
+                               f"{[h.score for h in top]} != oracle {want}")
+        # a lane or sequence the kernels dropped would lose a true hit
+        found = {h.seqno: h.score for h in hl.hits}
+        for rec in homs:
+            want = int(sw_numpy_many(q.aa[0], [db.get_sequence(rec, 1)[0]],
+                                     engine.matrix.matrix, 11, 1)[0])
+            if found.get(rec) != want:
+                raise RuntimeError(f"{label} {q.description}: homolog "
+                                   f"s{rec} scored {found.get(rec)}, oracle "
+                                   f"{want}")
+        check_alignments(label, q, hl)
+    return len(buf.getvalue())
+
+
+def search(dev, workdir, nseq, nq, card, calls, seed=2):
+    """Phase 3: the Swiss-Prot-scale search on the plain-pack route."""
     rng = np.random.default_rng(seed)
     t0 = time.time()
     path = os.path.join(workdir, "swissprot_like.fa")
@@ -267,59 +488,307 @@ def search(dev, workdir, nseq, nq, card, seed=2):
     log(f"search: {nseq} sequences, {residues} residues, {nq} queries of "
         f"200 aa; data {t1 - t0:.1f} s, pack {t2 - t1:.1f} s, "
         f"{len(engine.chunks)} chunks of {engine.chunks[0].nseqs} lanes")
-
-    for fn in KERNELS:
-        getattr(sw, fn).launches = 0
-    calls, originals = record_calls(KERNELS)
-    try:
-        timings = SearchTimings()
-        sync(dev)
-        w0 = time.time()
-        hitlists = engine.search_batch(queries, timings)
-        sync(dev)
-        wall = time.time() - w0
-    finally:
-        for n, fn in originals.items():
-            setattr(sw, n, fn)
-    launches = {fn: getattr(sw, fn).launches for fn in KERNELS}
+    hitlists, timings, wall, launches, split = run_search(
+        "search", engine, queries,
+        ("build_dprofile_series", "sw_scores_stream", "sw_hint_stream"),
+        calls)
+    nbytes = check_protein_hits("search", db, engine, queries, hitlists,
+                                homologs)
     cells = residues * 200 * nq
-    log(f"search: launches {json.dumps(launches)}")
-    for fn, n in launches.items():
-        if n <= 0:
-            raise RuntimeError(f"{fn} was not launched by the search")
-
-    buf = io.StringIO()
-    for q, hl, homs in zip(queries, hitlists, homologs):
-        Reporter(buf, 0, 1, engine.matrix.matrix, query=q).show(hl, "db")
-        top = hl.hits[:20]
-        want = [int(sw_numpy_many(q.aa[0], [h.dseq], engine.matrix.matrix,
-                                  11, 1)[0]) for h in top]
-        if [h.score for h in top] != want:
-            raise RuntimeError(f"{q.description}: top scores "
-                               f"{[h.score for h in top]} != oracle {want}")
-        # a lane or sequence the kernels dropped would lose a true hit
-        found = {h.seqno: h.score for h in hl.hits}
-        for rec in homs:
-            want = int(sw_numpy_many(q.aa[0], [db.get_sequence(rec, 1)[0]],
-                                     engine.matrix.matrix, 11, 1)[0])
-            if found.get(rec) != want:
-                raise RuntimeError(f"{q.description}: homolog s{rec} "
-                                   f"scored {found.get(rec)}, oracle {want}")
-        for h in hl.hits[:hl.showalignments]:
-            if h.score_align != h.score:
-                raise RuntimeError(f"{q.description}: seq {h.seqno} aligns "
-                                   f"to {h.score_align}, scored {h.score}")
     gcups = cells / timings.elapsed / 1e9
     log(f"search: scoring {timings.elapsed:.3f} s = {gcups:.1f} GCUPS "
         f"({cells} cells), align phase {wall - timings.elapsed:.3f} s, "
-        f"wall {wall:.3f} s, report {len(buf.getvalue())} bytes; "
+        f"wall {wall:.3f} s, report {nbytes} bytes; "
         f"top scores ({sum(min(20, h.count) for h in hitlists)} hits) and "
         f"3 homologs of each of {nq} queries equal the oracle [{card}]")
     stats = {"gcups": gcups, "scoring_s": timings.elapsed,
-             "align_s": wall - timings.elapsed, "wall_s": wall,
-             "cells": cells}
+             "align_s": wall - timings.elapsed, "align_steps_s": split,
+             "wall_s": wall, "cells": cells}
     stats["profile"] = profile_search(engine, queries, cells)
-    return launches, calls, stats
+    return launches, stats
+
+
+def proteome(dev, workdir, nseq, nq, card, calls, seed=4):
+    """Phase 4: a proteome-sized database with a titin-length record, on
+    the flow route."""
+    rng = np.random.default_rng(seed)
+    path = os.path.join(workdir, "proteome_like.fa")
+    residues, qstr, homologs = swissprot_fasta(path, nseq, nq, 200, rng,
+                                               longest=LEN_MAX)
+    db = FastaDatabase(path, "aa", title="proteome-like")
+    os.remove(path)
+    queries = [preprocess_query(f"p{i}", s, 1, 3)
+               for i, s in enumerate(qstr)]
+    params = SearchParams(symtype=1, gapopen=11, gapextend=1)
+    engine = SearchEngine(db, params, device=dev)
+    if engine.chunks is not None or engine._flow_cols(2048) is None:
+        raise RuntimeError("proteome: the engine did not take the flow route")
+    nflow = len(engine._flow_chunks(2048))
+    log(f"proteome: {nseq} sequences, {residues} residues (longest "
+        f"{LEN_MAX}), flow route: {nflow} chunks, full height "
+        f"{engine._flow_cols(2048)} columns")
+    hitlists, timings, wall, launches, split = run_search(
+        "proteome", engine, queries,
+        ("build_dprofile_series", "sw_scores_stream_carry",
+         "sw_hint_stream"), calls)
+    nbytes = check_protein_hits("proteome", db, engine, queries, hitlists,
+                                homologs)
+    cells = residues * 200 * nq
+    stats = {"gcups": cells / timings.elapsed / 1e9,
+             "scoring_s": timings.elapsed, "align_s": wall - timings.elapsed,
+             "align_steps_s": split, "wall_s": wall, "cells": cells,
+             "flow_chunks": nflow}
+    log(f"proteome: scoring {timings.elapsed:.3f} s = {stats['gcups']:.1f} "
+        f"GCUPS ({cells} cells), align phase {stats['align_s']:.3f} s, "
+        f"wall {wall:.3f} s, report {nbytes} bytes; top scores and 3 "
+        f"homologs of each of {nq} queries equal the oracle [{card}]")
+    return launches, stats
+
+
+# ---- the genome: one chromosome and its genes --------------------------------
+
+NT_LETTERS = np.frombuffer(b"ACGT", dtype=np.uint8)
+COMPLEMENT = np.zeros(256, dtype=np.uint8)
+for _a, _b in zip(b"ACGT", b"TGCA"):
+    COMPLEMENT[_a] = _b
+
+
+def revcomp(s: np.ndarray) -> np.ndarray:
+    return COMPLEMENT[s[::-1]]
+
+
+def back_translation(gencode: int):
+    """amino-acid letter -> its codons (the genetic code's table)."""
+    code = GENETIC_CODES[gencode]
+    bases = "TCAG"
+    codons: dict[str, list[bytes]] = {}
+    for i, aa in enumerate(code[:64]):
+        codons.setdefault(aa, []).append(
+            (bases[i // 16] + bases[i // 4 % 4] + bases[i % 4]).encode())
+    return codons
+
+
+def genome(rng, nbp, ngenes, nt_queries, aa_queries, gene_lens=(200, 3000),
+           nt_sub=0.1, aa_sub=0.2):
+    """One chromosome of nbp bases at ECOLI_GC, synthesised from ``rng``,
+    and ngenes records cut from it (windows of gene_lens bases, either
+    strand).  For each query (nucleotide, then protein back-translated
+    with random synonymous codons), two mutated copies (nt_sub or aa_sub
+    of the residues redrawn) are planted in the chromosome on opposite
+    strands, each in a region of its own; the first copy lies inside a
+    gene.  Returns (chromosome bytes, gene records as (start, strand,
+    bytes), plants per query as [(position, strand, nt length, gene
+    index or -1)])."""
+    gc = ECOLI_GC / 2
+    chrom = rng.choice(NT_LETTERS, size=nbp,
+                       p=[0.5 - gc, gc, gc, 0.5 - gc])
+    codons = back_translation(11)
+    aa_letters = np.frombuffer("".join(SWISSPROT_AA_PERCENT).encode(),
+                               dtype=np.uint8)
+    aa_freqs = np.array(list(SWISSPROT_AA_PERCENT.values()))
+    aa_freqs /= aa_freqs.sum()
+
+    def copy(q, nt):
+        s = q.copy()
+        pos = rng.random(len(s)) < (nt_sub if nt else aa_sub)
+        if nt:
+            s[pos] = rng.choice(NT_LETTERS, size=int(pos.sum()))
+            return s
+        s[pos] = rng.choice(aa_letters, size=int(pos.sum()), p=aa_freqs)
+        return np.frombuffer(b"".join(
+            codons[chr(a)][int(rng.integers(len(codons[chr(a)])))]
+            for a in s), dtype=np.uint8)
+
+    queries = list(nt_queries) + list(aa_queries)
+    region = nbp // (2 * len(queries))
+    plants, genes = [], []
+    for k, q in enumerate(queries):
+        plants.append([])
+        for c in range(2):
+            s = copy(q, k < len(nt_queries))
+            strand = (k + c) % 2
+            lo = (2 * k + c) * region
+            pos = lo + int(rng.integers(gene_lens[0], region - len(s)
+                                        - gene_lens[0]))
+            chrom[pos:pos + len(s)] = s if strand == 0 else revcomp(s)
+            gene = -1
+            if c == 0:           # a gene around the copy
+                glen = int(rng.integers(max(len(s) + 40, gene_lens[0]),
+                                        gene_lens[1] + 1))
+                gstart = pos - int(rng.integers(0, glen - len(s)))
+                gene = len(genes)
+                genes.append((gstart, glen, int(rng.integers(2))))
+            plants[-1].append((pos, strand, len(s), gene))
+    while len(genes) < ngenes:
+        glen = int(rng.integers(gene_lens[0], gene_lens[1] + 1))
+        genes.append((int(rng.integers(0, nbp - glen)), glen,
+                      int(rng.integers(2))))
+    records = []
+    for gstart, glen, strand in genes:
+        g = chrom[gstart:gstart + glen]
+        records.append((gstart, strand, g if strand == 0 else revcomp(g)))
+    return chrom, records, plants
+
+
+def genome_fasta(path, chrom, genes):
+    with open(path, "wb") as f:
+        f.write(b">chr E. coli K-12 MG1655-length chromosome (synthetic)\n")
+        f.write(chrom.tobytes() + b"\n")
+        for i, (gstart, strand, g) in enumerate(genes):
+            f.write(b">g%d gene at %d strand %d\n%s\n"
+                    % (i, gstart, strand, g.tobytes()))
+
+
+def window_oracle(engine, qcodes, subject, start, length, qlen, gaps):
+    """The oracle score of a query against the window of ``subject``
+    from 2 query lengths before ``start`` to 2 after start + length."""
+    lo = max(start - 2 * qlen, 0)
+    return int(sw_numpy_many(qcodes, [subject[lo:start + length + 2 * qlen]],
+                             engine.matrix.matrix, *gaps)[0])
+
+
+def check_genome_hits(label, db, engine, queries, hitlists, plants, gaps,
+                      frames):
+    """Chromosome hits (seqno 0) against the oracle over windows around
+    the plants, strand by strand; the planted genes and the top 5 other
+    hits against the oracle over the whole gene; every shown alignment
+    re-walks to its score.  ``frames`` maps a chromosome strand to its
+    scored sequences (one for blastn, three frames for tblastn)."""
+    nbp = len(db.get_sequence(0, 0)[0])
+    translated = engine.params.symtype == 3
+    checked = 0
+    for q, hl, qplants in zip(queries, hitlists, plants):
+        qcodes = q.aa[0] if translated else q.nt[0]
+        qlen = len(qcodes)
+        best = {}
+        for h in hl.hits:
+            if h.seqno == 0:
+                best[h.dstrand] = max(best.get(h.dstrand, 0), h.score)
+        for pos, strand, ntlen, gene in qplants:
+            # the copy in strand coordinates of the strand it reads on
+            spos = pos if strand == 0 else nbp - pos - ntlen
+            want = max(
+                window_oracle(engine, qcodes, seq,
+                              (spos - f) // 3 if translated else spos,
+                              ntlen // 3 if translated else ntlen, qlen,
+                              gaps)
+                for f, seq in enumerate(frames[strand]))
+            if best.get(strand) != want:
+                raise RuntimeError(f"{label} {q.description}: chromosome "
+                                   f"strand {strand} scored "
+                                   f"{best.get(strand)}, window oracle "
+                                   f"{want}")
+            checked += 1
+        genes = {p[3] + 1 for p in qplants if p[3] >= 0}   # seqno of gene
+        others = [h for h in hl.hits if h.seqno != 0][:5]
+        tocheck = others + [h for h in hl.hits if h.seqno in genes
+                            and h not in others]
+        subjects = [db.get_sequence(h.seqno, engine.params.symtype,
+                                    h.dstrand, h.dframe)[0] for h in tocheck]
+        want = sw_numpy_many(qcodes, subjects, engine.matrix.matrix, *gaps)
+        for h, w in zip(tocheck, want):
+            if h.score != int(w):
+                raise RuntimeError(f"{label} {q.description}: gene "
+                                   f"g{h.seqno - 1} scored {h.score}, oracle "
+                                   f"{int(w)}")
+        if not genes <= {h.seqno for h in hl.hits}:
+            raise RuntimeError(f"{label} {q.description}: a planted gene "
+                               "is not a hit")
+        check_alignments(label, q, hl)
+    return checked
+
+
+def genome_searches(dev, workdir, card, calls, seed=5):
+    """Phases 5 and 6: blastn, then tblastn twice, against one
+    chromosome and its genes."""
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    nbp, nq = ECOLI_BP, GENOME_QUERIES
+    nt_q = [rng.choice(NT_LETTERS, size=NT_QUERY_LEN) for _ in range(nq)]
+    aa_q = [np.frombuffer(swissprot_letters(AA_QUERY_LEN, rng).encode(),
+                          dtype=np.uint8) for _ in range(nq)]
+    chrom, genes, plants = genome(rng, nbp, GENOME_GENES, nt_q, aa_q)
+    path = os.path.join(workdir, "genome.fa")
+    genome_fasta(path, chrom, genes)
+    db = FastaDatabase(path, "nt", title="genome")
+    os.remove(path)
+    gbp = sum(len(g) for _, _, g in genes)
+    log(f"genome: chromosome {nbp} bp (GC {ECOLI_GC}), {len(genes)} genes "
+        f"of {gbp} bp, data {time.time() - t0:.1f} s")
+    launches, stats = {}, {}
+
+    # phase 5: blastn
+    gaps = (5, 2)
+    params = SearchParams(symtype=0, matchscore=1, mismatchscore=-3,
+                          gapopen=5, gapextend=2)
+    t1 = time.time()
+    engine = SearchEngine(db, params, device=dev)
+    queries = [preprocess_query(f"n{i}", q.tobytes().decode(), 0, 3)
+               for i, q in enumerate(nt_q)]
+    V = engine._overlap_bound(engine.qlen_bucket(NT_QUERY_LEN))
+    if engine._giant_ids.size != 1 or V > engine._max_cols // 2:
+        raise RuntimeError("genome: the chromosome is not a segmented giant")
+    log(f"genome: blastn engine {time.time() - t1:.1f} s, 1 giant unit, "
+        f"overlap bound {V} columns")
+    hitlists, tim, wall, launches["genome"], split = run_search(
+        "genome", engine, queries,
+        ("build_dprofile_series", "sw_scores_stream", "sw_hint_stream"),
+        calls)
+    chrom_nt = db.get_sequence(0, 0)[0]
+    frames = {0: [chrom_nt], 1: [np.asarray(db.get_sequence(0, 0, 1)[0])]}
+    n = check_genome_hits("genome", db, engine, queries, hitlists,
+                          plants[:nq], gaps, frames)
+    stats["genome"] = {"scoring_s": tim.elapsed, "meter_gcups":
+                       tim.speed / 1e9, "align_s": wall - tim.elapsed,
+                       "align_steps_s": split, "wall_s": wall}
+    log(f"genome: scoring {tim.elapsed:.3f} s ({tim.speed / 1e9:.1f} GCUPS "
+        f"by the reference's meter), align phase {wall - tim.elapsed:.3f} s, "
+        f"wall {wall:.3f} s; {n} chromosome copies and the planted genes "
+        f"equal their oracles [{card}]")
+    del engine, frames
+
+    # phase 6: tblastn, the wavefront and then the carry series
+    gaps = (11, 1)
+    params = SearchParams(symtype=3, gapopen=11, gapextend=1, db_gencode=11)
+    t1 = time.time()
+    engine = SearchEngine(db, params, device=dev)
+    queries = [preprocess_query(f"t{i}", q.tobytes().decode(), 3, 3)
+               for i, q in enumerate(aa_q)]
+    V = engine._overlap_bound(engine.qlen_bucket(AA_QUERY_LEN))
+    if engine._giant_ids.size != 6 or V <= engine._max_cols // 2 \
+            or engine.WAVEFRONT_MAX_GIANTS < 6:
+        raise RuntimeError("tblastn: the six frames do not take the "
+                           "wavefront")
+    log(f"tblastn: engine {time.time() - t1:.1f} s, 6 giant frames, overlap "
+        f"bound {V} columns")
+    frames = {d: [np.asarray(db.get_sequence(0, 3, d, f)[0])
+                  for f in range(3)] for d in range(2)}
+    keys = []
+    for route, expect in (
+            ("wavefront", ("sw_wavefront", "sw_scores_stream",
+                           "build_dprofile_series", "sw_hint_stream")),
+            ("carry", ("sw_scores_stream_carry", "sw_scores_stream",
+                       "sw_hint_stream"))):
+        label = f"tblastn-{route}"
+        if route == "carry":
+            engine.WAVEFRONT_MAX_GIANTS = 0
+        hitlists, tim, wall, launches[label], split = run_search(
+            label, engine, queries, expect, calls)
+        n = check_genome_hits(label, db, engine, queries, hitlists,
+                              plants[nq:], gaps, frames)
+        keys.append([[(h.seqno, h.score, h.dstrand, h.dframe, h.score_align,
+                       h.alignment) for h in hl.hits] for hl in hitlists])
+        stats[label] = {"scoring_s": tim.elapsed, "meter_gcups":
+                        tim.speed / 1e9, "align_s": wall - tim.elapsed,
+                        "align_steps_s": split, "wall_s": wall}
+        log(f"{label}: scoring {tim.elapsed:.3f} s ({tim.speed / 1e9:.1f} "
+            f"GCUPS by the reference's meter), align phase "
+            f"{wall - tim.elapsed:.3f} s, wall {wall:.3f} s; {n} chromosome "
+            f"copies and the planted genes equal their oracles [{card}]")
+    if keys[0] != keys[1]:
+        raise RuntimeError("tblastn: the wavefront and carry hit lists differ")
+    log("tblastn: the wavefront and carry series hit lists are equal")
+    return launches, stats
 
 
 def profile_search(engine, queries, cells):
@@ -351,7 +820,7 @@ def profile_search(engine, queries, cells):
     return out
 
 
-# ---- phase 4: kernel times and bounds --------------------------------------
+# ---- phase 7: kernel times and bounds --------------------------------------
 
 def _time(fn, reps, warm=True):
     if warm:
@@ -378,13 +847,25 @@ def _work(name, args, kw, out):
     if name == "build_dprofile_series":
         m8, db = args
         return _nbytes(m8, db, out), 0, 0
-    if name == "sw_scores_stream":
-        qc, ql, m8, db, start = args
+    if name in ("sw_scores_stream", "sw_scores_stream_carry"):
+        qc, ql, m8, db, start = args[:5]
+        if isinstance(out, tuple):      # the dump and the state
+            out = out[0]
         cells = int(ql.sum()) * int((db != PAD_SYMBOL).sum())
         extra = kw.get("clamp") is not None          # one min a cell
-        return (_nbytes(qc, ql, m8, db, start, kw.get("dprof"), out),
-                cells * (OPS_PER_CELL + extra),
+        state = args[5:]
+        nbytes = _nbytes(qc, ql, m8, db, start, kw.get("dprof"), out)
+        if state:   # the carried state read in and written out
+            nbytes += _nbytes(*state) * (kw.get("carry_in", True)
+                                         + kw.get("carry_out", True))
+        return (nbytes, cells * (OPS_PER_CELL + extra),
                 cells * (INT32_OPS_PER_CELL + extra))
+    if name == "sw_wavefront":
+        mq, db = args[:2]
+        qlens = (mq != -128).any(dim=2).sum(dim=1)   # rows of real symbols
+        cells = int(qlens.sum()) * int((db != PAD_SYMBOL).sum())
+        return (_nbytes(mq, db) + 2 * _nbytes(*args[2:]),
+                cells * OPS_PER_CELL, cells * INT32_OPS_PER_CELL)
     qc, ql, m8, db, starts = args
     residues = (db != PAD_SYMBOL).sum(dim=(1, 2))     # per bin
     cells = int((ql.long() * residues).sum())
@@ -405,41 +886,70 @@ def time_without_profiles(args, kw, out, ms, report):
         f"{ms + k1:.3f} ms")
 
 
-def time_kernels(calls, report):
+def _fresh(name, args):
+    """The arguments with the state a wrapper updates in place cloned."""
+    return tuple(a.clone() if i in STATE_ARGS.get(name, ()) else a
+                 for i, a in enumerate(args))
+
+
+def check_paths(calls, report):
+    """Every kernel each search launched, held against its plain version
+    at that search's largest call of it: the inputs as they came in, the
+    state it updates in place cloned for each.  Returns (the plain
+    version's ms by (search, kernel), max_abs_err by search and
+    kernel)."""
+    plain_ms, errs = {}, {}
+    for (label, name), (_, args, kw) in calls.items():
+        mod = KERNELS[name][0]
+        out = getattr(mod, name)(*_fresh(name, args), **kw)
+        plain, pargs, ref = getattr(mod, name + "_plain"), \
+            _fresh(name, args), []
+        plain_ms[label, name] = _time(
+            lambda: ref.append(plain(*pargs, **kw)), 1, warm=False)
+        errs.setdefault(label, {})[name] = _compare(name, out, ref[0],
+                                                    report)
+        del out, ref
+        shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+        log(f"check {label}: {name} at {shapes} equals its plain version "
+            f"(max_abs_err {errs[label][name]}, plain "
+            f"{plain_ms[label, name]:.1f} ms)")
+    return plain_ms, errs
+
+
+def time_kernels(calls, plain_ms, report):
+    """Each kernel's time and bound at its largest call over all the
+    searches, beside its plain version's time there (check_paths)."""
     rows = {}
-    counts = {name: getattr(sw, name).launches for name in KERNELS}
-    for name in KERNELS:
-        args, kw = calls[name]
-        fn = getattr(sw, name)
-        plain = getattr(sw, name + "_plain")
-        out = fn(*args, **kw)
-        ref = plain(*args, **kw)          # also the plain version's warm-up
-        _compare(name, out, ref, report)
-        del ref
-        ms = _time(lambda: fn(*args, **kw), 5)
-        plain_ms = _time(lambda: plain(*args, **kw), 1, warm=False)
+    for name, (mod, _, _) in KERNELS.items():
+        label = max((k for k in calls if k[1] == name),
+                    key=lambda k: calls[k][0])[0]
+        _, args, kw = calls[label, name]
+        fn = getattr(mod, name)
+        out = fn(*_fresh(name, args), **kw)
+        # replays update the recorded state in place: the same work
+        reps = 2 if name == "sw_wavefront" else 5
+        ms = _time(lambda: fn(*args, **kw), reps)
         nbytes, ops, int32_ops = _work(name, args, kw, out)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / ISSUE_PER_S * 1e3
-        rows[name] = dict(ms=ms, plain_ms=plain_ms,
+        rows[name] = dict(ms=ms, plain_ms=plain_ms[label, name],
                           bound_ms=max(bytes_ms, ops_ms),
                           bound_by="bytes" if bytes_ms >= ops_ms
                           else "operations")
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-        log(f"time: {name} at {shapes}: {ms:.3f} ms, plain {plain_ms:.1f} "
-            f"ms, bound {rows[name]['bound_ms']:.4f} ms "
+        log(f"time: {name} at {shapes} ({label}): {ms:.3f} ms, plain "
+            f"{rows[name]['plain_ms']:.1f} ms, bound "
+            f"{rows[name]['bound_ms']:.4f} ms "
             f"({rows[name]['bound_by']}; bytes {bytes_ms:.4f} ms, "
             f"{ops} least instructions {ops_ms:.4f} ms; as two-operand "
             f"int32 on the int32 pipe "
             f"{int32_ops / INT32_OPS_PER_S * 1e3:.4f} ms)")
         if name == "sw_scores_stream" and kw.get("dprof") is not None:
             time_without_profiles(args, kw, out, ms, report)
-    for name, n in counts.items():      # timing launches are not the path's
-        getattr(sw, name).launches = n
     return rows
 
 
-# ---- phase 5: the CLI ------------------------------------------------------
+# ---- phase 8: the CLI ------------------------------------------------------
 
 def cli(workdir):
     rng = np.random.default_rng(3)
@@ -478,28 +988,50 @@ def main() -> int:
         f"{time.time() - t:.1f} s")
 
     report: dict = {}
+    t = time.time()
     check_kernels(dev, report)
-    log(f"check: {json.dumps(report)}")
+    log(f"check: {json.dumps(report)} in {time.time() - t:.1f} s")
     for name, r in report.items():
         if r["mismatches"]:
             raise RuntimeError(f"{name} differs from its plain version")
 
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    calls: dict = {}
+    launches: dict = {}
+    stats: dict = {}
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
-        launches, calls, stats = search(dev, workdir, 570_000, 16, card)
-        rows = time_kernels(calls, report)
-        del calls
+        t = time.time()
+        launches["search"], stats["search"] = search(dev, workdir, 570_000,
+                                                     16, card, calls)
+        launches["proteome"], stats["proteome"] = proteome(
+            dev, workdir, 20_000, 16, card, calls)
+        more, st = genome_searches(dev, workdir, card, calls)
+        launches.update(more)
+        stats.update(st)
+        log(f"searches: {time.time() - t:.1f} s; launches by search "
+            f"{json.dumps(launches)}")
+        t = time.time()
+        plain_ms, errs = check_paths(calls, report)
+        log(f"check: max_abs_err by search and kernel {json.dumps(errs)} "
+            f"in {time.time() - t:.1f} s")
         for name, r in report.items():
             if r["mismatches"]:
                 raise RuntimeError(f"{name} differs from its plain version "
-                                   "at the search's shapes")
+                                   "at a search's shapes")
+        t = time.time()
+        rows = time_kernels(calls, plain_ms, report)
+        del calls
+        log(f"time: {time.time() - t:.1f} s")
+        if any(r["mismatches"] for r in report.values()):
+            raise RuntimeError("sw_scores_stream without profiles differs "
+                               "from its plain version")
         cli(workdir)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name],
+                    launches=sum(n[name] for n in launches.values()),
                     max_abs_err=report[name]["max_abs_err"],
                     library_ms=None, **rows[name])
-               for name, (src, rep) in KERNELS.items()]
+               for name, (_, src, rep) in KERNELS.items()]
     log(f"search: {json.dumps(stats)}")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -6,13 +6,15 @@ same command line, packs, hit lists and report bytes, with the kernels of
 the search path written by hand in CUDA C++ for sm_90a (``csrc/``):
 
   * the block score profiles of a lane-packed chunk (csrc/dprofile.cu);
-  * the grouped stream scoring of NQ queries against every lane
-    (csrc/stream.cu);
+  * the grouped stream scoring of NQ queries against every lane, and its
+    carry form for flow and carry series (csrc/stream.cu);
+  * the anti-diagonal wavefront over one giant sequence
+    (csrc/wavefront.cu);
   * the alignment-endpoint hints of the align phase (csrc/hint.cu).
 
-Each kernel has a plain PyTorch version beside it (ops/sw_stream.py),
-which CPU tensors take; the engine runs on CUDA unless the caller passes
-``device="cpu"``.  The package imports nothing of ``swipe_tpu`` or JAX.
+Each kernel has a plain PyTorch version beside it (ops/sw_stream.py,
+ops/sw_wavefront.py), which CPU tensors take; the engine runs on CUDA
+unless the caller passes ``device="cpu"``.  The package imports nothing of ``swipe_tpu`` or JAX.
 """
 
 __version__ = "0.1.0"

@@ -414,15 +414,15 @@ def main(argv=None) -> int:
     if a.mh_procs > 1:
         raise NotImplementedError(
             "--mh-* multi-host runs are not ported yet (ROADMAP Queue 1 "
-            "item 9)")
+            "item 8)")
     if a.backend not in BACKEND_DEVICES:
         raise NotImplementedError(
             f"--backend {a.backend}: the port runs auto/stream (CUDA) and "
             "lax (CPU); the segment backends are not ported yet (ROADMAP "
-            "Queue 1 item 10)")
+            "Queue 1 item 9)")
     if a.dump:
         raise NotImplementedError(
-            "-N database dumps are not ported yet (ROADMAP Queue 1 item 6)")
+            "-N database dumps are not ported yet (ROADMAP Queue 1 item 7)")
     out = open(a.outfile, "w") if a.outfile else sys.stdout
 
     db = open_database(a)

@@ -1,11 +1,13 @@
-// Grouped stream scoring of a lane-packed chunk (K2).
+// Grouped stream scoring of a lane-packed chunk (K2) and its carry form
+// (K3).
 //
-// Replaces the TPU kernel swipe_tpu/ops/sw_stream.py sw_scores_stream
-// (_stream_kernel_grouped with the row recurrence _make_row_body_multi).
-// Exact affine-gap Smith-Waterman of NQ queries against every lane of a
-// chunk; a lane's state resets where the start mask says a new sequence
-// begins, and each lane's running max is dumped after every block of 16
-// columns: out[q, b, lane].
+// Replaces the TPU kernels swipe_tpu/ops/sw_stream.py sw_scores_stream
+// (_stream_kernel_grouped with the row recurrence _make_row_body_multi)
+// and sw_scores_stream_carry (_stream_kernel).  Exact affine-gap
+// Smith-Waterman of NQ queries against every lane of a chunk; a lane's
+// state resets where the start mask says a new sequence begins, and each
+// lane's running max is dumped after every block of 16 columns:
+// out[q, b, lane].
 //
 // Design.  One thread owns one (query, lane) and walks the db blocks in
 // order -- the TPU's sequential grid axis becomes a loop in the thread.
@@ -22,6 +24,15 @@
 // given, else from the matrix in shared memory indexed by the query
 // symbol and the column's db symbol.
 //
+// The carry form (K3) is the same kernel over one chunk of a flow or
+// carry series.  The scratch IS the carried state, updated in place (for
+// a series' last chunk the caller passes a copy).  With CARRY the first
+// block reads the carried H/E from the scratch and S from s_io, and a
+// lane starts fresh there only where its start bit is set -- not at
+// block 0 as in K2.  K3 writes S back to s_io (WRITE_S).  Whether S is
+// written is a template parameter on purpose: a run-time test of s_io
+// made the compiler schedule K2's profile path 2x slower on the card.
+//
 // Bound: operations.  As written a cell takes ten two-operand int32
 // add/max against one profile read (4 bytes, from L2) and one byte of row
 // state; with the DPX add-max instructions it would take six, and no SM
@@ -29,15 +40,17 @@
 // time (chip_smoke.py).  The simple design is far from it: a cell's
 // add/max form one dependent chain per thread, and NQ x NSEQS / 128
 // thread blocks leave few warps per SM to cover it (tuning, DPX and
-// 16-bit lanes are later work).
+// 16-bit lanes are later work).  A giant carry series packs few lanes, so
+// there the chain's latency alone sets the time.
 //
 // Running exactly qlen rows is enough: the TPU kernel's round-up to 4
-// rows only added PAD rows, which decay and never raise S.
+// rows only added PAD rows, which decay and never raise S.  Rows at and
+// past qlen are neither read nor written.
 #include "sw_common.cuh"
 
 using namespace swipe;
 
-template <bool DPROF, bool CLAMP>
+template <bool DPROF, bool CLAMP, bool CARRY, bool WRITE_S>
 __global__ void __launch_bounds__(THREADS)
 stream_kernel(const int32_t* __restrict__ qcodes,
               const int32_t* __restrict__ qlens,
@@ -45,8 +58,8 @@ stream_kernel(const int32_t* __restrict__ qcodes,
               const int8_t* __restrict__ start,
               const int32_t* __restrict__ dprof, int32_t* __restrict__ out,
               int32_t* __restrict__ hst, int32_t* __restrict__ est,
-              int qlen_pad, int nblocks, int nseqs, int Q, int R,
-              int clamp) {
+              int32_t* __restrict__ s_io, int qlen_pad, int nblocks,
+              int nseqs, int Q, int R, int clamp) {
   __shared__ int m8s[NSYM * NSYM];
   load_matrix(m8s, m8);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -59,10 +72,11 @@ stream_kernel(const int32_t* __restrict__ qcodes,
   int32_t* E = est + (long long)q * qlen_pad * n + lane;
   int32_t* dump = out + (long long)q * nblocks * n + lane;
 
-  int S = 0;
+  int S = CARRY ? s_io[q * n + lane] : 0;
   for (int b = 0; b < nblocks; ++b) {
-    // block 0 starts from the fresh state, like a set start bit
-    const bool fresh = b == 0 || start[b * n + lane] != 0;
+    // K2: block 0 starts from the fresh state, like a set start bit.
+    // K3: only the start bit resets; block 0 reads the carried state
+    const bool fresh = (!CARRY && b == 0) || start[b * n + lane] != 0;
     if (fresh) S = 0;
     const int8_t* col = db + (long long)b * KSEG * n + lane;
     int dsym[KSEG], hrow[KSEG], frow[KSEG];
@@ -98,17 +112,47 @@ stream_kernel(const int32_t* __restrict__ qcodes,
     }
     dump[b * n] = S;
   }
+  if (WRITE_S) s_io[q * n + lane] = S;
 }
 
+#define STREAM_PARAMS                                                      \
+  const int32_t *qcodes, const int32_t *qlens, const int8_t *m8,           \
+      const int8_t *db, const int8_t *start, const int32_t *dprof,         \
+      int32_t *out, int32_t *hst, int32_t *est, int32_t *s_io,             \
+      int qlen_pad, int nblocks, int nseqs, int Q, int R, int clamp
+#define STREAM_ARGS                                                        \
+  qcodes, qlens, m8, db, start, dprof, out, hst, est, s_io, qlen_pad,      \
+      nblocks, nseqs, Q, R, clamp
+
+// mode 0: K2; 1: K3 from a fresh state; 2: K3 reading the carried state
 template <bool DPROF, bool CLAMP>
-static void launch(dim3 grid, cudaStream_t stream, const int32_t* qcodes,
-                   const int32_t* qlens, const int8_t* m8, const int8_t* db,
-                   const int8_t* start, const int32_t* dprof, int32_t* out,
-                   int32_t* hst, int32_t* est, int qlen_pad, int nblocks,
-                   int nseqs, int Q, int R, int clamp) {
-  stream_kernel<DPROF, CLAMP><<<grid, THREADS, 0, stream>>>(
-      qcodes, qlens, m8, db, start, dprof, out, hst, est, qlen_pad, nblocks,
-      nseqs, Q, R, clamp);
+static void launch_mode(dim3 grid, cudaStream_t s, int mode,
+                        STREAM_PARAMS) {
+  if (mode == 2)
+    stream_kernel<DPROF, CLAMP, true, true>
+        <<<grid, THREADS, 0, s>>>(STREAM_ARGS);
+  else if (mode == 1)
+    stream_kernel<DPROF, CLAMP, false, true>
+        <<<grid, THREADS, 0, s>>>(STREAM_ARGS);
+  else
+    stream_kernel<DPROF, CLAMP, false, false>
+        <<<grid, THREADS, 0, s>>>(STREAM_ARGS);
+}
+
+static int launch(int nq, int use_clamp, int mode, void* stream,
+                  STREAM_PARAMS) {
+  if (nq > 0 && nseqs > 0 && nblocks > 0) {
+    const dim3 grid((nseqs + THREADS - 1) / THREADS, nq);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (dprof != nullptr) {
+      if (use_clamp) launch_mode<true, true>(grid, s, mode, STREAM_ARGS);
+      else launch_mode<true, false>(grid, s, mode, STREAM_ARGS);
+    } else {
+      if (use_clamp) launch_mode<false, true>(grid, s, mode, STREAM_ARGS);
+      else launch_mode<false, false>(grid, s, mode, STREAM_ARGS);
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" int swipe_stream(const int32_t* qcodes, const int32_t* qlens,
@@ -117,27 +161,17 @@ extern "C" int swipe_stream(const int32_t* qcodes, const int32_t* qlens,
                             int32_t* out, int32_t* hst, int32_t* est, int nq,
                             int qlen_pad, int nblocks, int nseqs, int Q,
                             int R, int use_clamp, int clamp, void* stream) {
-  if (nq > 0 && nseqs > 0 && nblocks > 0) {
-    const dim3 grid((nseqs + THREADS - 1) / THREADS, nq);
-    const cudaStream_t s = (cudaStream_t)stream;
-    if (dprof != nullptr) {
-      if (use_clamp)
-        launch<true, true>(grid, s, qcodes, qlens, m8, db, start, dprof, out,
-                           hst, est, qlen_pad, nblocks, nseqs, Q, R, clamp);
-      else
-        launch<true, false>(grid, s, qcodes, qlens, m8, db, start, dprof,
-                            out, hst, est, qlen_pad, nblocks, nseqs, Q, R,
-                            clamp);
-    } else {
-      if (use_clamp)
-        launch<false, true>(grid, s, qcodes, qlens, m8, db, start, dprof,
-                            out, hst, est, qlen_pad, nblocks, nseqs, Q, R,
-                            clamp);
-      else
-        launch<false, false>(grid, s, qcodes, qlens, m8, db, start, dprof,
-                             out, hst, est, qlen_pad, nblocks, nseqs, Q, R,
-                             clamp);
-    }
-  }
-  return (int)cudaGetLastError();
+  int32_t* s_io = nullptr;
+  return launch(nq, use_clamp, 0, stream, STREAM_ARGS);
+}
+
+// hst/est/s_io hold the carried state and are updated in place; with
+// carry_in 0 every lane starts fresh at block 0 and H/E/S are not read.
+extern "C" int swipe_stream_carry(
+    const int32_t* qcodes, const int32_t* qlens, const int8_t* m8,
+    const int8_t* db, const int8_t* start, const int32_t* dprof,
+    int32_t* out, int32_t* hst, int32_t* est, int32_t* s_io, int carry_in,
+    int nq, int qlen_pad, int nblocks, int nseqs, int Q, int R,
+    int use_clamp, int clamp, void* stream) {
+  return launch(nq, use_clamp, carry_in ? 2 : 1, stream, STREAM_ARGS);
 }

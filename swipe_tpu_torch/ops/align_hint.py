@@ -24,17 +24,22 @@ Inputs outside the kernel's domain (matrices outside int8, queries over
 1024 rows, bins over 1024 subjects or over the byte cap) take the NumPy
 host pass, as on the JAX package's CPU path.  A failure of the kernel
 raises; nothing falls back.
+
+Chromosome-scale subjects (over GIANT_HINT_MIN columns) are cut into
+overlapped pieces that ride the hint kernel as lanes of one launch, each
+piece tracking only the columns it owns; subjects that cannot be cut
+(free gap extension, an all-negative matrix) take one lane alone.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["hint_endpoints_many", "hint_endpoints_grid"]
+__all__ = ["GIANT_HINT_MIN", "hint_endpoints_many", "hint_endpoints_grid"]
 
 # int32 is provably sufficient for the batched passes: scores are
-# bounded by qlen * max(matrix) << 2^31 and the sentinel only ever
-# decays by R per column (bounded db lengths keep it far from overflow)
+# bounded by qlen * max(matrix) << 2^31, and the sentinel leaves E after
+# the first column (E >= H - Q >= -Q), whatever the subject's length
 NEG32 = -(1 << 28)
 
 # batched workloads above this many DP cells run on the hint kernel when
@@ -49,6 +54,12 @@ MAX_BIN_SUBJECTS = 1024
 WARP = 32
 # footprint cap of one launch: bins x columns x lanes int8
 _LAUNCH_BYTES = 64 << 20
+
+# subjects longer than this segment into overlapped pieces for the hint
+# pass (the transpose of the search phase's segmented-giant scoring): a
+# lone chromosome otherwise runs one lane through maxlen sequential
+# columns
+GIANT_HINT_MIN = 1 << 18
 
 
 def _span_bound(m: int, maxS: int, R: int) -> int | None:
@@ -79,16 +90,75 @@ def hint_endpoints_many(qseq: np.ndarray, dseqs: list[np.ndarray],
     (align_chunk, swipe.cc:339-414): the first column attaining the
     final max, the smallest row within it.  Large batches run on the
     hint kernel when ``device`` is CUDA; small ones stay in NumPy.
-    (The JAX package also segments chromosome-scale subjects here; no
-    subject over 65,536 columns reaches this port yet — the giant
-    route raises.)
+
+    Chromosome-scale subjects segment into overlapped pieces that run
+    as parallel lanes (EXACT: a positive-score alignment spans at most
+    _span_bound db columns, so every colmax over a piece's OWNED
+    columns — those at least that far from the piece start — is the
+    true colmax; ownership partitions the columns, so merging by
+    (max S, then smallest global column) reproduces the unsegmented
+    first-improving-column/smallest-row tie semantics bit-for-bit).
     """
     if not dseqs:
         return []
+    q = np.asarray(qseq, dtype=np.int64)
+    m = len(q)
     mat = np.asarray(matrix, dtype=np.int64).reshape(32, 32)
-    return _hint_batch(np.asarray(qseq, dtype=np.int64),
-                       [np.asarray(d) for d in dseqs], mat,
-                       gapopen + gapextend, gapextend, device)
+    Q = gapopen + gapextend
+    R = gapextend
+
+    V = _span_bound(m, int(mat.max()), R)
+    giants, solos = [], []
+    for i, d in enumerate(dseqs):
+        if len(d) <= GIANT_HINT_MIN:
+            continue
+        if V is not None and len(d) > 4 * V:
+            giants.append(i)
+        elif V is None:
+            # unsegmentable chromosome-scale subject (free gap extension
+            # or an all-negative matrix): batching it would pad every
+            # lane of the bin to its length — it runs alone
+            solos.append(i)
+    if not giants and not solos:
+        return _hint_batch(q, [np.asarray(d) for d in dseqs], mat, Q, R,
+                           device)
+
+    results: list[tuple[int, int, int] | None] = [None] * len(dseqs)
+    skip = set(giants) | set(solos)
+    normals = [i for i in range(len(dseqs)) if i not in skip]
+    if normals:
+        for i, res in zip(normals, _hint_batch(
+                q, [np.asarray(dseqs[i]) for i in normals], mat, Q, R,
+                device)):
+            results[i] = res
+    for i in solos:
+        results[i] = _hint_batch(q, [np.asarray(dseqs[i])], mat, Q, R,
+                                 device)[0]
+    if not giants:
+        return results
+
+    pieces, starts, owner, gpos = [], [], [], []
+    for i in giants:
+        d = np.asarray(dseqs[i])
+        N = len(d)
+        stride = max(2 * V, -(-N // 1024), 2048)
+        stride = -(-stride // 256) * 256
+        for pos in range(0, max(N - V, 1), stride):
+            pieces.append(d[pos: pos + stride + V])
+            starts.append(0 if pos == 0 else V)
+            owner.append(i)
+            gpos.append(pos)
+    res = _hint_batch(q, pieces, mat, Q, R, device,
+                      np.asarray(starts, dtype=np.int64))
+    best: dict[int, tuple[int, int, int]] = {}
+    for (s, bq, bp), i, pos in zip(res, owner, gpos):
+        cur = best.get(i)
+        if cur is None or s > cur[0] or (s == cur[0] and 0 <= bq
+                                         and pos + bp < cur[2]):
+            best[i] = (s, bq, pos + bp) if bq >= 0 else (s, bq, bp)
+    for i in giants:
+        results[i] = best[i]
+    return results
 
 
 def _launch_dims(bins) -> tuple[int, int]:
@@ -134,6 +204,7 @@ def hint_endpoints_grid(jobs, matrix, gapopen: int, gapextend: int,
     for bi, (q, dseqs) in enumerate(jobs):
         if (on_dev and _fits_kernel(mat, len(q))
                 and 0 < len(dseqs) <= MAX_BIN_SUBJECTS
+                and max(len(d) for d in dseqs) <= GIANT_HINT_MIN
                 and _launch_bytes([(q, dseqs)]) <= _LAUNCH_BYTES):
             batch.append(bi)
             total_cells += len(q) * sum(len(d) for d in dseqs)
@@ -177,10 +248,11 @@ def hint_endpoints_grid(jobs, matrix, gapopen: int, gapextend: int,
     return results
 
 
-def _hint_launch(bins, mat, Q, R, device):
+def _hint_launch(bins, mat, Q, R, device, starts=None):
     """One hint-kernel launch over ``bins`` [(qseq, subjects)]: bin b's
-    subject i in lane (b, i), PAD-padded to _launch_dims.  Returns each
-    bin's [(S, bestq, bestpos)]."""
+    subject i in lane (b, i), PAD-padded to _launch_dims.  ``starts``
+    (one bin only) is each subject's first tracked column, zeros when
+    None.  Returns each bin's [(S, bestq, bestpos)]."""
     import torch
 
     from ..batching import PAD_SYMBOL
@@ -193,30 +265,36 @@ def _hint_launch(bins, mat, Q, R, device):
     for b, (_, ds) in enumerate(bins):
         for i, d in enumerate(ds):
             dense[b, : len(d), i] = np.asarray(d, dtype=np.int8)
+    st = np.zeros((len(bins), lanes), dtype=np.int32)
+    if starts is not None:
+        st[0, :len(starts)] = starts
     dev = torch.device("cpu" if device is None else device)
     S, bq, bp = (t.cpu().numpy() for t in sw_hint_stream(
         torch.from_numpy(qc).to(dev), torch.from_numpy(ql).to(dev),
         torch.from_numpy(build_matrix8(mat)).to(dev),
-        torch.from_numpy(dense).to(dev),
-        torch.zeros((len(bins), lanes), dtype=torch.int32, device=dev),
+        torch.from_numpy(dense).to(dev), torch.from_numpy(st).to(dev),
         gapopenextend=int(Q), gapextend=int(R)))
     return [[(int(S[b, i]), int(bq[b, i]), int(bp[b, i]))
              for i in range(len(ds))] for b, (_, ds) in enumerate(bins)]
 
 
-def _hint_batch(q, dseqs, mat, Q, R, device=None):
-    """Batched hint pass over whole subjects."""
+def _hint_batch(q, dseqs, mat, Q, R, device=None, starts=None):
+    """Batched hint pass with an optional per-lane first-tracked column
+    (``starts``: columns before a lane's start never update S/bq/bp —
+    the owned-column mask of the segmented-giant route)."""
     lens = np.array([len(d) for d in dseqs], dtype=np.int64)
     n = len(dseqs)
     m = len(q)
     maxlen = int(lens.max())
+    if starts is None:
+        starts = np.zeros(n, dtype=np.int64)
 
     # the kernel route: one launch holds the bin; a chromosome-scale
     # subject (over 512 MB of padded lanes) stays on the host instead
     if (n * maxlen * m > DEVICE_CELLS and _on_cuda(device)
             and _fits_kernel(mat, m)
             and _launch_bytes([(q, dseqs)]) <= (512 << 20)):
-        return _hint_launch([(q, dseqs)], mat, Q, R, device)[0]
+        return _hint_launch([(q, dseqs)], mat, Q, R, device, starts)[0]
 
     QP = mat[q, :].T.astype(np.int32)                 # (32, m)
     dense = np.zeros((n, maxlen), dtype=np.int8)
@@ -244,7 +322,7 @@ def _hint_batch(q, dseqs, mat, Q, R, device=None):
             axis=1) - Q - idxR + R
         H = np.maximum(hnof, F)
         colmax = H.max(axis=1)
-        improve = active & (colmax > S)
+        improve = active & (colmax > S) & (j >= starts)
         if improve.any():
             rows = np.argmax(H == colmax[:, None], axis=1)
             S = np.where(improve, colmax, S)

@@ -1,7 +1,7 @@
 """Stream Smith-Waterman on lane-packed chunks: the CUDA kernels and their
 plain PyTorch versions.
 
-Port of ``swipe_tpu/ops/sw_stream.py``.  Three kernels, hand-written CUDA
+Port of ``swipe_tpu/ops/sw_stream.py``.  Four kernels, hand-written CUDA
 C++ for sm_90a under ``csrc/`` and bound through a plain C interface with
 ctypes:
 
@@ -9,6 +9,9 @@ ctypes:
   profiles of a chunk;
 * ``sw_scores_stream`` (``csrc/stream.cu``) — exact affine-gap scores of
   NQ queries against every lane of a chunk, dumped per block;
+* ``sw_scores_stream_carry`` (``csrc/stream.cu``, the carry instantiation)
+  — the same over one chunk of a flow or carry series, with each lane's
+  DP state carried in and out;
 * ``sw_hint_stream`` (``csrc/hint.cu``) — alignment-endpoint hints with
   search16s tie rules.
 
@@ -38,7 +41,10 @@ from ..batching import NEG_INF, PAD_SYMBOL
 __all__ = ["KSEG", "build_matrix8", "build_qcodes", "chunk_tensors",
            "build_dprofile_series", "build_dprofile_series_plain",
            "sw_scores_stream", "sw_scores_stream_plain", "gather_scores",
-           "sw_hint_stream", "sw_hint_stream_plain"]
+           "make_stream_state", "permute_stream_state",
+           "stream_state_from_jax", "sw_scores_stream_carry",
+           "sw_scores_stream_carry_plain", "sw_hint_stream",
+           "sw_hint_stream_plain"]
 
 KSEG = 16   # db columns per block = lane-refill granularity of the packs
 
@@ -93,7 +99,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "swipe_dprofile": ("dprofile", [_P, _P, _P, ctypes.c_longlong, _I, _P]),
     "swipe_stream": ("stream", [_P] * 9 + [_I] * 8 + [_P]),
+    "swipe_stream_carry": ("stream", [_P] * 10 + [_I] * 9 + [_P]),
     "swipe_hint": ("hint", [_P] * 10 + [_I] * 6 + [_P]),
+    "swipe_wavefront": ("wavefront", [_P] * 5 + [_I] * 5 + [_P]),
 }
 _FUNCS: dict[str, ctypes._CFuncPtr] = {}
 
@@ -183,11 +191,11 @@ def _row_shift(h: torch.Tensor, fill: int) -> torch.Tensor:
     return torch.cat([top, h[:, :-1]], dim=1)
 
 
-def _column(h, e, p, Q: int, R: int, iota, clamp):
-    """One db column of the recurrence over all query rows at once
-    ([NQ, QLEN, lanes] tensors): F resolves with a weighted prefix max
-    (cummax) instead of the kernels' row walk."""
-    e = torch.maximum(e - R, h - Q)
+def _rows(h, e, p, Q: int, R: int, iota, clamp):
+    """H of one db column over all query rows at once ([NQ, QLEN, lanes]
+    tensors), from the previous column's H, this column's E and the
+    scores p: F resolves with a weighted prefix max (cummax) instead of
+    the kernels' row walk."""
     hnof = torch.clamp_min(torch.maximum(_row_shift(h, 0) + p, e), 0)
     if clamp is not None:
         hnof = torch.clamp_max(hnof, clamp)
@@ -196,29 +204,45 @@ def _column(h, e, p, Q: int, R: int, iota, clamp):
     h = torch.maximum(hnof, f)
     if clamp is not None:
         h = torch.clamp_max(h, clamp)
-    return h, e
+    return h
 
 
-def sw_scores_stream_plain(qcodes, qlens, matrix8, db, start, *,
-                           gapopenextend: int, gapextend: int,
-                           clamp: int | None = None, dprof=None
-                           ) -> torch.Tensor:
-    """Plain version of sw_scores_stream: a column loop with the query
-    rows vectorized (after the JAX package's _stream_lax_core)."""
+def _column(h, e, p, Q: int, R: int, iota, clamp):
+    """One db column of the recurrence (after the JAX package's
+    _stream_lax_core): (H, E) of the previous column to (H, E) of this
+    one."""
+    e = torch.maximum(e - R, h - Q)
+    return _rows(h, e, p, Q, R, iota, clamp), e
+
+
+def _stream_plain(qcodes, qlens, matrix8, db, start, state, *, Q: int,
+                  R: int, clamp, dprof, carry_in: bool = False):
+    """The column loop of both stream kernels' plain versions (after the
+    JAX package's _stream_lax_core).  ``state`` is None or the (h, e, s)
+    of a series in the kernels' convention: per query row, H at the last
+    column and E pre-advanced into the next one (E' = max(E - R, H - Q)).
+    It is read when ``carry_in``, else every lane starts fresh at block
+    0.  Rows at and past a query's length are no part of the state: they
+    start fresh and come back as they went in.  Returns (dump, h, e,
+    s)."""
     nq, qlen_pad = qcodes.shape
     L, nseqs = db.shape
     dev = db.device
     nblocks = L // KSEG
-    Q, R = gapopenextend, gapextend
     iota = torch.arange(qlen_pad, dtype=torch.int32, device=dev)[None, :,
                                                                   None]
     qmask = iota < qlens[:, None, None]                   # [NQ, QLEN, 1]
     qflat = qcodes.long().flatten()
     qprof = matrix8.to(torch.int32)[qcodes.long()]        # [NQ, QLEN, 32]
     pad_pen = -128            # the PAD row of build_matrix8
-    h = torch.zeros((nq, qlen_pad, nseqs), dtype=torch.int32, device=dev)
-    e = torch.full_like(h, NEG_INF)
-    s = torch.zeros((nq, nseqs), dtype=torch.int32, device=dev)
+    if carry_in:
+        h = torch.where(qmask, state[0], 0)
+        e = torch.where(qmask, state[1], NEG_INF)
+        s = state[2].clone()
+    else:
+        h = torch.zeros((nq, qlen_pad, nseqs), dtype=torch.int32, device=dev)
+        e = torch.full_like(h, NEG_INF)
+        s = torch.zeros((nq, nseqs), dtype=torch.int32, device=dev)
     out = torch.empty((nq, nblocks, nseqs), dtype=torch.int32, device=dev)
     for b in range(nblocks):
         reset = start[b] != 0
@@ -232,10 +256,25 @@ def sw_scores_stream_plain(qcodes, qlens, matrix8, db, start, *,
                 p = dprof[b, :, j].index_select(0, qflat).view(
                     nq, qlen_pad, nseqs)
             p = torch.where(qmask, p, pad_pen)
-            h, e = _column(h, e, p, Q, R, iota, clamp)
+            h = _rows(h, e, p, Q, R, iota, clamp)
+            e = torch.maximum(e - R, h - Q)
             s = torch.maximum(s, h.amax(dim=1))
         out[:, b] = s
-    return out
+    if state is not None:
+        h = torch.where(qmask, h, state[0])
+        e = torch.where(qmask, e, state[1])
+    return out, h, e, s
+
+
+def sw_scores_stream_plain(qcodes, qlens, matrix8, db, start, *,
+                           gapopenextend: int, gapextend: int,
+                           clamp: int | None = None, dprof=None
+                           ) -> torch.Tensor:
+    """Plain version of sw_scores_stream: a column loop with the query
+    rows vectorized (after the JAX package's _stream_lax_core)."""
+    return _stream_plain(qcodes, qlens, matrix8, db, start, None,
+                         Q=gapopenextend, R=gapextend, clamp=clamp,
+                         dprof=dprof)[0]
 
 
 def sw_scores_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
@@ -293,6 +332,154 @@ def sw_scores_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
             int(gapextend), int(clamp is not None),
             int(clamp) if clamp is not None else 0)
     return out
+
+
+
+# ---- K3: one chunk of a flow or carry series ------------------------------
+
+def make_stream_state(nq: int, qlen_pad: int, nseqs: int, device=None):
+    """Fresh (h, e, s) carry state of a flow or carry series: h/e
+    [NQ, QLEN, NSEQS] int32 (the JAX lax twin's lane-flat layout), s
+    [NQ, NSEQS] int32."""
+    h = torch.zeros((nq, qlen_pad, nseqs), dtype=torch.int32, device=device)
+    return (h, torch.full_like(h, NEG_INF),
+            torch.zeros((nq, nseqs), dtype=torch.int32, device=device))
+
+
+def stream_state_from_jax(h, e, s):
+    """The JAX carry kernel's state (h/e [NQ, QLEN, SUB, NL], s [NQ, SUB,
+    NL]; lane i at (i // NL, i % NL)) in this module's lane-flat layout,
+    as CPU tensors.  Takes anything numpy can read."""
+    h, e, s = (np.asarray(x, dtype=np.int32) for x in (h, e, s))
+    nq, qlen_pad = h.shape[:2]
+    return (torch.from_numpy(h.reshape(nq, qlen_pad, -1).copy()),
+            torch.from_numpy(e.reshape(nq, qlen_pad, -1).copy()),
+            torch.from_numpy(s.reshape(nq, -1).copy()))
+
+
+def permute_stream_state(h: torch.Tensor, e: torch.Tensor, s: torch.Tensor,
+                         carry_src: torch.Tensor):
+    """Gather a carry state across lanes by FlowChunk.carry_src: lane i of
+    the result holds lane carry_src[i] of the input; lanes with
+    carry_src < 0 start fresh in the next chunk (its start mask resets
+    them) and read lane 0.  The result has len(carry_src) lanes, so a
+    shorter carry_src narrows the state (the flow series' drains)."""
+    src = torch.clamp_min(carry_src.long(), 0)
+    return h.index_select(2, src), e.index_select(2, src), \
+        s.index_select(1, src)
+
+
+def _pad_to_state_width(db, start, nseqs_state: int):
+    """PAD-fill a compact chunk (pack_stream_carry) up to the carry
+    state's lane count; the new lanes never start a sequence."""
+    L, nseqs = db.shape
+    if nseqs < nseqs_state:
+        db = torch.cat([db, torch.full((L, nseqs_state - nseqs), PAD_SYMBOL,
+                                       dtype=db.dtype, device=db.device)],
+                       dim=1)
+        start = torch.cat([start, torch.zeros(
+            (start.shape[0], nseqs_state - nseqs), dtype=start.dtype,
+            device=start.device)], dim=1)
+    return db, start
+
+
+def sw_scores_stream_carry_plain(qcodes, qlens, matrix8, db, start, h, e, s,
+                                 *, gapopenextend: int, gapextend: int,
+                                 clamp: int | None = None, dprof=None,
+                                 carry_in: bool = True,
+                                 carry_out: bool = True):
+    """Plain version of sw_scores_stream_carry (same contract)."""
+    db, start = _pad_to_state_width(db, start, h.shape[2])
+    out, h2, e2, s2 = _stream_plain(
+        qcodes, qlens, matrix8, db, start, (h, e, s), Q=gapopenextend,
+        R=gapextend, clamp=clamp, dprof=dprof, carry_in=carry_in)
+    if carry_out:
+        h.copy_(h2)
+        e.copy_(e2)
+        s.copy_(s2)
+    return out, h, e, s
+
+
+def sw_scores_stream_carry(qcodes: torch.Tensor, qlens: torch.Tensor,
+                           matrix8: torch.Tensor, db: torch.Tensor,
+                           start: torch.Tensor, h: torch.Tensor,
+                           e: torch.Tensor, s: torch.Tensor, *,
+                           gapopenextend: int, gapextend: int,
+                           clamp: int | None = None,
+                           dprof: torch.Tensor | None = None,
+                           carry_in: bool = True, carry_out: bool = True):
+    """sw_scores_stream over ONE chunk of a flow or carry series
+    (batching.pack_stream_flow / pack_stream_carry), with each lane's DP
+    state carried in and out, so a chunk boundary is invisible to the DP.
+
+    h/e: [NQ, QLEN, NSEQS] int32 and s: [NQ, NSEQS] int32 — per query
+    row, H at the last column and E pre-advanced into the next one, and
+    the running max (make_stream_state for a fresh series;
+    permute_stream_state between the chunks of a flow series).  A lane
+    whose start bit is set at block 0 ignores the carried state.  Rows
+    at and past qlens[q] are no part of the state.
+    db/start may be narrower than the state (compact carry chunks): the
+    missing lanes are PAD-filled on the device.  ``dprof`` holds the
+    profiles at the state's width.
+
+    With ``carry_out`` the state tensors are updated IN PLACE and
+    returned.  Without it they are returned unchanged and must not be
+    threaded on (a series' last chunk).  With ``carry_in=False`` every
+    lane starts fresh at block 0 and h/e/s are not read (a series' first
+    chunk).  Returns (dump [NQ, L // KSEG, NSEQS], h, e, s).
+
+    Scores and state are the JAX package's sw_scores_stream_carry
+    (``minter`` and ``ru`` are TPU-only and change no result)."""
+    dev = db.device
+    for name, t, dtype, ndim in (("qcodes", qcodes, torch.int32, 2),
+                                 ("qlens", qlens, torch.int32, 1),
+                                 ("matrix8", matrix8, torch.int8, 2),
+                                 ("db", db, torch.int8, 2),
+                                 ("start", start, torch.int8, 2),
+                                 ("h", h, torch.int32, 3),
+                                 ("e", e, torch.int32, 3),
+                                 ("s", s, torch.int32, 2)):
+        _check(name, t, dtype, ndim, dev)
+    nq, qlen_pad = qcodes.shape
+    nseqs = h.shape[2]
+    db, start = _pad_to_state_width(db, start, nseqs)
+    L = db.shape[0]
+    nblocks = L // KSEG
+    if L % KSEG:
+        raise ValueError(f"db length {L} not a multiple of {KSEG}")
+    if db.shape[1] != nseqs or tuple(start.shape) != (nblocks, nseqs) \
+            or tuple(h.shape) != (nq, qlen_pad, nseqs) \
+            or e.shape != h.shape or tuple(s.shape) != (nq, nseqs) \
+            or qlens.shape[0] != nq or tuple(matrix8.shape) != (32, 32):
+        raise ValueError("sw_scores_stream_carry: inconsistent shapes "
+                         f"qcodes {tuple(qcodes.shape)} db "
+                         f"{tuple(db.shape)} start {tuple(start.shape)} "
+                         f"h {tuple(h.shape)} s {tuple(s.shape)}")
+    if dprof is not None:
+        _check("dprof", dprof, torch.int32, 4, dev)
+        if tuple(dprof.shape) != (nblocks, 32, KSEG, nseqs):
+            raise ValueError(f"dprof shape {tuple(dprof.shape)} != "
+                             f"{(nblocks, 32, KSEG, nseqs)}")
+    kw = dict(gapopenextend=gapopenextend, gapextend=gapextend, clamp=clamp,
+              dprof=dprof, carry_in=carry_in, carry_out=carry_out)
+    if dev.type != "cuda":
+        return sw_scores_stream_carry_plain(qcodes, qlens, matrix8, db,
+                                            start, h, e, s, **kw)
+    out = torch.empty((nq, nblocks, nseqs), dtype=torch.int32, device=dev)
+    # the kernel updates its state in place: a series' last chunk gets a
+    # copy (or, without carry-in, a scratch)
+    if carry_out:
+        hst, est, sio = h, e, s
+    elif carry_in:
+        hst, est, sio = h.clone(), e.clone(), s.clone()
+    else:
+        hst, est, sio = (torch.empty_like(x) for x in (h, e, s))
+    _launch("swipe_stream_carry", dev, _ptr(qcodes), _ptr(qlens),
+            _ptr(matrix8), _ptr(db), _ptr(start), _ptr(dprof), _ptr(out),
+            _ptr(hst), _ptr(est), _ptr(sio), int(carry_in), nq, qlen_pad,
+            nblocks, nseqs, int(gapopenextend), int(gapextend),
+            int(clamp is not None), int(clamp) if clamp is not None else 0)
+    return out, h, e, s
 
 
 
@@ -385,9 +572,11 @@ def sw_hint_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
 
 # each wrapper's launch count, a plain int raised by _launch where the
 # kernel launches (held here, so a caller that wraps a wrapper still
-# counts on the original)
+# counts on the original; ops.sw_wavefront adds its own)
 _COUNTED = {"swipe_dprofile": build_dprofile_series,
-            "swipe_stream": sw_scores_stream, "swipe_hint": sw_hint_stream}
+            "swipe_stream": sw_scores_stream,
+            "swipe_stream_carry": sw_scores_stream_carry,
+            "swipe_hint": sw_hint_stream}
 for _f in _COUNTED.values():
     _f.launches = 0
 del _f

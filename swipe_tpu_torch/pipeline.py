@@ -1,17 +1,29 @@
 """Search pipeline: pack -> profile + score on the card -> top-K -> hits ->
 align.
 
-Port of ``swipe_tpu/pipeline.py`` for the plain lane-pack route.  The
-host decisions are the JAX engine's, so the same packs and the same hits
-come out: the lane counts of STREAM_CONFIGS, qlen_bucket, SLOT_BATCH with
+Port of ``swipe_tpu/pipeline.py`` for the stream backend.  The host
+decisions are the JAX engine's, so the same packs and the same hits come
+out: the lane counts of STREAM_CONFIGS, qlen_bucket, SLOT_BATCH with
 power-of-two slot padding, the 8192-column chunks and the 65,536-column
-giant threshold, the device cache budget, the reversed tie order of the
-top-K, the init/upper thresholds and kbase, and the cascade counters.
+giant threshold, the flow heuristic, the giant routing, the device cache
+budget, the reversed tie order of the top-K, the init/upper thresholds
+and kbase, and the cascade counters.
 
-Per slot group, one walk over the chunks cached on the device builds
-each chunk's block profiles (K1), scores it (K2), gathers each
-sequence's score and reduces to the top K with torch ops; one
-device-to-host copy per group feeds hit entry.  The align phase's
+Database units up to the giant threshold take one of two routes, per
+slot group one walk over chunks cached on the device and one
+device-to-host copy feeding hit entry:
+
+* the plain lane pack (pack_stream): each chunk's block profiles (K1),
+  its scores (K2), then each sequence's score gathered and reduced to
+  the top K with torch ops;
+* the flow series (pack_stream_flow), for heavy length tails over small
+  databases: the same with the carry kernel (K3), each lane's DP state
+  gathered across lanes between chunks.
+
+Chromosome-scale units follow, per slot group, on one of three giant
+routes: overlapped pieces on K2 (segmented), the anti-diagonal
+wavefront kernel (K7) for a few giants whose pieces would be too long,
+or the carry series (pack_stream_carry) on K3.  The align phase's
 endpoint hints run the hint kernel (K4) through
 ops.align_hint.hint_endpoints_grid.
 
@@ -27,7 +39,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .batching import PAD_SYMBOL, pack_stream
+from .batching import (PAD_SYMBOL, pack_stream, pack_stream_carry,
+                       pack_stream_flow, round_up)
 from .hits import HitList
 from .io.db import Database
 from .io.fasta import Query
@@ -185,6 +198,11 @@ class SearchEngine:
     # over small databases take the flow series instead of the plain pack
     FLOW_TAIL_RATIO = 1.25
     FLOW_MIN_AVG_LANE = 512
+    # giant routing: overlapped segmentation when the positive-score span
+    # allows it, else the wavefront kernel for at most this many giants,
+    # else the carry series (tests pin routes with these two)
+    WAVEFRONT_MAX_GIANTS = 64
+    SEGMENT_GIANTS = True
 
     def __init__(self, db: Database, params: SearchParams, *, device=None,
                  nseqs: int | None = None, max_cols: int | None = None):
@@ -195,7 +213,7 @@ class SearchEngine:
         if not self.matrix.fits_int8:
             raise NotImplementedError(
                 "score matrices outside int8 take the JAX package's lax "
-                "route; not ported yet (ROADMAP Queue 1 item 10)")
+                "route; not ported yet (ROADMAP Queue 1 item 9)")
         valid = tuple(n for n, _ in self.STREAM_CONFIGS)
         self._forced_nseqs = None
         if nseqs is None:
@@ -230,17 +248,25 @@ class SearchEngine:
         self.unit_meta = np.array(
             [(u.seqno, u.dstrand, u.dframe) for u in units], dtype=np.int64
         ).reshape(len(units), 3)
+        # units longer than the giant threshold would stretch a whole
+        # pack to nseqs x their length; they take the giant routes
         lens = np.array([len(s) for s in self._unit_seqs], dtype=np.int64)
-        if (lens > self._giant_cols).any():
-            raise NotImplementedError(
-                f"database units longer than {self._giant_cols} columns "
-                "take the giant route; not ported yet (ROADMAP Queue 1 "
-                "item 7)")
-        self._lens = lens
+        self._giant_ids = np.nonzero(lens > self._giant_cols)[0].astype(
+            np.int64)
+        self._normal_ids = np.nonzero(lens <= self._giant_cols)[0].astype(
+            np.int64)
+        self._giant_seqs = [self._unit_seqs[i] for i in self._giant_ids]
+        self._norm_lens = lens[self._normal_ids]
         self._stream_packs: dict[int, list] = {}
         self._dev_stream: dict[int, list] = {}
-        self._check_plain_route(nseqs)
-        self.chunks = self._stream_chunks(nseqs)
+        self._flow_packs: dict[int, list] = {}
+        self._dev_flow: dict[int, list] = {}
+        self._carry_packs: dict[int, list] = {}
+        self._seg_packs: dict[tuple, tuple] = {}
+        self._dev_seg: dict[tuple, list] = {}
+        # flow-routed databases never touch the plain lane pack
+        self.chunks = None if self._flow_cols(nseqs) is not None \
+            else self._stream_chunks(nseqs)
 
     @property
     def unit_count(self) -> int:
@@ -249,11 +275,12 @@ class SearchEngine:
 
     def _flow_cols(self, nseqs: int) -> int | None:
         """Full-chunk height for the flow route, or None to keep the
-        plain lane pack (the JAX engine's heuristic)."""
-        if self._lens.size == 0:
+        plain lane pack (the JAX engine's heuristic, over the units up to
+        the giant threshold)."""
+        if self._norm_lens.size == 0:
             return None
-        total = int(self._lens.sum())
-        longest = int(self._lens.max())
+        total = int(self._norm_lens.sum())
+        longest = int(self._norm_lens.max())
         avg_lane = total / nseqs
         if avg_lane < self.FLOW_MIN_AVG_LANE \
                 or longest <= self.FLOW_TAIL_RATIO * avg_lane:
@@ -261,20 +288,33 @@ class SearchEngine:
         mc = (int(avg_lane) // 2 + 64) // 128 * 128
         return min(max(mc, 256), self._max_cols)
 
-    def _check_plain_route(self, nseqs: int) -> None:
-        if self._flow_cols(nseqs) is not None:
-            raise NotImplementedError(
-                "this database takes the flow route (a heavy length tail "
-                f"at {nseqs} lanes); not ported yet (ROADMAP Queue 1 "
-                "item 4)")
-
     def _stream_chunks(self, nseqs: int):
-        """Lane-packed chunks at a lane count (built once)."""
+        """Lane-packed chunks at a lane count (built once; giants
+        excluded)."""
         if nseqs not in self._stream_packs:
             self._stream_packs[nseqs] = pack_stream(
-                self._unit_seqs, nseqs=nseqs, max_cols=self._max_cols,
-                seqnos=np.arange(len(self._unit_seqs), dtype=np.int64))
+                [self._unit_seqs[i] for i in self._normal_ids],
+                nseqs=nseqs, max_cols=self._max_cols, seqnos=self._normal_ids)
         return self._stream_packs[nseqs]
+
+    def _flow_chunks(self, nseqs: int):
+        """Flow-series chunks at a lane count (built once)."""
+        if nseqs not in self._flow_packs:
+            self._flow_packs[nseqs] = pack_stream_flow(
+                [self._unit_seqs[i] for i in self._normal_ids],
+                nseqs=nseqs, max_cols=self._flow_cols(nseqs),
+                drain_cols=128, seqnos=self._normal_ids)
+        return self._flow_packs[nseqs]
+
+    def _carry_chunks(self, nseqs: int):
+        """Carry-series chunks of the giant units (built once): each lane
+        streams whole giants through chunks of at most max_cols columns,
+        with H/E/S carried between them."""
+        if nseqs not in self._carry_packs:
+            self._carry_packs[nseqs] = pack_stream_carry(
+                self._giant_seqs, nseqs=nseqs, max_cols=self._max_cols,
+                seqnos=self._giant_ids)
+        return self._carry_packs[nseqs]
 
     def query_frames(self, query: Query) -> list[tuple[int, int, np.ndarray]]:
         return query.frames()
@@ -367,7 +407,7 @@ class SearchEngine:
                 raise NotImplementedError(
                     f"queries over {max(caps.values())} rows take the "
                     "query-tiled route; not ported yet (ROADMAP Queue 1 "
-                    "item 8)")
+                    "item 6)")
             cfg = (qlen_pad, nseqs)
             if groups and groups[-1][0] == cfg:
                 groups[-1][1].append(s)
@@ -383,33 +423,48 @@ class SearchEngine:
             return max(32, -(-L // 32) * 32)
         return -(-L // 128) * 128
 
-    def _dev_stream_chunks(self, nseqs: int):
-        """Device tensors per chunk, with the score-gather coordinates in
-        reverse tie order (the order the top-K relies on).  Yields
-        lazily; chunks stay cached on the device while the total is
-        within DEVICE_CACHE_BYTES."""
-        from .ops.sw_stream import chunk_tensors
-
-        def prep(c):
-            order = reverse_tie_order(self.unit_meta[c.seqnos])
-            data, start, eb, ln = chunk_tensors(
-                c.data_t, c.start, c.end_block[order], c.lane[order],
-                self.device)
-            ud = torch.from_numpy(c.seqnos[order].astype(np.int32))
-            return data, start, eb, ln, ud.to(self.device)
-
-        chunks = self._stream_chunks(nseqs)
-        if sum(c.data_t.size for c in chunks) <= self.DEVICE_CACHE_BYTES:
-            if nseqs not in self._dev_stream:
-                self._dev_stream[nseqs] = [prep(c) for c in chunks]
-            yield from self._dev_stream[nseqs]
+    def _dev_chunks(self, packs, cache: dict, key, prep):
+        """Device tensors of ``packs`` (prep per chunk), cached in
+        ``cache[key]`` while their total is within DEVICE_CACHE_BYTES,
+        else prepared lazily per chunk."""
+        if sum(c.data_t.size for c in packs) <= self.DEVICE_CACHE_BYTES:
+            if key not in cache:
+                cache[key] = [prep(c) for c in packs]
+            yield from cache[key]
         else:
-            for c in chunks:
+            for c in packs:
                 yield prep(c)
+
+    def _prep_chunk(self, c):
+        """(data, start, end_block, lane, unit ids) of one chunk on the
+        device, the score-gather coordinates in reverse tie order (the
+        order the top-K relies on)."""
+        from .ops.sw_stream import chunk_tensors
+        order = reverse_tie_order(self.unit_meta[c.seqnos])
+        data, start, eb, ln = chunk_tensors(
+            c.data_t, c.start, c.end_block[order], c.lane[order],
+            self.device)
+        ud = torch.from_numpy(c.seqnos[order].astype(np.int32))
+        return data, start, eb, ln, ud.to(self.device)
+
+    def _dev_stream_chunks(self, nseqs: int):
+        """Device tensors per plain-pack chunk (_prep_chunk)."""
+        return self._dev_chunks(self._stream_chunks(nseqs), self._dev_stream,
+                                nseqs, self._prep_chunk)
+
+    def _dev_flow_chunks(self, nseqs: int):
+        """Device tensors per flow chunk: _prep_chunk's and the chunk's
+        carry_src."""
+        def prep(c):
+            data, start, eb, ln, ud = self._prep_chunk(c)
+            src = torch.from_numpy(c.carry_src.astype(np.int64))
+            return data, start, src.to(self.device), eb, ln, ud
+
+        return self._dev_chunks(self._flow_chunks(nseqs), self._dev_flow,
+                                nseqs, prep)
 
     def _search_stream_group(self, slots, qlen_pad, nseqs, timings):
         from .ops.sw_stream import build_matrix8, build_qcodes
-        self._check_plain_route(nseqs)
         qc, ql = build_qcodes([s[3] for s in slots], qlen_pad)
         # pad the slot count to a power of two, as the JAX engine does;
         # a dead slot has length 0 and scores 0
@@ -438,20 +493,72 @@ class SearchEngine:
         # upper cutoff (-u/-k): chunk_reduce masks scores above it
         upper_thr = thresholds("upperscorethreshold")
         kbase = max(s[0].keephits for s in slots) + 64
-        packed, n_units = self._stream_walk(
-            self._dev_stream_chunks(nseqs), qc, ql, m8, init_thr, upper_thr,
-            kbase)
-        self._enter_packed(slots, packed, n_units, timings)
+        # heavy length tails over small databases take the flow series
+        if self._flow_cols(nseqs) is not None:
+            scored = self._flow_scores(nseqs, qc, ql, m8, qlen_pad)
+        else:
+            scored = self._stream_scores(self._dev_stream_chunks(nseqs), qc,
+                                         ql, m8)
+        packed, n_units = self._walk(scored, init_thr, upper_thr, kbase)
+        if n_units:
+            self._enter_packed(slots, packed, n_units, timings)
+        # chromosome-scale units follow on the giant routes
+        self._score_carry_series(slots, qlen_pad, timings)
 
-    def _stream_walk(self, chunks, qc, ql, m8, init_thr, upper, kbase):
-        """Score, gather and reduce every chunk on the device; returns the
+    def _profiles(self, m8, data):
+        """A chunk's block profiles (K1) when they fit DPROF_MAX_BYTES,
+        else None (the kernels then look scores up in the matrix)."""
+        from .ops.sw_stream import build_dprofile_series
+        return build_dprofile_series(m8, data) \
+            if data.numel() * 128 <= self.DPROF_MAX_BYTES else None
+
+    def _stream_scores(self, chunks, qc, ql, m8):
+        """Score plain-pack chunks (K1, K2): yields (dump, end_block,
+        lane, unit ids) per chunk; one profile build serves the whole
+        slot group."""
+        from .ops.sw_stream import sw_scores_stream
+        p = self.params
+        for data, start, eb, ln, ud in chunks:
+            dp = self._profiles(m8, data)
+            out = sw_scores_stream(qc, ql, m8, data, start,
+                                   gapopenextend=p.gapopenextend,
+                                   gapextend=p.gapextend, dprof=dp)
+            del dp
+            yield out, eb, ln, ud
+
+    def _flow_scores(self, nseqs, qc, ql, m8, qlen_pad):
+        """Score a flow series in order (K1, K3), the carried state
+        permuted between chunks: yields (dump, end_block, lane, unit
+        ids) for the chunks where units end.  The series' head starts
+        fresh and its tail hands no state on."""
+        from .ops.sw_stream import (make_stream_state, permute_stream_state,
+                                    sw_scores_stream_carry)
+        p = self.params
+        nchunks = len(self._flow_chunks(nseqs))
+        state = None
+        for i, (data, start, src, eb, ln, ud) in enumerate(
+                self._dev_flow_chunks(nseqs)):
+            if i == 0:
+                state = make_stream_state(qc.shape[0], qlen_pad,
+                                          data.shape[1], self.device)
+            else:
+                state = permute_stream_state(*state, src)
+            dp = self._profiles(m8, data)
+            out, *state = sw_scores_stream_carry(
+                qc, ql, m8, data, start, *state,
+                gapopenextend=p.gapopenextend, gapextend=p.gapextend,
+                dprof=dp, carry_in=i > 0, carry_out=i < nchunks - 1)
+            del dp
+            if ud.shape[0]:
+                yield out, eb, ln, ud
+
+    def _walk(self, scored, init_thr, upper, kbase):
+        """Gather and reduce every scored chunk on the device; returns the
         packed host array [nq, 2K + 4] = [scores | unit ids | totalh |
         obvious | n16 | n63] (one device-to-host copy) and the unit
-        count."""
-        from .ops.sw_stream import (build_dprofile_series, gather_scores,
-                                    sw_scores_stream)
-        p = self.params
-        nq = qc.shape[0]
+        count, or (None, 0) when no chunk was scored."""
+        from .ops.sw_stream import gather_scores
+        nq = init_thr.shape[0]
         dev = self.device
         sl7 = self.matrix.scorelimit_7
         sl16 = self.matrix.scorelimit_16
@@ -461,14 +568,7 @@ class SearchEngine:
         n16 = torch.zeros((), dtype=torch.int32, device=dev)
         n63 = torch.zeros_like(n16)
         n_units = 0
-        for data, start, eb, ln, ud in chunks:
-            # one profile build serves the whole slot group
-            dp = build_dprofile_series(m8, data) \
-                if data.numel() * 128 <= self.DPROF_MAX_BYTES else None
-            out = sw_scores_stream(qc, ql, m8, data, start,
-                                   gapopenextend=p.gapopenextend,
-                                   gapextend=p.gapextend, dprof=dp)
-            del dp
+        for out, eb, ln, ud in scored:
             sc = gather_scores(out, eb, ln)
             del out
             v, idx, th, ob, a, b = chunk_reduce(sc, init_thr, upper, kbase,
@@ -480,6 +580,8 @@ class SearchEngine:
             vals_parts.append(v)
             unit_parts.append(ud[idx])
             n_units += ud.shape[0]
+        if not vals_parts:
+            return None, 0
         V = torch.cat(vals_parts, dim=1)
         U = torch.cat(unit_parts, dim=1)
         packed = torch.cat(
@@ -509,3 +611,178 @@ class SearchEngine:
                 timings.rounds[16] += len(slots)
             if n63:
                 timings.rounds[63] += len(slots)
+
+    # ---- giant units --------------------------------------------------------
+
+    def _score_carry_series(self, slots, qlen_pad, timings):
+        """Score the giant units against the slots, SLOT_BATCH at a
+        time, and enter their hits."""
+        if self._giant_ids.size == 0:
+            return
+        for i in range(0, len(slots), self.SLOT_BATCH):
+            group = slots[i:i + self.SLOT_BATCH]
+            for units, sc in self._iter_carry_scores(group, qlen_pad):
+                self._enter_chunk(group, units, sc, timings)
+
+    def _iter_carry_scores(self, slots, qlen_pad):
+        """Route the giants (the JAX engine's rules) and yield (unit ids,
+        host scores [nslots, n]).  A positive-score local alignment spans
+        at most _overlap_bound columns, so overlapped pieces score giants
+        exactly on the stream kernel; where that bound is too large, a
+        few giants take the wavefront kernel and many the carry
+        series."""
+        V = self._overlap_bound(qlen_pad)
+        if self.SEGMENT_GIANTS and V <= self._max_cols // 2:
+            yield from self._iter_segmented_giants(slots, qlen_pad, V)
+        elif len(self._giant_ids) <= self.WAVEFRONT_MAX_GIANTS:
+            yield from self._iter_wavefront_scores(slots, qlen_pad)
+        else:
+            yield from self._iter_carry_series(slots, qlen_pad)
+
+    def _slot_tensors(self, slots, qlen_pad):
+        """(qcodes, qlens, matrix8) of unpadded slots on the device."""
+        from .ops.sw_stream import build_matrix8, build_qcodes
+        qc, ql = build_qcodes([s[3] for s in slots], qlen_pad)
+        dev = self.device
+        return (torch.from_numpy(qc).to(dev), torch.from_numpy(ql).to(dev),
+                torch.from_numpy(build_matrix8(self.matrix.matrix)).to(dev))
+
+    def _iter_carry_series(self, slots, qlen_pad):
+        """The carry series on K3: each giant streams through chunks of
+        max_cols columns on one lane, its state carried chunk to chunk.
+        The JAX engine pads the pack's compact lanes to 1024; here the
+        state is the compact width rounded to a warp (the scores of real
+        lanes are the same)."""
+        from .ops.sw_stream import (chunk_tensors, gather_scores,
+                                    make_stream_state,
+                                    sw_scores_stream_carry)
+        p = self.params
+        chunks = self._carry_chunks(1024)
+        qc, ql, m8 = self._slot_tensors(slots, qlen_pad)
+        state = make_stream_state(len(slots), qlen_pad,
+                                  round_up(chunks[0].nseqs, 32), self.device)
+        for i, ch in enumerate(chunks):
+            data, start, eb, ln = chunk_tensors(ch.data_t, ch.start,
+                                                ch.end_block, ch.lane,
+                                                self.device)
+            out, *state = sw_scores_stream_carry(
+                qc, ql, m8, data, start, *state,
+                gapopenextend=p.gapopenextend, gapextend=p.gapextend,
+                carry_in=i > 0, carry_out=i < len(chunks) - 1)
+            if len(ch.seqnos):
+                yield ch.seqnos, gather_scores(out, eb, ln).cpu().numpy()
+
+    def _overlap_bound(self, qlen_pad: int) -> int:
+        """Upper bound on the db-span of any positive-score local
+        alignment (ops.align_hint._span_bound, shared with the segmented
+        hint pass).  Pieces of a giant cut with this much overlap contain
+        every scoring alignment whole, so max-over-pieces is EXACT.
+        All-negative matrices admit no positive alignment (any overlap
+        is exact); free gap extension makes the span unbounded — the
+        bound then fails the segmentation gate."""
+        from .ops.align_hint import _span_bound
+        maxS = int(self.matrix.matrix.max())
+        if maxS <= 0:
+            return qlen_pad
+        V = _span_bound(qlen_pad, maxS, self.params.gapextend)
+        return (1 << 62) if V is None else V
+
+    def _iter_segmented_giants(self, slots, qlen_pad, V):
+        """Score the giants as overlapped pieces of stride S and length
+        S + V lane-packed at full occupancy (K1, K2); a giant's score is
+        the max over its pieces."""
+        from .ops.sw_stream import gather_scores, sw_scores_stream
+        p = self.params
+        nseqs = 2048 if qlen_pad <= dict(self.STREAM_CONFIGS)[2048] \
+            else 1024
+        owner, dev_chunks = self._seg_giant_chunks(nseqs, V)
+        qc, ql, m8 = self._slot_tensors(slots, qlen_pad)
+        best = np.zeros((len(slots), len(self._giant_ids)), dtype=np.int64)
+        for data, start, eb, ln, snos in dev_chunks:
+            dp = self._profiles(m8, data)
+            out = sw_scores_stream(qc, ql, m8, data, start,
+                                   gapopenextend=p.gapopenextend,
+                                   gapextend=p.gapextend, dprof=dp)
+            del dp
+            sc = gather_scores(out, eb, ln).cpu().numpy()
+            np.maximum.at(best, (slice(None), owner[snos]), sc)
+        yield self._giant_ids, best
+
+    def _seg_giant_chunks(self, nseqs: int, V: int):
+        """Owner map and device tensors of the giant-piece pack, built
+        once per (nseqs, V) and cached on the device within the budget it
+        shares with the plain pack."""
+        from .ops.sw_stream import chunk_tensors
+        key = (nseqs, V)
+        if key not in self._seg_packs:
+            # the stride adapts to the giant payload so mid-size genomes
+            # still fill the lanes; a piece of S + V always fits a chunk
+            total = sum(len(s) for s in self._giant_seqs)
+            S = max(total // (4 * nseqs), V, 1024)
+            S = min(S, self._max_cols - V)
+            pieces, owner = [], []
+            for gi, seq in enumerate(self._giant_seqs):
+                for pos in range(0, max(len(seq) - V, 1), S):
+                    pieces.append(seq[pos: pos + S + V])
+                    owner.append(gi)
+            self._seg_packs[key] = (
+                np.asarray(owner, dtype=np.int64),
+                pack_stream(pieces, nseqs=nseqs, max_cols=self._max_cols,
+                            seqnos=np.arange(len(pieces), dtype=np.int64)))
+        owner, chunks = self._seg_packs[key]
+
+        def prep(ch):
+            return (*chunk_tensors(ch.data_t, ch.start, ch.end_block,
+                                   ch.lane, self.device), ch.seqnos)
+
+        cached = sum(sum(c.data_t.size for c in self._stream_packs[k])
+                     for k in self._dev_stream if k in self._stream_packs)
+        cached += sum(sum(c.data_t.size for c in self._seg_packs[k][1])
+                      for k in self._dev_seg if k in self._seg_packs)
+        total = sum(c.data_t.size for c in chunks)
+        if key in self._dev_seg or \
+                cached + total <= self.DEVICE_CACHE_BYTES:
+            if key not in self._dev_seg:
+                self._dev_seg[key] = [prep(c) for c in chunks]
+            return owner, self._dev_seg[key]
+        return owner, (prep(c) for c in chunks)
+
+    def _iter_wavefront_scores(self, slots, qlen_pad):
+        """Score each giant with the anti-diagonal wavefront kernel (K7),
+        streamed through fixed-width segments."""
+        from .ops.sw_stream import build_matrix8, build_qcodes
+        from .ops.sw_wavefront import build_mq, sw_wavefront_scores
+        p = self.params
+        qc, _ = build_qcodes([s[3] for s in slots], qlen_pad)
+        mq = torch.from_numpy(build_mq(
+            qc, build_matrix8(self.matrix.matrix))).to(self.device)
+        for gid, seq in zip(self._giant_ids, self._giant_seqs):
+            sc = sw_wavefront_scores(mq, seq, gapopenextend=p.gapopenextend,
+                                     gapextend=p.gapextend)
+            yield np.array([gid], dtype=np.int64), sc.cpu().numpy()[:, None]
+
+    def _enter_chunk(self, slots, units, sc, timings):
+        """Enter the giants' host scores [nslots, n] of ``units``."""
+        meta = self.unit_meta[units]
+        for fi, (hits, qstrand, qframe, _) in enumerate(slots):
+            hits.enter_batch(meta[:, 0], sc[fi], qstrand, qframe,
+                             meta[:, 1], meta[:, 2])
+        self._count_tiers(timings, sc, len(slots))
+
+    def _count_tiers(self, timings, scores, nq: int) -> None:
+        """Cascade-compatibility counters (compute*/rounds*,
+        swipe.cc:111-119) from exact scores: the tier a sequence would
+        end at in the reference's 7 -> 16 -> 63-bit escalation follows
+        from its score against SCORELIMIT_7/_16."""
+        if timings is None:
+            return
+        n16 = int((scores >= self.matrix.scorelimit_7).sum())
+        n63 = int((scores >= self.matrix.scorelimit_16).sum())
+        timings.compute[7] += int(scores.size)
+        timings.compute[16] += n16
+        timings.compute[63] += n63
+        timings.rounds[7] += nq
+        if n16:
+            timings.rounds[16] += nq
+        if n63:
+            timings.rounds[63] += nq

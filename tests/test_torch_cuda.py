@@ -120,3 +120,135 @@ def test_engine_on_card_matches_cpu(dev):
         hl = eng.search(preprocess_query("q", q, 1, 3))
         hits.append([(h.seqno, h.score, h.alignment) for h in hl.hits])
     assert hits[0] == hits[1] and hits[0][0][0] == 9
+
+
+def _carry_series(dev, flow):
+    """A flow series (permuted lanes, narrowing drains) or a compact
+    carry series, with its queries."""
+    from swipe_tpu_torch.batching import pack_stream_carry, pack_stream_flow
+    rng = np.random.default_rng(5 + flow)
+    if flow:
+        lens = np.concatenate([rng.integers(5, 300, 5000), [3000, 2100],
+                               [700] * 1100])
+        seqs = [rng.integers(1, 26, size=int(n), dtype=np.int8)
+                for n in lens]
+        chunks = pack_stream_flow(seqs, nseqs=2048, max_cols=256,
+                                  drain_cols=128)
+    else:
+        seqs = [rng.integers(1, 26, size=int(n), dtype=np.int8)
+                for n in [9000, 7000] + list(rng.integers(1, 900, 40))]
+        chunks = pack_stream_carry(seqs, nseqs=1024, max_cols=1024)
+    qs = [rng.integers(1, 26, size=n, dtype=np.int8) for n in (7, 100, 250)]
+    qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 256))
+    return chunks, qc, ql
+
+
+@pytest.mark.parametrize("flow", [True, False])
+def test_carry_kernel_matches_plain(dev, chunk, flow):
+    # every chunk's dump and carried state, the head without carry-in,
+    # the tail without carry-out, with profiles on the flow series
+    m8 = chunk[0]
+    chunks, qc, ql = _carry_series(dev, flow)
+    assert len(chunks) > 3
+    width = chunks[0].nseqs if flow else 64
+    got = sw.make_stream_state(3, 256, width, dev)
+    want = tuple(x.clone() for x in got)
+    n = sw.sw_scores_stream_carry.launches
+    for i, ch in enumerate(chunks):
+        if flow and i:
+            src = torch.from_numpy(ch.carry_src).to(dev)
+            got = sw.permute_stream_state(*got, src)
+            want = sw.permute_stream_state(*want, src)
+        data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
+                                             ch.end_block, ch.lane, dev)
+        kw = dict(gapopenextend=12, gapextend=1, carry_in=i > 0,
+                  carry_out=i < len(chunks) - 1,
+                  dprof=sw.build_dprofile_series(m8, data) if flow else None)
+        d1, *got = sw.sw_scores_stream_carry(qc, ql, m8, data, start, *got,
+                                             **kw)
+        d2, *want = sw.sw_scores_stream_carry_plain(qc, ql, m8, data, start,
+                                                    *want, **kw)
+        assert torch.equal(d1, d2)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert sw.sw_scores_stream_carry.launches == n + len(chunks)
+
+
+def test_wavefront_kernel_matches_plain(dev, chunk):
+    # three segments of a giant, hits and a gap across the segment cuts
+    from swipe_tpu_torch.ops import sw_wavefront as wf
+    m8 = chunk[0].cpu().numpy()
+    rng = np.random.default_rng(6)
+    qs = [rng.integers(1, 26, size=n, dtype=np.int8) for n in (40, 300, 1000)]
+    seq = rng.integers(1, 26, size=10000, dtype=np.int8)
+    seq[4080:4120] = qs[0]
+    seq[8000:8150] = qs[1][:150]
+    seq[8160:8310] = qs[1][150:]
+    mq = torch.from_numpy(wf.build_mq(sw.build_qcodes(qs, 1024)[0],
+                                      m8)).to(dev)
+    n = wf.sw_wavefront.launches
+    old = wf.SEG_STRIPS
+    wf.SEG_STRIPS = 4
+    try:
+        assert len(wf._segments(len(seq))) == 3
+        got = wf.sw_wavefront_scores(mq, seq, gapopenextend=12, gapextend=1)
+    finally:
+        wf.SEG_STRIPS = old
+    assert wf.sw_wavefront.launches == n + 3
+    state = wf.make_wavefront_state(3, 1024, dev)
+    segs = torch.from_numpy(seq).to(dev)
+    plain = wf.sw_wavefront_plain(mq, segs, *state, gapopenextend=12,
+                                  gapextend=1)
+    assert torch.equal(got, plain[2])
+    # one segment: the carried H/E rows too
+    a = wf.make_wavefront_state(3, 1024, dev)
+    b = wf.make_wavefront_state(3, 1024, dev)
+    wf.sw_wavefront(mq, segs[:3000], *a, gapopenextend=12, gapextend=1)
+    wf.sw_wavefront_plain(mq, segs[:3000], *b, gapopenextend=12, gapextend=1)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def _engine_hits(fasta, dbtype, q, symtype, params, device, **kw):
+    attrs = kw.pop("attrs", {})
+    eng = SearchEngine(FastaDatabase(io.StringIO(fasta), dbtype, title="t"),
+                       SearchParams(symtype=symtype, **params),
+                       device=device, **kw)
+    for k, v in attrs.items():
+        setattr(eng, k, v)
+    hl = eng.search(preprocess_query("q", q, symtype, 3))
+    return eng, [(h.seqno, h.score, h.dstrand, h.dframe, h.alignment)
+                 for h in hl.hits]
+
+
+@pytest.mark.parametrize("route", ["flow", "segmented", "wavefront",
+                                   "carry"])
+def test_engine_routes_on_card_match_cpu(dev, route):
+    # a flow-routed and a giant-routed search on the card against the
+    # same search on the CPU
+    rng = np.random.default_rng(8)
+    aa = list("ARNDCQEGHILKMFPSTWYV")
+    q = "".join(rng.choice(aa, 60))        # a span bound that segments
+    recs = ["".join(rng.choice(aa, int(n)))
+            for n in rng.integers(20, 300, size=400)]
+    recs[9] = "".join(rng.choice(aa, 2500)) + q[10:50]
+    recs[30] = "".join(rng.choice(aa, 5000)) + q + "".join(rng.choice(aa, 9))
+    fasta = "".join(f">s{i}\n{s}\n" for i, s in enumerate(recs))
+    params = dict(descriptions=30, alignments=5)
+    kw = dict(attrs={"FLOW_MIN_AVG_LANE": 0}, nseqs=1024) \
+        if route == "flow" else dict(max_cols=2048)
+    if route == "wavefront":
+        kw["attrs"] = {"SEGMENT_GIANTS": False}
+    if route == "carry":
+        kw["attrs"] = {"SEGMENT_GIANTS": False, "WAVEFRONT_MAX_GIANTS": 0}
+    counted = (sw.sw_scores_stream_carry if route in ("flow", "carry") else
+               sw.sw_scores_stream)
+    n = counted.launches
+    eng, on_card = _engine_hits(fasta, "aa", q, 1, params, dev, **kw)
+    assert counted.launches > n
+    if route == "flow":
+        assert eng._flow_cols(1024) is not None
+    else:
+        assert eng._giant_ids.size >= 1
+    _, on_cpu = _engine_hits(fasta, "aa", q, 1, params, "cpu", **kw)
+    assert on_card == on_cpu and on_card[0][0] == 30

@@ -157,3 +157,40 @@ def test_hint_kernel_routes_split_launches_and_single_bin(monkeypatch):
     assert tah.hint_endpoints_many(q, subs, m.matrix, 11, 1,
                                    device="cpu") == want[0]
     assert len(calls) == 3
+
+
+@pytest.mark.parametrize("gapextend,kernel", [(1, False), (1, True),
+                                              (0, False), (0, True)])
+def test_giant_hint_pass_matches_jax(monkeypatch, gapextend, kernel):
+    # chromosome-scale subjects beside ordinary ones, with GIANT_HINT_MIN
+    # cut down: overlapped owned-column pieces (segmentable scoring) or
+    # one subject alone (free gap extension: no span bound), on the host
+    # pass or on the hint kernel's plain version; two equal copies of the
+    # query's core make the endpoint a tie across pieces
+    monkeypatch.setattr(jah, "GIANT_HINT_MIN", 600)
+    monkeypatch.setattr(tah, "GIANT_HINT_MIN", 600)
+    if kernel:
+        monkeypatch.setattr(tah, "_on_cuda", lambda device: True)
+        monkeypatch.setattr(tah, "DEVICE_CELLS", 0)
+    gapopen = 11 + (gapextend == 0)
+    m = ScoreMatrix.builtin("BLOSUM62", gapopen=gapopen, gapextend=gapextend)
+    rng = np.random.default_rng(8 + gapextend)
+    q = rng.integers(1, 26, size=30, dtype=np.int8)
+    giants = []
+    for n in (6000, 9000):
+        s = rng.integers(1, 26, size=n, dtype=np.int8)
+        s[2048 - 10: 2048 + 20] = q
+        s[5000: 5030] = q
+        giants.append(s)
+    subs = [giants[0], rng.integers(1, 26, size=70, dtype=np.int8),
+            giants[1], np.concatenate([q, q])]
+    got = tah.hint_endpoints_many(q, subs, m.matrix, gapopen, gapextend,
+                                  device="cpu")
+    assert got == jah.hint_endpoints_many(q, subs, m.matrix, gapopen,
+                                          gapextend)
+    assert got[0][2] == 2048 - 10 + 29          # the first of the tie
+    # the align phase's grid sends bins with giants to this pass
+    grid = tah.hint_endpoints_grid([(q, subs), (q, subs[1:2])], m.matrix,
+                                   gapopen, gapextend, device="cpu",
+                                   force_device=True)
+    assert grid[0] == got

@@ -100,7 +100,15 @@ ENGINE_CASES = {
     "blastp_batch5": (1, 3, AA, 5, dict(descriptions=30, alignments=10,
                                         maxscore=60)),
     "blastn_both": (0, 3, NT, 2, dict(descriptions=40, alignments=15)),
+    "tblastn": (3, 3, AA, 2, dict(descriptions=40, alignments=10,
+                                  db_gencode=11)),
 }
+
+# a back-translation of each amino acid (tblastn plants)
+CODON = {"A": "GCT", "R": "CGT", "N": "AAT", "D": "GAT", "C": "TGT",
+         "Q": "CAA", "E": "GAA", "G": "GGT", "H": "CAT", "I": "ATT",
+         "L": "CTG", "K": "AAA", "M": "ATG", "F": "TTT", "P": "CCG",
+         "S": "TCT", "T": "ACC", "W": "TGG", "Y": "TAT", "V": "GTT"}
 
 
 @pytest.mark.parametrize("case", sorted(ENGINE_CASES))
@@ -108,10 +116,20 @@ def test_engine_hitlists_match_jax(case):
     symtype, strands, alphabet, nq, kw = ENGINE_CASES[case]
     rng = np.random.default_rng(len(case))
     queries = _seqs(rng, nq, 60, 120, alphabet)
-    recs = _seqs(rng, 400, 20, 150, alphabet)
-    for i, q in enumerate(queries):       # planted homologs
-        recs[3 + 7 * i] = q[5:70]
-        recs[4 + 7 * i] = q[:40] + alphabet[0] * 5 + q[40:]
+    if symtype == 3:
+        # a translated nucleotide database: six frames a record, planted
+        # back-translated homologs on both strands
+        comp = {"A": "T", "C": "G", "G": "C", "T": "A"}
+        recs = _seqs(rng, 80, 60, 450, NT)
+        for i, q in enumerate(queries):
+            nt = "".join(CODON[c] for c in q)
+            recs[3 + 7 * i] = "GA" + nt[15:210]
+            recs[4 + 7 * i] = "".join(comp[c] for c in reversed(nt[:120]))
+    else:
+        recs = _seqs(rng, 400, 20, 150, alphabet)
+        for i, q in enumerate(queries):       # planted homologs
+            recs[3 + 7 * i] = q[5:70]
+            recs[4 + 7 * i] = q[:40] + alphabet[0] * 5 + q[40:]
     fasta = _fasta(recs)
     dbtype = "aa" if symtype == 1 else "nt"
     params = dict(symtype=symtype, querystrands=strands, **kw)
@@ -133,6 +151,8 @@ def test_engine_hitlists_match_jax(case):
         assert _hit_key(g) == _hit_key(w)
         assert g.count > 0
     assert tt.compute == jt.compute and tt.rounds == jt.rounds
+    if symtype == 3:
+        assert {h.dstrand for hl in got for h in hl.hits[:4]} == {0, 1}
 
 
 VOLATILE = {
@@ -188,23 +208,18 @@ def test_engine_needs_cuda_unless_cpu(monkeypatch):
 
 
 def test_unported_routes_raise():
+    # queries over the 1024-row cap; flow-routed databases and units over
+    # the giant threshold run now (tests/test_torch_routes.py and
+    # tests/test_torch_giants.py)
     rng = np.random.default_rng(9)
     small = FastaDatabase(io.StringIO(_fasta(_seqs(rng, 30, 20, 80, AA))),
                           "aa", title="t")
-    # units over the giant threshold
-    with pytest.raises(NotImplementedError, match="giant"):
-        SearchEngine(small, SearchParams(), device="cpu", max_cols=32)
-    # queries over the 1024-row cap
     eng = SearchEngine(small, SearchParams(), device="cpu")
     long_q = preprocess_query("long", "".join(rng.choice(list(AA), 1100)),
                               1, 3)
-    with pytest.raises(NotImplementedError, match="query-tiled"):
+    with pytest.raises(NotImplementedError,
+                       match="query-tiled route.*ROADMAP Queue 1 item 6"):
         eng.search(long_q)
-    # a heavy length tail over a database the flow heuristic picks
-    recs = ["A" * 520] * 1100 + ["W" * 3000]
-    flow = FastaDatabase(io.StringIO(_fasta(recs)), "aa", title="t")
-    with pytest.raises(NotImplementedError, match="flow route"):
-        SearchEngine(flow, SearchParams(), device="cpu", nseqs=1024)
 
 
 def test_import_rule():

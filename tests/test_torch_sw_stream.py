@@ -141,7 +141,7 @@ def test_topk_tie_order_matches_chunk_reduce(k):
         want = [np.asarray(x) for x in _chunk_reduce_impl(
             sc, init_thr, upper, k, 2, 4)]
     else:
-        # the walk keeps every column when k >= n (pipeline._stream_walk)
+        # the walk keeps every column when k >= n (SearchEngine._walk)
         want = list(map(np.asarray, _chunk_reduce_impl(
             sc, init_thr, upper, n, 2, 4)))
         want[0] = np.where(sc > upper[:, None], -1, sc)
