@@ -15,8 +15,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
               kernel over a 2048-lane flow series (lane permutes, a
               narrowing drain, no carry-in at its head, no carry-out at its
               tail) and a compact carry series, every chunk's dump and
-              carried state, and the wavefront kernel over a 3-segment
-              giant with hits and a gap across the segment cuts;
+              carried state, the wavefront kernel over a 3-segment giant
+              with hits and a gap across the segment cuts, the tile pass
+              over four 512-row tiles of a 1024-lane, 64-block chunk
+              (queries ending inside tile 1, inside tile 3, at a tile edge,
+              and an empty slot; with and without profiles, with a clamp)
+              and the tile carry pass over a compact carry series;
 3. search   — the port's normal entry points (FastaDatabase ->
               SearchEngine.search_batch -> Reporter) on a Swiss-Prot-scale
               database: 570,000 random sequences with the published
@@ -26,18 +30,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
               three planted homologs must equal the NumPy oracle, and every
               shown alignment must re-walk to its hit's score.  The search
               then runs once more under torch.profiler for the device time
-              by kernel and the busy share;
+              by kernel and the busy share.  long-search: on the same
+              engine, 4 queries of 1,537-2,048 aa (20%-mutated copies of
+              database records, their planted homologs): one slot group at
+              qlen_pad 2048 on the long route (1024 lanes x 16,384
+              columns, four 512-row tile passes a chunk), the same checks;
 4. proteome — the flow route: 20,000 sequences from the same model (the
               size of UniProt's human reference proteome, UP000005640)
               plus one of 35,213 aa (the model's titin-length clip); the
-              same queries' shape, scoring and checks;
+              same queries' shape, scoring and checks.  long-proteome: 16
+              mutated copies of its records of 1,100-4,000 aa, several
+              slot groups of at most 4 on the plain pack at 1024 lanes
+              (not the flow series), the titin's chunk past 16,384 columns
+              scored without profiles;
 5. genome   — blastn, +1/-3, gaps 5/2, 16 queries of 500 nt, against one
               chromosome of E. coli K-12 MG1655's length (4,641,652 bp,
               NC_000913.3) at its GC share (50.8%), synthesised from a
               seed, beside 4,000 gene-length records (200-3,000 nt) cut
               from it: the chromosome takes the segmented giant route, the
               genes the plain pack.  Each query has mutated copies planted
-              on both strands of the chromosome, one of them inside a gene;
+              on both strands of the chromosome, one of them inside a gene.
+              long-genome: a 16S-length query (1,542 nt, a 10%-mutated copy
+              of a chromosome window inside a gene) on both strands: the
+              genes in tile passes, the chromosome on the carry series in
+              tile passes, hints on the hint kernel over 1,542 rows;
 6. tblastn  — the same database under tblastn (db_gencode 11), 16 queries
               of 400 aa with mutated back-translated copies planted the
               same way: the six chromosome frames take the wavefront
@@ -51,9 +67,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               they came in, exact equality), so each path is checked at its
               own shapes; then each kernel's time and bound at its largest
               call over all the searches, its plain version's time at that
-              call, and the stream kernel there without profiles too.  The
-              bound counts the real cells and the least instructions a cell
-              takes on sm_90a;
+              call, and the stream kernel there without profiles too; the
+              tile passes of the long-search chunk summed, with and without
+              profiles, beside one stream-kernel pass over the same 2,048
+              rows.  The bound counts the real cells and the least
+              instructions a cell takes on sm_90a;
 8. cli      — ``python -m swipe_tpu_torch -m 8`` on a small FASTA database.
 
 Every search phase sets the launch counts to 0 before it runs and reads
@@ -79,7 +97,7 @@ import numpy as np
 import torch
 
 from swipe_tpu_torch import _build
-from swipe_tpu_torch.alphabet import GENETIC_CODES
+from swipe_tpu_torch.alphabet import GENETIC_CODES, SYM_NCBI_AA
 from swipe_tpu_torch.hits import HitList
 from swipe_tpu_torch.batching import (PAD_SYMBOL, pack_stream,
                                       pack_stream_carry, pack_stream_flow)
@@ -135,9 +153,15 @@ KERNELS = {   # wrapper -> (its module, source, TPU kernel it replaces)
                        "swipe_tpu/ops/sw_stream.py:990"),
     "sw_wavefront": (wf, "swipe_tpu_torch/csrc/wavefront.cu",
                      "swipe_tpu/ops/sw_wavefront.py:227"),
+    "stream_tile_pass": (sw, "swipe_tpu_torch/csrc/stream_tile.cu",
+                         "swipe_tpu/ops/sw_stream.py:1263"),
+    "stream_tile_carry_pass": (sw, "swipe_tpu_torch/csrc/stream_tile.cu",
+                               "swipe_tpu/ops/sw_stream.py:1419"),
 }
 # state arguments each wrapper updates in place (cloned before a replay)
-STATE_ARGS = {"sw_scores_stream_carry": (5, 6, 7), "sw_wavefront": (2, 3, 4)}
+STATE_ARGS = {"sw_scores_stream_carry": (5, 6, 7), "sw_wavefront": (2, 3, 4),
+              "stream_tile_pass": (6, 7, 8),
+              "stream_tile_carry_pass": (6, 7, 8, 9, 10)}
 # the align phase's steps, timed on the host in every search: step ->
 # (owner, attribute); the hint kernel's seconds are part of the hint pass
 ALIGN_STEPS = {"finalize": (HitList, "finalize"),
@@ -151,6 +175,8 @@ ECOLI_BP, ECOLI_GC = 4_641_652, 0.508
 # the genome searches: gene records beside the chromosome, queries and
 # their lengths (blastn nucleotides, tblastn residues)
 GENOME_GENES, GENOME_QUERIES, NT_QUERY_LEN, AA_QUERY_LEN = 4000, 16, 500, 400
+# the long-genome query: a 16S rRNA gene's length (E. coli rrsA, 1,542 nt)
+LONG_NT_QUERY_LEN = 1542
 
 
 def log(msg: str) -> None:
@@ -173,8 +199,8 @@ def swissprot_fasta(path: str, n: int, nq: int, qlen: int,
     fifth of its residues redrawn, and two more mutated copies are
     planted in other records, so every query has true homologs besides
     the random hits.  ``longest`` sets the last record's length.
-    Returns (residue count, query strings, each query's three homologous
-    records: its source and the two copies)."""
+    Returns (the records' lengths, query strings, each query's three
+    homologous records: its source and the two copies)."""
     letters = np.frombuffer("".join(SWISSPROT_AA_PERCENT).encode(),
                             dtype=np.uint8)
     freqs = np.array(list(SWISSPROT_AA_PERCENT.values()))
@@ -205,7 +231,7 @@ def swissprot_fasta(path: str, n: int, nq: int, qlen: int,
     with open(path, "wb") as f:
         for i, (st, L) in enumerate(zip(starts.tolist(), lens.tolist())):
             f.write(b">s%d seq %d\n%s\n" % (i, i, blob[st:st + L]))
-    return int(lens.sum()), queries, hosts.reshape(nq, 3).tolist()
+    return lens, queries, hosts.reshape(nq, 3).tolist()
 
 
 def swissprot_letters(n: int, rng: np.random.Generator) -> str:
@@ -283,6 +309,7 @@ def check_kernels(dev, report, nseqs=2048, nblocks=64, seed=1):
                  sw.sw_hint_stream_plain(*args, **kw), report)
     check_carry(dev, m8, qc, ql, rng, report)
     check_wavefront(dev, m8, rng, report)
+    check_tiles(dev, m8, rng, report)
     sync(dev)
 
 
@@ -353,17 +380,89 @@ def check_wavefront(dev, m8, rng, report):
     _compare("sw_wavefront", a, b, report)
 
 
+def plain_tiles(fn, *a, **k):
+    """A tile-pass host loop (sw_scores_stream_long, ..._carry_long) run on
+    the tile passes' plain versions."""
+    saved = sw.stream_tile_pass, sw.stream_tile_carry_pass
+    sw.stream_tile_pass = sw.stream_tile_pass_plain
+    sw.stream_tile_carry_pass = sw.stream_tile_carry_pass_plain
+    try:
+        return fn(*a, **k)
+    finally:
+        sw.stream_tile_pass, sw.stream_tile_carry_pass = saved
+
+
+def check_tiles(dev, m8, rng, report):
+    """K5 over the four 512-row passes of a 1024-lane, 64-block chunk:
+    queries ending inside tile 1, inside tile 3 and at the edge of tile
+    1, and an empty slot; with profiles, without, with a clamp: every
+    pass's dump and planes.  K6 over a compact carry series of two giants
+    cut across 1024-column chunks, no carry-in at its head, no carry-out
+    at its tail: every chunk's dump and carried (h, e, s, bh0c)."""
+    seqs = [rng.integers(1, 26, size=int(L), dtype=np.int8)
+            for L in rng.integers(1, 300, size=1024 * 64 * 16 // 140)]
+    ch = pack_stream(seqs, nseqs=1024, max_cols=64 * 16)[0]
+    data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start, ch.end_block,
+                                         ch.lane, dev)
+    dp = sw.build_dprofile_series(m8, data)
+    qs = [rng.integers(1, 26, size=n, dtype=np.int8)
+          for n in (700, 1800, 1024, 0)]
+    qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 2048))
+    for prof, clamp in ((dp, None), (None, None), (dp, 80)):
+        kw = dict(gapopenextend=12, gapextend=1, tile_rows=512, clamp=clamp,
+                  dprof=prof)
+        got = sw._tile_planes(4, data.shape[0], 1024, dev)
+        want = tuple(x.clone() for x in got)
+        for t in range(4):
+            sw.stream_tile_pass(qc, ql, t, m8, data, start, *got, **kw)
+            sw.stream_tile_pass_plain(qc, ql, t, m8, data, start, *want,
+                                      **kw)
+            _compare("stream_tile_pass", got, want, report)
+    giants = [rng.integers(1, 26, size=int(n), dtype=np.int8)
+              for n in [5000, 4000] + list(rng.integers(1, 900, 40))]
+    carry = pack_stream_carry(giants, nseqs=1024, max_cols=1024)
+    if len(carry) < 3:
+        raise RuntimeError("check: the K6 series has fewer than 3 chunks")
+    qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
+        [rng.integers(1, 26, size=n, dtype=np.int8) for n in (600, 1100, 0)],
+        1536))
+    got = sw.make_stream_state_long(3, 1536, 64, 512, dev)
+    want = tuple(x.clone() for x in got)
+    for i, ch in enumerate(carry):
+        data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
+                                             ch.end_block, ch.lane, dev)
+        kw = dict(gapopenextend=12, gapextend=1, tile_rows=512,
+                  carry_in=i > 0, carry_out=i < len(carry) - 1)
+        d1, *got = sw.sw_scores_stream_carry_long(qc, ql, m8, data, start,
+                                                  *got, **kw)
+        d2, *want = plain_tiles(sw.sw_scores_stream_carry_long, qc, ql, m8,
+                                data, start, *want, **kw)
+        _compare("stream_tile_carry_pass", (d1, *got), (d2, *want), report)
+
+
 # ---- phases 3-6: the searches ----------------------------------------------
+
+def _call_size(name, a, k) -> int:
+    """A kernel call's size, to pick a search's largest call: the elements
+    of its tensor arguments; for a tile pass its cells (the tile's rows
+    over the queries times the chunk), as its tensors are the same size
+    in every pass."""
+    if name in ("stream_tile_pass", "stream_tile_carry_pass"):
+        T = k["tile_rows"]
+        return int((a[1].long() - a[2] * T).clamp(0, T).sum()) \
+            * a[4].numel()
+    return sum(t.numel() for t in a if torch.is_tensor(t))
+
 
 def record_calls(label, calls):
     """Wrap the kernel wrappers so each one's arguments at its largest
-    call in the search ``label`` (by the elements of its tensor arguments)
-    are kept in ``calls[label, name]`` for the timing phase, the state it
-    updates in place cloned as it came in.  The wrapped functions (and
-    their launch counts) are the originals.  Returns the originals."""
+    call in the search ``label`` (_call_size) are kept in
+    ``calls[label, name]`` for the timing phase, the state it updates in
+    place cloned as it came in.  The wrapped functions (and their launch
+    counts) are the originals.  Returns the originals."""
     def wrap(name, fn):
         def recorded(*a, **k):
-            size = sum(t.numel() for t in a if torch.is_tensor(t))
+            size = _call_size(name, a, k)
             if size >= calls.get((label, name), (0,))[0]:
                 calls[label, name] = (size, _fresh(name, a), k)
             return fn(*a, **k)
@@ -476,7 +575,8 @@ def search(dev, workdir, nseq, nq, card, calls, seed=2):
     rng = np.random.default_rng(seed)
     t0 = time.time()
     path = os.path.join(workdir, "swissprot_like.fa")
-    residues, qstr, homologs = swissprot_fasta(path, nseq, nq, 200, rng)
+    lens, qstr, homologs = swissprot_fasta(path, nseq, nq, 200, rng)
+    residues = int(lens.sum())
     db = FastaDatabase(path, "aa", title="swissprot-like")
     os.remove(path)
     queries = [preprocess_query(f"q{i}", s, 1, 3)
@@ -505,7 +605,7 @@ def search(dev, workdir, nseq, nq, card, calls, seed=2):
              "align_s": wall - timings.elapsed, "align_steps_s": split,
              "wall_s": wall, "cells": cells}
     stats["profile"] = profile_search(engine, queries, cells)
-    return launches, stats
+    return launches, stats, engine, db, lens
 
 
 def proteome(dev, workdir, nseq, nq, card, calls, seed=4):
@@ -513,8 +613,9 @@ def proteome(dev, workdir, nseq, nq, card, calls, seed=4):
     the flow route."""
     rng = np.random.default_rng(seed)
     path = os.path.join(workdir, "proteome_like.fa")
-    residues, qstr, homologs = swissprot_fasta(path, nseq, nq, 200, rng,
-                                               longest=LEN_MAX)
+    lens, qstr, homologs = swissprot_fasta(path, nseq, nq, 200, rng,
+                                           longest=LEN_MAX)
+    residues = int(lens.sum())
     db = FastaDatabase(path, "aa", title="proteome-like")
     os.remove(path)
     queries = [preprocess_query(f"p{i}", s, 1, 3)
@@ -542,6 +643,83 @@ def proteome(dev, workdir, nseq, nq, card, calls, seed=4):
         f"GCUPS ({cells} cells), align phase {stats['align_s']:.3f} s, "
         f"wall {wall:.3f} s, report {nbytes} bytes; top scores and 3 "
         f"homologs of each of {nq} queries equal the oracle [{card}]")
+    return launches, stats, engine, db, lens
+
+
+def record_queries(db, recs, rng, label):
+    """20%-mutated copies (Swiss-Prot composition) of database records,
+    as queries named after ``label``."""
+    letters = np.frombuffer("".join(SWISSPROT_AA_PERCENT).encode(),
+                            dtype=np.uint8)
+    freqs = np.array(list(SWISSPROT_AA_PERCENT.values()))
+    sym = np.frombuffer(SYM_NCBI_AA.encode(), dtype=np.uint8)
+    queries = []
+    for i, rec in enumerate(recs):
+        s = sym[np.asarray(db.get_sequence(int(rec), 1)[0])].copy()
+        pos = rng.random(len(s)) < 0.2
+        s[pos] = rng.choice(letters, size=int(pos.sum()), p=freqs / freqs.sum())
+        queries.append(preprocess_query(f"{label}{i}", s.tobytes().decode(),
+                                        1, 3))
+    return queries
+
+
+def track_groups(engine):
+    """Record the engine's slot groups as (slots, qlen_pad, lanes, long)
+    until untrack_groups."""
+    groups = []
+    orig = engine._search_stream_group
+
+    def tracked(slots, qlen_pad, nseqs, timings, long=False):
+        groups.append((len(slots), qlen_pad, nseqs, long))
+        return orig(slots, qlen_pad, nseqs, timings, long)
+
+    engine._search_stream_group = tracked
+    return groups
+
+
+def untrack_groups(engine):
+    del engine._search_stream_group
+
+
+def long_search(label, engine, db, lens, nq, lo, hi, expect, card, calls,
+                seed):
+    """Queries over 1024 rows on an engine of the protein phases: nq
+    mutated copies of records of lo..hi residues (evenly spread over
+    their lengths), their sources the planted homologs; the long route's
+    slot groups must have taken the plain pack in tile passes.  Returns
+    (launches, stats, slot groups)."""
+    rng = np.random.default_rng(seed)
+    pool = np.flatnonzero((lens >= lo) & (lens <= hi))
+    pool = pool[np.argsort(lens[pool], kind="stable")]
+    recs = pool[np.linspace(0, len(pool) - 1, nq).astype(np.int64)]
+    queries = record_queries(db, recs, rng, label[0])
+    groups = track_groups(engine)
+    try:
+        hitlists, timings, wall, launches, split = run_search(
+            label, engine, queries, expect, calls)
+    finally:
+        untrack_groups(engine)
+    if not groups or not all(g[3] and g[2] == 1024 and g[0] <= 4
+                             for g in groups):
+        raise RuntimeError(f"{label}: slot groups {groups} are not long "
+                           "groups of at most 4 at 1024 lanes")
+    if launches["sw_scores_stream_carry"] or launches["sw_scores_stream"]:
+        raise RuntimeError(f"{label}: the long groups left the plain pack "
+                           "in tile passes")
+    nbytes = check_protein_hits(label, db, engine, queries, hitlists,
+                                [[int(r)] for r in recs])
+    cells = int(lens.sum()) * sum(len(q.aa[0]) for q in queries)
+    stats = {"gcups": cells / timings.elapsed / 1e9,
+             "scoring_s": timings.elapsed, "align_s": wall - timings.elapsed,
+             "align_steps_s": split, "wall_s": wall, "cells": cells,
+             "query_lens": [len(q.aa[0]) for q in queries],
+             "groups": groups}
+    log(f"{label}: {nq} queries of {min(stats['query_lens'])}-"
+        f"{max(stats['query_lens'])} aa in slot groups {groups}; scoring "
+        f"{timings.elapsed:.3f} s = {stats['gcups']:.1f} GCUPS ({cells} "
+        f"cells), align phase {stats['align_s']:.3f} s, wall {wall:.3f} s, "
+        f"report {nbytes} bytes; top scores and every source record equal "
+        f"the oracle [{card}]")
     return launches, stats
 
 
@@ -745,6 +923,8 @@ def genome_searches(dev, workdir, card, calls, seed=5):
         f"by the reference's meter), align phase {wall - tim.elapsed:.3f} s, "
         f"wall {wall:.3f} s; {n} chromosome copies and the planted genes "
         f"equal their oracles [{card}]")
+    launches["long-genome"], stats["long-genome"] = long_genome(
+        engine, db, chrom, genes, frames, card, calls)
     del engine, frames
 
     # phase 6: tblastn, the wavefront and then the carry series
@@ -788,6 +968,73 @@ def genome_searches(dev, workdir, card, calls, seed=5):
     if keys[0] != keys[1]:
         raise RuntimeError("tblastn: the wavefront and carry hit lists differ")
     log("tblastn: the wavefront and carry series hit lists are equal")
+    return launches, stats
+
+
+def track_hints(split):
+    """Wrap align_hint._hint_batch (the per-bin hint pass) so that a
+    batch over DEVICE_CELLS cells that launched no hint kernel fails the
+    run, and the largest query of a launch is kept in split["k4_rows"].
+    Returns the original."""
+    orig = align_hint._hint_batch
+    kernel = sw.sw_hint_stream      # its count, whatever wraps it later
+
+    def checked(q, dseqs, *a, **k):
+        n = kernel.launches
+        out = orig(q, dseqs, *a, **k)
+        cells = len(q) * len(dseqs) * max(len(d) for d in dseqs)
+        if kernel.launches > n:
+            split["k4_rows"] = max(split.get("k4_rows", 0), len(q))
+        elif cells > align_hint.DEVICE_CELLS:
+            raise RuntimeError(f"a hint batch of {cells} cells ({len(q)} "
+                               "rows) ran on the host")
+        return out
+
+    align_hint._hint_batch = checked
+    return orig
+
+
+def long_genome(engine, db, chrom, genes, frames, card, calls, seed=6):
+    """The long-genome phase on the blastn engine: a 16S-length query, a
+    10%-mutated copy of a chromosome window inside a gene, on both
+    strands."""
+    rng = np.random.default_rng(seed)
+    qlen = LONG_NT_QUERY_LEN
+    gi = next(i for i, (_, _, g) in enumerate(genes) if len(g) >= qlen + 40)
+    gstart, glen = genes[gi][0], len(genes[gi][2])
+    pos = gstart + int(rng.integers(0, glen - qlen + 1))
+    q = chrom[pos:pos + qlen].copy()
+    flip = rng.random(qlen) < 0.1
+    q[flip] = rng.choice(NT_LETTERS, size=int(flip.sum()))
+    queries = [preprocess_query("l0", q.tobytes().decode(), 0, 3)]
+    groups = track_groups(engine)
+    hints: dict = {}
+    orig = track_hints(hints)
+    try:
+        hitlists, tim, wall, launches, split = run_search(
+            "long-genome", engine, queries,
+            ("build_dprofile_series", "stream_tile_pass",
+             "stream_tile_carry_pass", "sw_hint_stream"), calls)
+    finally:
+        align_hint._hint_batch = orig
+        untrack_groups(engine)
+    if groups != [(2, -(-qlen // 512) * 512, 1024, True)]:
+        raise RuntimeError(f"long-genome: slot groups {groups}")
+    if hints.get("k4_rows") != qlen:
+        raise RuntimeError(f"long-genome: the hint kernel ran at "
+                           f"{hints.get('k4_rows')} rows, not {qlen}")
+    n = check_genome_hits("long-genome", db, engine, queries, hitlists,
+                          [[(pos, 0, qlen, gi)]], (5, 2), frames)
+    stats = {"scoring_s": tim.elapsed, "meter_gcups": tim.speed / 1e9,
+             "align_s": wall - tim.elapsed, "align_steps_s": split,
+             "wall_s": wall, "carry_chunks": len(engine._carry_chunks(1024))}
+    log(f"long-genome: {qlen}-nt query from gene g{gi}, slot groups "
+        f"{groups}; scoring {tim.elapsed:.3f} s ({tim.speed / 1e9:.1f} "
+        f"GCUPS by the reference's meter), align phase "
+        f"{wall - tim.elapsed:.3f} s, wall {wall:.3f} s; hint kernel at "
+        f"{hints['k4_rows']} rows, no hint batch over "
+        f"{align_hint.DEVICE_CELLS} cells on the host; {n} chromosome "
+        f"window and the genes equal their oracles [{card}]")
     return launches, stats
 
 
@@ -860,6 +1107,21 @@ def _work(name, args, kw, out):
                                          + kw.get("carry_out", True))
         return (nbytes, cells * (OPS_PER_CELL + extra),
                 cells * (INT32_OPS_PER_CELL + extra))
+    if name in ("stream_tile_pass", "stream_tile_carry_pass"):
+        qc, ql, tile, m8, db, start, bh, bf, sprev = args[:9]
+        T = kw["tile_rows"]
+        rows = (ql.long() - tile * T).clamp(0, T)
+        cells = int(rows.sum()) * int((db != PAD_SYMBOL).sum())
+        extra = kw.get("clamp") is not None
+        # the planes and the dump read and written
+        nbytes = _nbytes(qc, ql, m8, db, start, kw.get("dprof")) \
+            + 2 * _nbytes(bh, bf, sprev)
+        if len(args) > 9:   # the tile's rows of the state, S and bh0c
+            h, _, s, bh0c = args[9:]
+            nbytes += 2 * 2 * h.shape[0] * T * h.shape[2] * 4 \
+                + _nbytes(s, bh0c)
+        return (nbytes, cells * (OPS_PER_CELL + extra),
+                cells * (INT32_OPS_PER_CELL + extra))
     if name == "sw_wavefront":
         mq, db = args[:2]
         qlens = (mq != -128).any(dim=2).sum(dim=1)   # rows of real symbols
@@ -884,6 +1146,32 @@ def time_without_profiles(args, kw, out, ms, report):
     log(f"time: sw_scores_stream without profiles {ms0:.3f} ms; with "
         f"profiles {ms:.3f} ms + build_dprofile_series {k1:.3f} ms = "
         f"{ms + k1:.3f} ms")
+
+
+def time_tiles(calls, report):
+    """The long-search chunk's four tile passes (K5) summed, with profiles
+    and without, beside one K2 pass over the same 2,048 rows, whose dump
+    must be the same."""
+    _, args, kw = calls["long-search", "stream_tile_pass"]
+    qc, ql, _, m8, db, start = args[:6]
+    dp = kw["dprof"]
+    kw = dict(gapopenextend=kw["gapopenextend"], gapextend=kw["gapextend"])
+    long = sw.sw_scores_stream_long(qc, ql, m8, db, start, dprof=dp, **kw)
+    one = sw.sw_scores_stream(qc, ql, m8, db, start, dprof=dp, **kw)
+    _compare("sw_scores_stream", one, long, report)
+    del long, one
+    out = {"k5_passes_ms": _time(lambda: sw.sw_scores_stream_long(
+               qc, ql, m8, db, start, dprof=dp, **kw), 2),
+           "k5_passes_no_profiles_ms": _time(lambda: sw.sw_scores_stream_long(
+               qc, ql, m8, db, start, **kw), 2),
+           "k2_one_pass_ms": _time(lambda: sw.sw_scores_stream(
+               qc, ql, m8, db, start, dprof=dp, **kw), 2),
+           "shape": [list(qc.shape), list(db.shape)]}
+    log(f"time: long-search chunk {out['shape']}: four tile passes (K5) "
+        f"{out['k5_passes_ms']:.3f} ms with profiles, "
+        f"{out['k5_passes_no_profiles_ms']:.3f} ms without; one K2 pass "
+        f"over the same rows {out['k2_one_pass_ms']:.3f} ms (same dump)")
+    return out
 
 
 def _fresh(name, args):
@@ -1001,10 +1289,28 @@ def main() -> int:
     stats: dict = {}
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         t = time.time()
-        launches["search"], stats["search"] = search(dev, workdir, 570_000,
-                                                     16, card, calls)
-        launches["proteome"], stats["proteome"] = proteome(
+        launches["search"], stats["search"], engine, db, lens = search(
+            dev, workdir, 570_000, 16, card, calls)
+        launches["long-search"], stats["long-search"] = long_search(
+            "long-search", engine, db, lens, 4, 1537, 2048,
+            ("build_dprofile_series", "stream_tile_pass", "sw_hint_stream"),
+            card, calls, seed=7)
+        del engine, db, lens
+        launches["proteome"], stats["proteome"], engine, db, lens = proteome(
             dev, workdir, 20_000, 16, card, calls)
+        launches["long-proteome"], stats["long-proteome"] = long_search(
+            "long-proteome", engine, db, lens, 16, 1100, 4000,
+            ("stream_tile_pass", "sw_hint_stream"), card, calls, seed=8)
+        titin = max(c.data_t.shape[1] for c in engine._stream_chunks(
+            1024, engine.LONG_MAX_COLS))
+        if titin <= engine.LONG_MAX_COLS or \
+                calls["long-proteome", "stream_tile_pass"][2]["dprof"] \
+                is not None:
+            raise RuntimeError("long-proteome: the titin's chunk was not "
+                               "scored without profiles")
+        if len({g[1] for g in stats["long-proteome"]["groups"]}) < 2:
+            raise RuntimeError("long-proteome: one qlen_pad group only")
+        del engine, db, lens
         more, st = genome_searches(dev, workdir, card, calls)
         launches.update(more)
         stats.update(st)
@@ -1020,11 +1326,12 @@ def main() -> int:
                                    "at a search's shapes")
         t = time.time()
         rows = time_kernels(calls, plain_ms, report)
+        stats["time-tiles"] = time_tiles(calls, report)
         del calls
         log(f"time: {time.time() - t:.1f} s")
         if any(r["mismatches"] for r in report.values()):
-            raise RuntimeError("sw_scores_stream without profiles differs "
-                               "from its plain version")
+            raise RuntimeError("sw_scores_stream without profiles, or over "
+                               "2,048 rows, differs from its plain version")
         cli(workdir)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,

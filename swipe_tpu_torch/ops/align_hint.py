@@ -20,10 +20,14 @@ tie-breaking semantics differ from the forward region scan (which picks the
 smallest query row overall), so reproducing them is required for alignment
 parity when several optimal endpoints exist.
 
-Inputs outside the kernel's domain (matrices outside int8, queries over
-1024 rows, bins over 1024 subjects or over the byte cap) take the NumPy
-host pass, as on the JAX package's CPU path.  A failure of the kernel
-raises; nothing falls back.
+The align phase's grid keeps the JAX package's domain (int8 matrices,
+queries up to 1024 rows, bins up to 1024 subjects); other bins go to
+hint_endpoints_many, which sends a batch over DEVICE_CELLS cells to the
+hint kernel too, whatever its query length, as the JAX package sends it
+to its accelerator.  Only matrices outside int8, small batches and
+launches over the byte caps take the NumPy host pass.  Results are
+exact on either route.  A failure of the kernel raises; nothing falls
+back.
 
 Chromosome-scale subjects (over GIANT_HINT_MIN columns) are cut into
 overlapped pieces that ride the hint kernel as lanes of one launch, each
@@ -54,6 +58,11 @@ MAX_BIN_SUBJECTS = 1024
 WARP = 32
 # footprint cap of one launch: bins x columns x lanes int8
 _LAUNCH_BYTES = 64 << 20
+# caps of one per-bin launch (_hint_batch): its subjects (bins x columns x
+# lanes int8) and the kernel's H/E row scratch (query rows x lanes int32,
+# twice)
+_BIN_LAUNCH_BYTES = 512 << 20
+_SCRATCH_BYTES = 1 << 30
 
 # subjects longer than this segment into overlapped pieces for the hint
 # pass (the transpose of the search phase's segmented-giant scoring): a
@@ -76,8 +85,14 @@ def _on_cuda(device) -> bool:
     return device is not None and str(device).startswith("cuda")
 
 
+def _fits_int8(mat: np.ndarray) -> bool:
+    return mat.min() >= -128 and mat.max() <= 127
+
+
 def _fits_kernel(mat: np.ndarray, m: int) -> bool:
-    return mat.min() >= -128 and mat.max() <= 127 and 0 < m <= 1024
+    """The grid's domain, the JAX package's: int8 scores, at most 1024
+    query rows."""
+    return _fits_int8(mat) and 0 < m <= 1024
 
 
 def hint_endpoints_many(qseq: np.ndarray, dseqs: list[np.ndarray],
@@ -98,6 +113,8 @@ def hint_endpoints_many(qseq: np.ndarray, dseqs: list[np.ndarray],
     true colmax; ownership partitions the columns, so merging by
     (max S, then smallest global column) reproduces the unsegmented
     first-improving-column/smallest-row tie semantics bit-for-bit).
+    Batches over DEVICE_CELLS cells run on the hint kernel when
+    ``device`` is CUDA, at any query length (_hint_batch).
     """
     if not dseqs:
         return []
@@ -188,7 +205,8 @@ def hint_endpoints_grid(jobs, matrix, gapopen: int, gapextend: int,
     most 4, at most DEVICE_CELLS cells) stay on the host, where a launch
     would cost more than the pass.  Bins outside the domain (non-int8
     matrices, queries over 1024 rows, over MAX_BIN_SUBJECTS subjects,
-    over the footprint cap alone) take hint_endpoints_many.
+    over the footprint cap alone) take hint_endpoints_many, which runs a
+    batch over DEVICE_CELLS on the kernel as well.
     ``force_device`` takes the kernel route whatever the size and
     device — on a CPU ``device`` that is the kernel's plain version.
 
@@ -289,11 +307,13 @@ def _hint_batch(q, dseqs, mat, Q, R, device=None, starts=None):
     if starts is None:
         starts = np.zeros(n, dtype=np.int64)
 
-    # the kernel route: one launch holds the bin; a chromosome-scale
-    # subject (over 512 MB of padded lanes) stays on the host instead
+    # the kernel route, at any query length: one launch holds the bin.  A
+    # chromosome-scale subject (over 512 MB of padded lanes) or a row
+    # scratch over its cap stays on the host instead
     if (n * maxlen * m > DEVICE_CELLS and _on_cuda(device)
-            and _fits_kernel(mat, m)
-            and _launch_bytes([(q, dseqs)]) <= (512 << 20)):
+            and _fits_int8(mat) and m > 0
+            and _launch_bytes([(q, dseqs)]) <= _BIN_LAUNCH_BYTES
+            and 8 * m * _launch_dims([(q, dseqs)])[1] <= _SCRATCH_BYTES):
         return _hint_launch([(q, dseqs)], mat, Q, R, device, starts)[0]
 
     QP = mat[q, :].T.astype(np.int32)                 # (32, m)

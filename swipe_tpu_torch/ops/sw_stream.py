@@ -1,7 +1,7 @@
 """Stream Smith-Waterman on lane-packed chunks: the CUDA kernels and their
 plain PyTorch versions.
 
-Port of ``swipe_tpu/ops/sw_stream.py``.  Four kernels, hand-written CUDA
+Port of ``swipe_tpu/ops/sw_stream.py``.  Six kernels, hand-written CUDA
 C++ for sm_90a under ``csrc/`` and bound through a plain C interface with
 ctypes:
 
@@ -13,7 +13,12 @@ ctypes:
   — the same over one chunk of a flow or carry series, with each lane's
   DP state carried in and out;
 * ``sw_hint_stream`` (``csrc/hint.cu``) — alignment-endpoint hints with
-  search16s tie rules.
+  search16s tie rules;
+* ``stream_tile_pass`` (``csrc/stream_tile.cu``) — one query-tile pass of
+  ``sw_scores_stream_long``, the scores of queries over one tile;
+* ``stream_tile_carry_pass`` (``csrc/stream_tile.cu``, the carry
+  instantiation) — the same over one chunk of a carry series
+  (``sw_scores_stream_carry_long``).
 
 Each wrapper takes its kernel for CUDA tensors and its plain version
 (``*_plain``, same module) for CPU tensors, and nothing else: a failed
@@ -44,7 +49,11 @@ __all__ = ["KSEG", "build_matrix8", "build_qcodes", "chunk_tensors",
            "make_stream_state", "permute_stream_state",
            "stream_state_from_jax", "sw_scores_stream_carry",
            "sw_scores_stream_carry_plain", "sw_hint_stream",
-           "sw_hint_stream_plain"]
+           "sw_hint_stream_plain", "tile_planes_from_jax",
+           "make_stream_state_long", "stream_state_long_from_jax",
+           "stream_tile_pass", "stream_tile_pass_plain",
+           "sw_scores_stream_long", "stream_tile_carry_pass",
+           "stream_tile_carry_pass_plain", "sw_scores_stream_carry_long"]
 
 KSEG = 16   # db columns per block = lane-refill granularity of the packs
 
@@ -101,6 +110,8 @@ _SIGNATURES = {
     "swipe_stream": ("stream", [_P] * 9 + [_I] * 8 + [_P]),
     "swipe_stream_carry": ("stream", [_P] * 10 + [_I] * 9 + [_P]),
     "swipe_hint": ("hint", [_P] * 10 + [_I] * 6 + [_P]),
+    "swipe_stream_tile": ("stream_tile", [_P] * 11 + [_I] * 10 + [_P]),
+    "swipe_stream_tile_carry": ("stream_tile", [_P] * 13 + [_I] * 10 + [_P]),
     "swipe_wavefront": ("wavefront", [_P] * 5 + [_I] * 5 + [_P]),
 }
 _FUNCS: dict[str, ctypes._CFuncPtr] = {}
@@ -139,6 +150,14 @@ def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
 
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
+
+
+def _check_dprof(dprof, nblocks: int, nseqs: int, device) -> None:
+    if dprof is not None:
+        _check("dprof", dprof, torch.int32, 4, device)
+        if tuple(dprof.shape) != (nblocks, 32, KSEG, nseqs):
+            raise ValueError(f"dprof shape {tuple(dprof.shape)} != "
+                             f"{(nblocks, 32, KSEG, nseqs)}")
 
 
 # ---- K1: block score profiles ---------------------------------------------
@@ -191,20 +210,27 @@ def _row_shift(h: torch.Tensor, fill: int) -> torch.Tensor:
     return torch.cat([top, h[:, :-1]], dim=1)
 
 
-def _rows(h, e, p, Q: int, R: int, iota, clamp):
+def _rows(h, e, p, Q: int, R: int, iota, clamp, top=None):
     """H of one db column over all query rows at once ([NQ, QLEN, lanes]
     tensors), from the previous column's H, this column's E and the
     scores p: F resolves with a weighted prefix max (cummax) instead of
-    the kernels' row walk."""
-    hnof = torch.clamp_min(torch.maximum(_row_shift(h, 0) + p, e), 0)
+    the kernels' row walk.  Row -1 holds H = 0 and F = -inf, or, with
+    ``top`` = (diag, ftop) ([NQ, lanes] each, a query tile's boundary),
+    H = diag at the previous column and F = ftop entering row 0.
+    Returns (H, the F entering each row)."""
+    hd = _row_shift(h, 0) if top is None else \
+        torch.cat([top[0][:, None], h[:, :-1]], dim=1)
+    hnof = torch.clamp_min(torch.maximum(hd + p, e), 0)
     if clamp is not None:
         hnof = torch.clamp_max(hnof, clamp)
     t = torch.cummax(hnof + iota * R, dim=1).values
     f = _row_shift(t, NEG_INF) - (Q + torch.clamp_min(iota - 1, 0) * R)
+    if top is not None:
+        f = torch.maximum(f, top[1][:, None] - iota * R)
     h = torch.maximum(hnof, f)
     if clamp is not None:
         h = torch.clamp_max(h, clamp)
-    return h
+    return h, f
 
 
 def _column(h, e, p, Q: int, R: int, iota, clamp):
@@ -212,7 +238,7 @@ def _column(h, e, p, Q: int, R: int, iota, clamp):
     _stream_lax_core): (H, E) of the previous column to (H, E) of this
     one."""
     e = torch.maximum(e - R, h - Q)
-    return _rows(h, e, p, Q, R, iota, clamp), e
+    return _rows(h, e, p, Q, R, iota, clamp)[0], e
 
 
 def _stream_plain(qcodes, qlens, matrix8, db, start, state, *, Q: int,
@@ -256,7 +282,7 @@ def _stream_plain(qcodes, qlens, matrix8, db, start, state, *, Q: int,
                 p = dprof[b, :, j].index_select(0, qflat).view(
                     nq, qlen_pad, nseqs)
             p = torch.where(qmask, p, pad_pen)
-            h = _rows(h, e, p, Q, R, iota, clamp)
+            h = _rows(h, e, p, Q, R, iota, clamp)[0]
             e = torch.maximum(e - R, h - Q)
             s = torch.maximum(s, h.amax(dim=1))
         out[:, b] = s
@@ -314,11 +340,7 @@ def sw_scores_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
                          f"qcodes {tuple(qcodes.shape)} qlens "
                          f"{tuple(qlens.shape)} db {tuple(db.shape)} start "
                          f"{tuple(start.shape)}")
-    if dprof is not None:
-        _check("dprof", dprof, torch.int32, 4, dev)
-        if tuple(dprof.shape) != (nblocks, 32, KSEG, nseqs):
-            raise ValueError(f"dprof shape {tuple(dprof.shape)} != "
-                             f"{(nblocks, 32, KSEG, nseqs)}")
+    _check_dprof(dprof, nblocks, nseqs, dev)
     if dev.type != "cuda":
         return sw_scores_stream_plain(
             qcodes, qlens, matrix8, db, start, gapopenextend=gapopenextend,
@@ -455,11 +477,7 @@ def sw_scores_stream_carry(qcodes: torch.Tensor, qlens: torch.Tensor,
                          f"qcodes {tuple(qcodes.shape)} db "
                          f"{tuple(db.shape)} start {tuple(start.shape)} "
                          f"h {tuple(h.shape)} s {tuple(s.shape)}")
-    if dprof is not None:
-        _check("dprof", dprof, torch.int32, 4, dev)
-        if tuple(dprof.shape) != (nblocks, 32, KSEG, nseqs):
-            raise ValueError(f"dprof shape {tuple(dprof.shape)} != "
-                             f"{(nblocks, 32, KSEG, nseqs)}")
+    _check_dprof(dprof, nblocks, nseqs, dev)
     kw = dict(gapopenextend=gapopenextend, gapextend=gapextend, clamp=clamp,
               dprof=dprof, carry_in=carry_in, carry_out=carry_out)
     if dev.type != "cuda":
@@ -481,6 +499,357 @@ def sw_scores_stream_carry(qcodes: torch.Tensor, qlens: torch.Tensor,
             int(clamp is not None), int(clamp) if clamp is not None else 0)
     return out, h, e, s
 
+
+
+# ---- K5, K6: query-tile passes (queries over one tile) -------------------
+
+def _lane_flat(x) -> torch.Tensor:
+    """A JAX array [..., SUB, NL] (lane i at (i // NL, i % NL)) as a CPU
+    tensor [d0, -1, NSEQS] in this module's lane-flat layout."""
+    x = np.asarray(x, dtype=np.int32)
+    return torch.from_numpy(
+        x.reshape(x.shape[0], -1, x.shape[-2] * x.shape[-1]).copy())
+
+
+def tile_planes_from_jax(*arrays):
+    """The JAX tile kernels' boundary planes [NQ, nblocks, KSEG, SUB, NL]
+    and per-block dumps [NQ, nblocks, SUB, NL] in this module's layout
+    ([NQ, L, NSEQS] and [NQ, nblocks, NSEQS]), as CPU tensors."""
+    return tuple(_lane_flat(a) for a in arrays)
+
+
+def make_stream_state_long(nq: int, qlen_pad: int, nseqs: int,
+                           tile_rows: int = 512, device=None):
+    """Fresh (h, e, s, bh0c) carry state of a carry series for queries
+    over one tile: h/e [NQ, QLEN, NSEQS] (K3's layout: tile t owns rows
+    [t * tile_rows, (t + 1) * tile_rows)), s [NQ, NSEQS] and bh0c
+    [NQ, ntiles + 1, NSEQS] (slot t: tile t - 1's bottom-row H at the
+    previous chunk's last column; slot 0 stays 0, the row above the
+    query)."""
+    h, e, s = make_stream_state(nq, qlen_pad, nseqs, device)
+    bh0c = torch.zeros((nq, qlen_pad // tile_rows + 1, nseqs),
+                       dtype=torch.int32, device=device)
+    return h, e, s, bh0c
+
+
+def stream_state_long_from_jax(h, e, s, bh0c):
+    """The JAX tiled-carry state (h/e [NQ, ntiles, T, SUB, NL], s [NQ, SUB,
+    NL], bh0c [NQ, ntiles + 1, SUB, NL]) in this module's layout, as CPU
+    tensors."""
+    return _lane_flat(h), _lane_flat(e), _lane_flat(s)[:, 0], \
+        _lane_flat(bh0c)
+
+
+def _tile_plain(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev,
+                carry, *, Q: int, R: int, tile_rows: int, clamp, dprof):
+    """The column loop of both tile kernels' plain versions (_stream_plain
+    over the rows of one query tile, row -1 from the planes).  ``carry``
+    is None (K5: the tile's rows start fresh at block 0) or the (h, e, s,
+    bh0c) of a carry series (K6).  Updates bh, bf, sprev and the carried
+    rows in place, as the kernels do."""
+    nq = qcodes.shape[0]
+    L, nseqs = db.shape
+    dev = db.device
+    r0 = tile * tile_rows
+    rows = torch.clamp(qlens.long() - r0, 0, tile_rows)          # [NQ]
+    # only the rows some query has (past them all is PAD); with none,
+    # the planes and the dump stay as they are, except that a carry
+    # series' tile 0 still folds the carried S into the dump
+    T = int(rows.max()) if nq else 0
+    if T == 0 and (carry is None or tile > 0):
+        return
+    T = max(T, 1)
+    iota = torch.arange(T, dtype=torch.int32, device=dev)[None, :, None]
+    qmask = iota < rows[:, None, None]                           # [NQ, T, 1]
+    has = (rows > 0)[:, None]
+    last = torch.clamp_min(rows - 1, 0)[:, None, None].expand(nq, 1, nseqs)
+    qt = qcodes[:, r0:r0 + T].long()
+    qflat = qt.flatten()
+    qprof = matrix8.to(torch.int32)[qt]                          # [NQ, T, 32]
+    if carry is None:
+        h = torch.zeros((nq, T, nseqs), dtype=torch.int32, device=dev)
+        e = torch.full_like(h, NEG_INF)
+        s = torch.zeros((nq, nseqs), dtype=torch.int32, device=dev)
+        bhl = torch.zeros_like(s)
+    else:
+        hs, es, ss, bh0c = carry
+        h = torch.where(qmask, hs[:, r0:r0 + T], 0)
+        e = torch.where(qmask, es[:, r0:r0 + T], NEG_INF)
+        s = ss.clone() if tile == 0 else torch.zeros_like(ss)
+        bhl = bh0c[:, tile].clone()
+    for b in range(L // KSEG):
+        reset = start[b] != 0
+        h = torch.where(reset, 0, h)
+        e = torch.where(reset, NEG_INF, e)
+        s = torch.where(reset, 0, s)
+        # H of row -1 before the block's first column: the previous
+        # block's plane, the previous sequence's on a reset lane.  The
+        # block's own planes already belong to the new sequence
+        diag = torch.where(reset, 0, bhl)
+        bhl = bh[:, (b + 1) * KSEG - 1].clone()
+        for j in range(KSEG):
+            c = b * KSEG + j
+            if dprof is None:
+                p = qprof.index_select(2, db[c].long())
+            else:                                         # [NQ, T, NSEQS]
+                p = dprof[b, :, j].index_select(0, qflat).view(nq, T, nseqs)
+            p = torch.where(qmask, p, -128)
+            htop = bh[:, c].clone()
+            h, f = _rows(h, e, p, Q, R, iota, clamp, top=(diag, bf[:, c]))
+            e = torch.maximum(e - R, h - Q)
+            s = torch.maximum(s, torch.where(qmask, h, 0).amax(dim=1))
+            # the bottom row's H and its F advanced into the next tile;
+            # a tile without rows passes the planes through
+            hb = torch.gather(h, 1, last)[:, 0]
+            fb = torch.maximum(torch.gather(f, 1, last)[:, 0] - R, hb - Q)
+            bh[:, c] = torch.where(has, hb, htop)
+            bf[:, c] = torch.where(has, fb, bf[:, c])
+            diag = htop
+        # the merge is per block, with no reset: the earlier passes' dump
+        # of a refill block already belongs to the new sequence
+        sprev[:, b] = torch.maximum(sprev[:, b], s)
+    if carry is not None:
+        hs[:, r0:r0 + T] = torch.where(qmask, h, hs[:, r0:r0 + T])
+        es[:, r0:r0 + T] = torch.where(qmask, e, es[:, r0:r0 + T])
+
+
+def _check_tile(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev,
+                tile_rows, dprof):
+    """Validate the arguments the two tile passes share; returns the
+    device."""
+    dev = db.device
+    for name, t, dtype, ndim in (("qcodes", qcodes, torch.int32, 2),
+                                 ("qlens", qlens, torch.int32, 1),
+                                 ("matrix8", matrix8, torch.int8, 2),
+                                 ("db", db, torch.int8, 2),
+                                 ("start", start, torch.int8, 2),
+                                 ("bh", bh, torch.int32, 3),
+                                 ("bf", bf, torch.int32, 3),
+                                 ("sprev", sprev, torch.int32, 3)):
+        _check(name, t, dtype, ndim, dev)
+    nq, qlen_pad = qcodes.shape
+    L, nseqs = db.shape
+    nblocks = L // KSEG
+    if L % KSEG:
+        raise ValueError(f"db length {L} not a multiple of {KSEG}")
+    if tile_rows <= 0 or qlen_pad % tile_rows \
+            or not 0 <= tile < qlen_pad // tile_rows:
+        raise ValueError(f"tile {tile} of {tile_rows} rows does not divide "
+                         f"qlen_pad {qlen_pad}")
+    if tuple(start.shape) != (nblocks, nseqs) or qlens.shape[0] != nq \
+            or tuple(bh.shape) != (nq, L, nseqs) or bf.shape != bh.shape \
+            or tuple(sprev.shape) != (nq, nblocks, nseqs) \
+            or tuple(matrix8.shape) != (32, 32):
+        raise ValueError("tile pass: inconsistent shapes qcodes "
+                         f"{tuple(qcodes.shape)} db {tuple(db.shape)} start "
+                         f"{tuple(start.shape)} bh {tuple(bh.shape)} sprev "
+                         f"{tuple(sprev.shape)}")
+    _check_dprof(dprof, nblocks, nseqs, dev)
+    return dev
+
+
+def stream_tile_pass_plain(qcodes, qlens, tile, matrix8, db, start, bh, bf,
+                           sprev, *, gapopenextend: int, gapextend: int,
+                           tile_rows: int, clamp: int | None = None,
+                           dprof=None):
+    """Plain version of stream_tile_pass (same contract)."""
+    _tile_plain(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev, None,
+                Q=gapopenextend, R=gapextend, tile_rows=tile_rows,
+                clamp=clamp, dprof=dprof)
+    return sprev, bh, bf
+
+
+def stream_tile_pass(qcodes: torch.Tensor, qlens: torch.Tensor, tile: int,
+                     matrix8: torch.Tensor, db: torch.Tensor,
+                     start: torch.Tensor, bh: torch.Tensor, bf: torch.Tensor,
+                     sprev: torch.Tensor, *, gapopenextend: int,
+                     gapextend: int, tile_rows: int,
+                     clamp: int | None = None,
+                     dprof: torch.Tensor | None = None):
+    """One query-tile pass of sw_scores_stream_long: query rows
+    [tile * tile_rows, (tile + 1) * tile_rows) against a lane-packed
+    chunk.
+
+    qcodes/qlens/matrix8/db/start/clamp/dprof: as sw_scores_stream, with
+    qlen_pad a multiple of tile_rows.
+    bh/bf:  [NQ, L, NSEQS] int32 — the previous tile's bottom row per
+            column: its H, and its F advanced into this tile's top row
+            (zeros and NEG_INF for tile 0);
+    sprev:  [NQ, L // KSEG, NSEQS] int32 — the previous passes' per-block
+            dump (zeros for tile 0).
+    All three are updated IN PLACE (this tile's bottom row; the dump
+    max-merged with this tile's running max) and returned as (out, bho,
+    bfo).  A query that ended in an earlier tile passes the planes
+    through and leaves the dump as it was.  Results are the JAX package's
+    _stream_tile_pass (the TPU walks PAD rows up to a multiple of 4, so
+    the planes of a query's last, partial tile may differ; nothing reads
+    them but passes without rows)."""
+    dev = _check_tile(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev,
+                      tile_rows, dprof)
+    kw = dict(gapopenextend=gapopenextend, gapextend=gapextend,
+              tile_rows=tile_rows, clamp=clamp, dprof=dprof)
+    if dev.type != "cuda":
+        return stream_tile_pass_plain(qcodes, qlens, tile, matrix8, db, start,
+                                      bh, bf, sprev, **kw)
+    nq, qlen_pad = qcodes.shape
+    L, nseqs = db.shape
+    hst = torch.empty((nq, tile_rows, nseqs), dtype=torch.int32, device=dev)
+    est = torch.empty_like(hst)
+    _launch("swipe_stream_tile", dev, _ptr(qcodes), _ptr(qlens),
+            _ptr(matrix8), _ptr(db), _ptr(start), _ptr(dprof), _ptr(sprev),
+            _ptr(bh), _ptr(bf), _ptr(hst), _ptr(est), int(tile), tile_rows,
+            nq, qlen_pad, L // KSEG, nseqs, int(gapopenextend),
+            int(gapextend), int(clamp is not None),
+            int(clamp) if clamp is not None else 0)
+    return sprev, bh, bf
+
+
+def _tile_planes(nq: int, L: int, nseqs: int, device):
+    """(bh, bf, out) entering a chunk's tile-0 pass: the zero row above
+    the query and an empty dump."""
+    bh = torch.zeros((nq, L, nseqs), dtype=torch.int32, device=device)
+    return (bh, torch.full_like(bh, NEG_INF),
+            torch.zeros((nq, L // KSEG, nseqs), dtype=torch.int32,
+                        device=device))
+
+
+def sw_scores_stream_long(qcodes: torch.Tensor, qlens: torch.Tensor,
+                          matrix8: torch.Tensor, db: torch.Tensor,
+                          start: torch.Tensor, *, gapopenextend: int,
+                          gapextend: int, tile_rows: int = 512,
+                          clamp: int | None = None,
+                          dprof: torch.Tensor | None = None) -> torch.Tensor:
+    """sw_scores_stream for queries over one tile: qlen_pad // tile_rows
+    passes of stream_tile_pass over the chunk, each carrying its bottom
+    row's H and F per column to the next (the JAX package's
+    sw_scores_stream_long).  One profile build serves every pass.  Same
+    contract and result as sw_scores_stream."""
+    nq, qlen_pad = qcodes.shape
+    L, nseqs = db.shape
+    bh, bf, out = _tile_planes(nq, L, nseqs, db.device)
+    for t in range(qlen_pad // tile_rows):
+        stream_tile_pass(qcodes, qlens, t, matrix8, db, start, bh, bf, out,
+                         gapopenextend=gapopenextend, gapextend=gapextend,
+                         tile_rows=tile_rows, clamp=clamp, dprof=dprof)
+    return out
+
+
+def stream_tile_carry_pass_plain(qcodes, qlens, tile, matrix8, db, start, bh,
+                                 bf, sprev, h, e, s, bh0c, *,
+                                 gapopenextend: int, gapextend: int,
+                                 tile_rows: int, clamp: int | None = None,
+                                 dprof=None):
+    """Plain version of stream_tile_carry_pass (same contract)."""
+    _tile_plain(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev,
+                (h, e, s, bh0c), Q=gapopenextend, R=gapextend,
+                tile_rows=tile_rows, clamp=clamp, dprof=dprof)
+    return sprev, bh, bf, h, e
+
+
+def stream_tile_carry_pass(qcodes: torch.Tensor, qlens: torch.Tensor,
+                           tile: int, matrix8: torch.Tensor,
+                           db: torch.Tensor, start: torch.Tensor,
+                           bh: torch.Tensor, bf: torch.Tensor,
+                           sprev: torch.Tensor, h: torch.Tensor,
+                           e: torch.Tensor, s: torch.Tensor,
+                           bh0c: torch.Tensor, *, gapopenextend: int,
+                           gapextend: int, tile_rows: int,
+                           clamp: int | None = None,
+                           dprof: torch.Tensor | None = None):
+    """One query-tile pass over one chunk of a carry series
+    (sw_scores_stream_carry_long): stream_tile_pass whose tile rows
+    continue a carried state instead of starting fresh.
+
+    h/e:  [NQ, QLEN, NSEQS] int32 — the series' per-row H/E
+          (make_stream_state_long); the tile's rows are read at block 0
+          and updated IN PLACE;
+    s:    [NQ, NSEQS] int32 — the carried running max, read by tile 0
+          only (the other tiles fold into the dump);
+    bh0c: [NQ, ntiles + 1, NSEQS] int32 — slot ``tile`` is the diagonal
+          into this tile's top row at the chunk's first column.
+    A lane whose start bit is set at block 0 ignores the carried state.
+    db/start have the state's width.  Returns (out, bho, bfo, h, e), all
+    updated in place; the tile's bottom-row H at the chunk's last column
+    is bho[:, -1]."""
+    dev = _check_tile(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev,
+                      tile_rows, dprof)
+    for name, t, ndim in (("h", h, 3), ("e", e, 3), ("s", s, 2),
+                          ("bh0c", bh0c, 3)):
+        _check(name, t, torch.int32, ndim, dev)
+    nq, qlen_pad = qcodes.shape
+    L, nseqs = db.shape
+    ntiles = qlen_pad // tile_rows
+    if tuple(h.shape) != (nq, qlen_pad, nseqs) or e.shape != h.shape \
+            or tuple(s.shape) != (nq, nseqs) \
+            or tuple(bh0c.shape) != (nq, ntiles + 1, nseqs):
+        raise ValueError("tile carry pass: inconsistent state shapes h "
+                         f"{tuple(h.shape)} s {tuple(s.shape)} bh0c "
+                         f"{tuple(bh0c.shape)} for qcodes "
+                         f"{tuple(qcodes.shape)} db {tuple(db.shape)}")
+    kw = dict(gapopenextend=gapopenextend, gapextend=gapextend,
+              tile_rows=tile_rows, clamp=clamp, dprof=dprof)
+    if dev.type != "cuda":
+        return stream_tile_carry_pass_plain(qcodes, qlens, tile, matrix8, db,
+                                            start, bh, bf, sprev, h, e, s,
+                                            bh0c, **kw)
+    _launch("swipe_stream_tile_carry", dev, _ptr(qcodes), _ptr(qlens),
+            _ptr(matrix8), _ptr(db), _ptr(start), _ptr(dprof), _ptr(sprev),
+            _ptr(bh), _ptr(bf), _ptr(h), _ptr(e), _ptr(s), _ptr(bh0c),
+            int(tile), tile_rows, nq, qlen_pad, L // KSEG, nseqs,
+            int(gapopenextend), int(gapextend), int(clamp is not None),
+            int(clamp) if clamp is not None else 0)
+    return sprev, bh, bf, h, e
+
+
+def sw_scores_stream_carry_long(qcodes: torch.Tensor, qlens: torch.Tensor,
+                                matrix8: torch.Tensor, db: torch.Tensor,
+                                start: torch.Tensor, h: torch.Tensor,
+                                e: torch.Tensor, s: torch.Tensor,
+                                bh0c: torch.Tensor, *, gapopenextend: int,
+                                gapextend: int, tile_rows: int = 512,
+                                clamp: int | None = None,
+                                dprof: torch.Tensor | None = None,
+                                carry_in: bool = True,
+                                carry_out: bool = True):
+    """sw_scores_stream_carry for queries over one tile: one chunk of a
+    carry series in qlen_pad // tile_rows passes of
+    stream_tile_carry_pass, the boundary planes carried tile to tile
+    within the chunk and the state (h, e, s, bh0c of
+    make_stream_state_long) chunk to chunk (the JAX package's
+    sw_scores_stream_carry_long).
+
+    db/start may be narrower than the state (compact carry chunks): the
+    missing lanes are PAD-filled on the device.  carry_in/carry_out as in
+    sw_scores_stream_carry: without carry-out the state comes back
+    unchanged (a series' last chunk works on a copy), without carry-in it
+    is not read.  Returns (dump [NQ, L // KSEG, NSEQS], h, e, s, bh0c)."""
+    nq, qlen_pad = qcodes.shape
+    db, start = _pad_to_state_width(db, start, h.shape[2])
+    L, nseqs = db.shape
+    state = (h, e, s, bh0c)
+    if not carry_in:
+        fresh = make_stream_state_long(nq, qlen_pad, nseqs, tile_rows,
+                                       db.device)
+        if carry_out:
+            for x, y in zip(state, fresh):
+                x.copy_(y)
+        else:
+            state = fresh
+    elif not carry_out:
+        state = (h.clone(), e.clone(), s, bh0c)   # s and bh0c are read only
+    bh, bf, out = _tile_planes(nq, L, nseqs, db.device)
+    bottom = []
+    for t in range(qlen_pad // tile_rows):
+        stream_tile_carry_pass(qcodes, qlens, t, matrix8, db, start, bh, bf,
+                               out, *state, gapopenextend=gapopenextend,
+                               gapextend=gapextend, tile_rows=tile_rows,
+                               clamp=clamp, dprof=dprof)
+        bottom.append(bh[:, -1].clone())
+    if carry_out:
+        # after the last pass: tile t + 1 read slot t + 1 at its start
+        s.copy_(out[:, -1])
+        bh0c[:, 1:] = torch.stack(bottom, dim=1)
+    return out, h, e, s, bh0c
 
 
 def gather_scores(out: torch.Tensor, end_block: torch.Tensor,
@@ -576,7 +945,9 @@ def sw_hint_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
 _COUNTED = {"swipe_dprofile": build_dprofile_series,
             "swipe_stream": sw_scores_stream,
             "swipe_stream_carry": sw_scores_stream_carry,
-            "swipe_hint": sw_hint_stream}
+            "swipe_hint": sw_hint_stream,
+            "swipe_stream_tile": stream_tile_pass,
+            "swipe_stream_tile_carry": stream_tile_carry_pass}
 for _f in _COUNTED.values():
     _f.launches = 0
 del _f

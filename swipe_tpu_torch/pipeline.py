@@ -9,7 +9,7 @@ giant threshold, the flow heuristic, the giant routing, the device cache
 budget, the reversed tie order of the top-K, the init/upper thresholds
 and kbase, and the cascade counters.
 
-Database units up to the giant threshold take one of two routes, per
+Database units up to the giant threshold take one of three routes, per
 slot group one walk over chunks cached on the device and one
 device-to-host copy feeding hit entry:
 
@@ -18,13 +18,18 @@ device-to-host copy feeding hit entry:
   the top K with torch ops;
 * the flow series (pack_stream_flow), for heavy length tails over small
   databases: the same with the carry kernel (K3), each lane's DP state
-  gathered across lanes between chunks.
+  gathered across lanes between chunks;
+* queries over 1024 rows (the "long" groups: qlen_pad rounded to 512,
+  1024 lanes, SLOT_BATCH_LONG slots) take the plain pack at
+  LONG_MAX_COLS columns, whatever the flow heuristic says, scored in
+  512-row tile passes (K5) with one profile build (K1) per chunk.
 
 Chromosome-scale units follow, per slot group, on one of three giant
 routes: overlapped pieces on K2 (segmented), the anti-diagonal
 wavefront kernel (K7) for a few giants whose pieces would be too long,
-or the carry series (pack_stream_carry) on K3.  The align phase's
-endpoint hints run the hint kernel (K4) through
+or the carry series (pack_stream_carry) on K3.  Long groups always take
+the carry series, in tile passes (K6).  The align phase's endpoint
+hints run the hint kernel (K4) through
 ops.align_hint.hint_endpoints_grid.
 
 Routes of the JAX engine that this port does not cover yet raise
@@ -185,6 +190,8 @@ class SearchEngine:
     # (lanes, query-row cap): the JAX engine's configurations, kept so
     # both packages pack and group identically
     STREAM_CONFIGS = ((2048, 512), (1024, 1024))
+    # queries over the last config's row cap are "long"
+    ROW_CAP = STREAM_CONFIGS[-1][1]
     # block profiles are built per chunk when they fit this budget
     # (bytes = 128 x chunk bytes)
     DPROF_MAX_BYTES = 3 << 30
@@ -194,6 +201,13 @@ class SearchEngine:
     # slots scored per kernel pass: bounds the [nslots, nblocks, nseqs]
     # per-block dump and the row-state scratch
     SLOT_BATCH = 16
+    # long groups (queries over ROW_CAP rows): slots per
+    # pass, tile rows, lanes, and the plain pack's chunk height (their
+    # boundary planes cost 8 bytes per chunk cell and slot)
+    SLOT_BATCH_LONG = 4
+    LONG_TILE_ROWS = 512
+    LONG_NSEQS = 1024
+    LONG_MAX_COLS = 16384
     # flow-route heuristic (JAX engine _flow_cols): heavy length tails
     # over small databases take the flow series instead of the plain pack
     FLOW_TAIL_RATIO = 1.25
@@ -257,8 +271,9 @@ class SearchEngine:
             np.int64)
         self._giant_seqs = [self._unit_seqs[i] for i in self._giant_ids]
         self._norm_lens = lens[self._normal_ids]
-        self._stream_packs: dict[int, list] = {}
-        self._dev_stream: dict[int, list] = {}
+        # plain packs and their device copies by (lanes, chunk height)
+        self._stream_packs: dict[tuple, list] = {}
+        self._dev_stream: dict[tuple, list] = {}
         self._flow_packs: dict[int, list] = {}
         self._dev_flow: dict[int, list] = {}
         self._carry_packs: dict[int, list] = {}
@@ -288,14 +303,15 @@ class SearchEngine:
         mc = (int(avg_lane) // 2 + 64) // 128 * 128
         return min(max(mc, 256), self._max_cols)
 
-    def _stream_chunks(self, nseqs: int):
-        """Lane-packed chunks at a lane count (built once; giants
-        excluded)."""
-        if nseqs not in self._stream_packs:
-            self._stream_packs[nseqs] = pack_stream(
+    def _stream_chunks(self, nseqs: int, max_cols: int | None = None):
+        """Lane-packed chunks at a lane count and chunk height (built
+        once; giants excluded)."""
+        key = (nseqs, max_cols or self._max_cols)
+        if key not in self._stream_packs:
+            self._stream_packs[key] = pack_stream(
                 [self._unit_seqs[i] for i in self._normal_ids],
-                nseqs=nseqs, max_cols=self._max_cols, seqnos=self._normal_ids)
-        return self._stream_packs[nseqs]
+                nseqs=key[0], max_cols=key[1], seqnos=self._normal_ids)
+        return self._stream_packs[key]
 
     def _flow_chunks(self, nseqs: int):
         """Flow-series chunks at a lane count (built once)."""
@@ -353,11 +369,12 @@ class SearchEngine:
         if slots:
             if timings is not None:
                 timings.begin()
-            for (qlen_pad, nseqs), group in self._slot_groups(slots):
-                for i in range(0, len(group), self.SLOT_BATCH):
-                    self._search_stream_group(
-                        group[i:i + self.SLOT_BATCH], qlen_pad, nseqs,
-                        timings)
+            for (qlen_pad, nseqs, long), group in self._slot_groups(slots):
+                # a tail group pads to its own power of two
+                step = self.SLOT_BATCH_LONG if long else self.SLOT_BATCH
+                for i in range(0, len(group), step):
+                    self._search_stream_group(group[i:i + step], qlen_pad,
+                                              nseqs, timings, long)
             if timings is not None:
                 timings.end_batch(self.db.symcount_masked(), queries,
                                   p.symtype, p.querystrands)
@@ -390,9 +407,10 @@ class SearchEngine:
         return hitlists
 
     def _slot_groups(self, slots):
-        """Slots sorted by length and grouped by (qlen bucket, lanes), so
-        one long query does not push the batch onto a slower
-        configuration."""
+        """Slots sorted by length and grouped by (qlen bucket, lanes,
+        long), so one long query does not push the batch onto a slower
+        configuration.  Long queries (over ROW_CAP) round qlen_pad up to
+        whole tiles, on LONG_NSEQS lanes."""
         groups: list[tuple] = []
         caps = dict(self.STREAM_CONFIGS)
         for s in sorted(slots, key=lambda s: len(s[3])):
@@ -404,11 +422,10 @@ class SearchEngine:
                 nseqs = next((n for n, cap in self.STREAM_CONFIGS
                               if qlen_pad <= cap), None)
             if nseqs is None:
-                raise NotImplementedError(
-                    f"queries over {max(caps.values())} rows take the "
-                    "query-tiled route; not ported yet (ROADMAP Queue 1 "
-                    "item 6)")
-            cfg = (qlen_pad, nseqs)
+                cfg = (round_up(len(s[3]), self.LONG_TILE_ROWS),
+                       self.LONG_NSEQS, True)
+            else:
+                cfg = (qlen_pad, nseqs, False)
             if groups and groups[-1][0] == cfg:
                 groups[-1][1].append(s)
             else:
@@ -447,10 +464,12 @@ class SearchEngine:
         ud = torch.from_numpy(c.seqnos[order].astype(np.int32))
         return data, start, eb, ln, ud.to(self.device)
 
-    def _dev_stream_chunks(self, nseqs: int):
+    def _dev_stream_chunks(self, nseqs: int, max_cols: int | None = None):
         """Device tensors per plain-pack chunk (_prep_chunk)."""
-        return self._dev_chunks(self._stream_chunks(nseqs), self._dev_stream,
-                                nseqs, self._prep_chunk)
+        return self._dev_chunks(self._stream_chunks(nseqs, max_cols),
+                                self._dev_stream,
+                                (nseqs, max_cols or self._max_cols),
+                                self._prep_chunk)
 
     def _dev_flow_chunks(self, nseqs: int):
         """Device tensors per flow chunk: _prep_chunk's and the chunk's
@@ -463,7 +482,8 @@ class SearchEngine:
         return self._dev_chunks(self._flow_chunks(nseqs), self._dev_flow,
                                 nseqs, prep)
 
-    def _search_stream_group(self, slots, qlen_pad, nseqs, timings):
+    def _search_stream_group(self, slots, qlen_pad, nseqs, timings,
+                             long=False):
         from .ops.sw_stream import build_matrix8, build_qcodes
         qc, ql = build_qcodes([s[3] for s in slots], qlen_pad)
         # pad the slot count to a power of two, as the JAX engine does;
@@ -493,8 +513,13 @@ class SearchEngine:
         # upper cutoff (-u/-k): chunk_reduce masks scores above it
         upper_thr = thresholds("upperscorethreshold")
         kbase = max(s[0].keephits for s in slots) + 64
-        # heavy length tails over small databases take the flow series
-        if self._flow_cols(nseqs) is not None:
+        # long groups take the plain pack in tile passes; otherwise heavy
+        # length tails over small databases take the flow series
+        if long:
+            scored = self._stream_scores(
+                self._dev_stream_chunks(nseqs, self.LONG_MAX_COLS), qc, ql,
+                m8, long=True)
+        elif self._flow_cols(nseqs) is not None:
             scored = self._flow_scores(nseqs, qc, ql, m8, qlen_pad)
         else:
             scored = self._stream_scores(self._dev_stream_chunks(nseqs), qc,
@@ -512,17 +537,20 @@ class SearchEngine:
         return build_dprofile_series(m8, data) \
             if data.numel() * 128 <= self.DPROF_MAX_BYTES else None
 
-    def _stream_scores(self, chunks, qc, ql, m8):
-        """Score plain-pack chunks (K1, K2): yields (dump, end_block,
-        lane, unit ids) per chunk; one profile build serves the whole
-        slot group."""
-        from .ops.sw_stream import sw_scores_stream
+    def _stream_scores(self, chunks, qc, ql, m8, long=False):
+        """Score plain-pack chunks (K1, then K2, or K5's tile passes for a
+        long group): yields (dump, end_block, lane, unit ids) per chunk;
+        one profile build serves the whole slot group and every tile
+        pass."""
+        from .ops.sw_stream import sw_scores_stream, sw_scores_stream_long
         p = self.params
+        kw = dict(gapopenextend=p.gapopenextend, gapextend=p.gapextend)
+        if long:
+            kw["tile_rows"] = self.LONG_TILE_ROWS
+        score = sw_scores_stream_long if long else sw_scores_stream
         for data, start, eb, ln, ud in chunks:
             dp = self._profiles(m8, data)
-            out = sw_scores_stream(qc, ql, m8, data, start,
-                                   gapopenextend=p.gapopenextend,
-                                   gapextend=p.gapextend, dprof=dp)
+            out = score(qc, ql, m8, data, start, dprof=dp, **kw)
             del dp
             yield out, eb, ln, ud
 
@@ -615,12 +643,14 @@ class SearchEngine:
     # ---- giant units --------------------------------------------------------
 
     def _score_carry_series(self, slots, qlen_pad, timings):
-        """Score the giant units against the slots, SLOT_BATCH at a
-        time, and enter their hits."""
+        """Score the giant units against the slots, SLOT_BATCH (long:
+        SLOT_BATCH_LONG) at a time, and enter their hits."""
         if self._giant_ids.size == 0:
             return
-        for i in range(0, len(slots), self.SLOT_BATCH):
-            group = slots[i:i + self.SLOT_BATCH]
+        step = self.SLOT_BATCH if qlen_pad <= self.ROW_CAP \
+            else self.SLOT_BATCH_LONG
+        for i in range(0, len(slots), step):
+            group = slots[i:i + step]
             for units, sc in self._iter_carry_scores(group, qlen_pad):
                 self._enter_chunk(group, units, sc, timings)
 
@@ -630,14 +660,16 @@ class SearchEngine:
         at most _overlap_bound columns, so overlapped pieces score giants
         exactly on the stream kernel; where that bound is too large, a
         few giants take the wavefront kernel and many the carry
-        series."""
-        V = self._overlap_bound(qlen_pad)
-        if self.SEGMENT_GIANTS and V <= self._max_cols // 2:
-            yield from self._iter_segmented_giants(slots, qlen_pad, V)
-        elif len(self._giant_ids) <= self.WAVEFRONT_MAX_GIANTS:
-            yield from self._iter_wavefront_scores(slots, qlen_pad)
-        else:
-            yield from self._iter_carry_series(slots, qlen_pad)
+        series.  Long groups always take the carry series."""
+        if qlen_pad <= self.ROW_CAP:
+            V = self._overlap_bound(qlen_pad)
+            if self.SEGMENT_GIANTS and V <= self._max_cols // 2:
+                yield from self._iter_segmented_giants(slots, qlen_pad, V)
+                return
+            if len(self._giant_ids) <= self.WAVEFRONT_MAX_GIANTS:
+                yield from self._iter_wavefront_scores(slots, qlen_pad)
+                return
+        yield from self._iter_carry_series(slots, qlen_pad)
 
     def _slot_tensors(self, slots, qlen_pad):
         """(qcodes, qlens, matrix8) of unpadded slots on the device."""
@@ -648,27 +680,37 @@ class SearchEngine:
                 torch.from_numpy(build_matrix8(self.matrix.matrix)).to(dev))
 
     def _iter_carry_series(self, slots, qlen_pad):
-        """The carry series on K3: each giant streams through chunks of
-        max_cols columns on one lane, its state carried chunk to chunk.
-        The JAX engine pads the pack's compact lanes to 1024; here the
-        state is the compact width rounded to a warp (the scores of real
-        lanes are the same)."""
+        """The carry series on K3 (long groups: K6's tile passes): each
+        giant streams through chunks of max_cols columns on one lane, its
+        state carried chunk to chunk.  The JAX engine pads the pack's
+        compact lanes to 1024; here the state is the compact width
+        rounded to a warp (the scores of real lanes are the same)."""
         from .ops.sw_stream import (chunk_tensors, gather_scores,
                                     make_stream_state,
-                                    sw_scores_stream_carry)
+                                    make_stream_state_long,
+                                    sw_scores_stream_carry,
+                                    sw_scores_stream_carry_long)
         p = self.params
         chunks = self._carry_chunks(1024)
         qc, ql, m8 = self._slot_tensors(slots, qlen_pad)
-        state = make_stream_state(len(slots), qlen_pad,
-                                  round_up(chunks[0].nseqs, 32), self.device)
+        width = round_up(chunks[0].nseqs, 32)
+        kw = dict(gapopenextend=p.gapopenextend, gapextend=p.gapextend)
+        if qlen_pad > self.ROW_CAP:
+            score = sw_scores_stream_carry_long
+            kw["tile_rows"] = self.LONG_TILE_ROWS
+            state = make_stream_state_long(len(slots), qlen_pad, width,
+                                           self.LONG_TILE_ROWS, self.device)
+        else:
+            score = sw_scores_stream_carry
+            state = make_stream_state(len(slots), qlen_pad, width,
+                                      self.device)
         for i, ch in enumerate(chunks):
             data, start, eb, ln = chunk_tensors(ch.data_t, ch.start,
                                                 ch.end_block, ch.lane,
                                                 self.device)
-            out, *state = sw_scores_stream_carry(
-                qc, ql, m8, data, start, *state,
-                gapopenextend=p.gapopenextend, gapextend=p.gapextend,
-                carry_in=i > 0, carry_out=i < len(chunks) - 1)
+            out, *state = score(qc, ql, m8, data, start, *state,
+                                carry_in=i > 0, carry_out=i < len(chunks) - 1,
+                                **kw)
             if len(ch.seqnos):
                 yield ch.seqnos, gather_scores(out, eb, ln).cpu().numpy()
 

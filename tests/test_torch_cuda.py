@@ -252,3 +252,90 @@ def test_engine_routes_on_card_match_cpu(dev, route):
         assert eng._giant_ids.size >= 1
     _, on_cpu = _engine_hits(fasta, "aa", q, 1, params, "cpu", **kw)
     assert on_card == on_cpu and on_card[0][0] == 30
+
+
+@pytest.mark.parametrize("dprof,clamp", [(False, None), (True, None),
+                                         (True, 50)])
+def test_tile_kernel_matches_plain(dev, chunk, dprof, clamp):
+    # three 512-row passes: queries ending inside tile 1, inside tile 2,
+    # at the edge of tile 1, and an empty slot; dump and planes each pass
+    m8, data, start = chunk
+    rng = np.random.default_rng(9)
+    qs = [rng.integers(1, 26, size=n, dtype=np.int8)
+          for n in (700, 1300, 1024, 0)]
+    qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 1536))
+    kw = dict(gapopenextend=12, gapextend=1, tile_rows=512, clamp=clamp,
+              dprof=sw.build_dprofile_series(m8, data) if dprof else None)
+    got = sw._tile_planes(4, data.shape[0], data.shape[1], dev)
+    want = tuple(x.clone() for x in got)
+    n = sw.stream_tile_pass.launches
+    for t in range(3):
+        sw.stream_tile_pass(qc, ql, t, m8, data, start, *got, **kw)
+        sw.stream_tile_pass_plain(qc, ql, t, m8, data, start, *want, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert sw.stream_tile_pass.launches == n + 3
+    # one pass over all rows (K2) gives the same dump
+    kw2 = {k: v for k, v in kw.items() if k != "tile_rows"}
+    assert torch.equal(got[2], sw.sw_scores_stream(qc, ql, m8, data, start,
+                                                   **kw2))
+
+
+def test_tile_carry_kernel_matches_plain(dev, chunk):
+    # a compact carry series in 256-row tile passes: every chunk's dump
+    # and carried (h, e, s, bh0c), no carry-in at its head, no carry-out
+    # at its tail
+    m8 = chunk[0]
+    chunks, _, _ = _carry_series(dev, False)
+    rng = np.random.default_rng(10)
+    qs = [rng.integers(1, 26, size=n, dtype=np.int8) for n in (300, 700, 0)]
+    qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 768))
+    got = sw.make_stream_state_long(3, 768, 64, 256, dev)
+    want = tuple(x.clone() for x in got)
+    n = sw.stream_tile_carry_pass.launches
+    saved = sw.stream_tile_carry_pass
+    for i, ch in enumerate(chunks):
+        data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
+                                             ch.end_block, ch.lane, dev)
+        kw = dict(gapopenextend=12, gapextend=1, tile_rows=256,
+                  carry_in=i > 0, carry_out=i < len(chunks) - 1)
+        d1, *got = sw.sw_scores_stream_carry_long(qc, ql, m8, data, start,
+                                                  *got, **kw)
+        sw.stream_tile_carry_pass = sw.stream_tile_carry_pass_plain
+        try:
+            d2, *want = sw.sw_scores_stream_carry_long(qc, ql, m8, data,
+                                                       start, *want, **kw)
+        finally:
+            sw.stream_tile_carry_pass = saved
+        assert torch.equal(d1, d2)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert sw.stream_tile_carry_pass.launches == n + 3 * len(chunks)
+
+
+@pytest.mark.parametrize("route", ["plain_pack", "giant"])
+def test_engine_long_query_on_card_matches_cpu(dev, route):
+    # a query over 1024 rows: the plain pack in tile passes (K5), and a
+    # giant on the carry series in tile passes (K6), against the same
+    # search on the CPU
+    rng = np.random.default_rng(11)
+    aa = list("ARNDCQEGHILKMFPSTWYV")
+    q = "".join(rng.choice(aa, 1100))
+    recs = ["".join(rng.choice(aa, int(n)))
+            for n in rng.integers(20, 300, size=300)]
+    recs[9] = q[10:120]
+    # the CPU's plain passes walk every lane of a chunk as high as its
+    # longest member: the plain pack's planted record stays short
+    recs[30] = "".join(rng.choice(aa, 5000 if route == "giant" else 600)) \
+        + q[400:700] + "".join(rng.choice(aa, 9))
+    fasta = "".join(f">s{i}\n{s}\n" for i, s in enumerate(recs))
+    params = dict(descriptions=30, alignments=5)
+    kw = dict(max_cols=2048) if route == "giant" else {}
+    counted = (sw.stream_tile_carry_pass if route == "giant"
+               else sw.stream_tile_pass)
+    n = counted.launches
+    eng, on_card = _engine_hits(fasta, "aa", q, 1, params, dev, **kw)
+    assert counted.launches > n
+    assert eng._giant_ids.size == (route == "giant")
+    _, on_cpu = _engine_hits(fasta, "aa", q, 1, params, "cpu", **kw)
+    assert on_card == on_cpu and on_card[0][0] == 30

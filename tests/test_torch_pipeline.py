@@ -22,6 +22,7 @@ from swipe_tpu.pipeline import SearchEngine as JaxSearchEngine
 from swipe_tpu.pipeline import SearchParams as JaxSearchParams
 from swipe_tpu.pipeline import SearchTimings as JaxSearchTimings
 from swipe_tpu_torch import native as torch_native
+from swipe_tpu_torch.cli import main as torch_cli_main
 from swipe_tpu_torch.batching import pack_stream
 from swipe_tpu_torch.io.db import FastaDatabase
 from swipe_tpu_torch.io.fasta import preprocess_query
@@ -207,19 +208,33 @@ def test_engine_needs_cuda_unless_cpu(monkeypatch):
         "cpu"
 
 
-def test_unported_routes_raise():
-    # queries over the 1024-row cap; flow-routed databases and units over
-    # the giant threshold run now (tests/test_torch_routes.py and
-    # tests/test_torch_giants.py)
-    rng = np.random.default_rng(9)
-    small = FastaDatabase(io.StringIO(_fasta(_seqs(rng, 30, 20, 80, AA))),
-                          "aa", title="t")
-    eng = SearchEngine(small, SearchParams(), device="cpu")
-    long_q = preprocess_query("long", "".join(rng.choice(list(AA), 1100)),
-                              1, 3)
-    with pytest.raises(NotImplementedError,
-                       match="query-tiled route.*ROADMAP Queue 1 item 6"):
-        eng.search(long_q)
+# what the port still raises on, each naming its ROADMAP item: a score
+# matrix outside int8 (engine), then CLI options
+UNPORTED = {
+    "matrix_outside_int8": ("item 9", None),
+    "backend_pallas": ("item 9", ["--backend", "pallas"]),
+    "dump_N": ("item 7", ["-N", "1"]),
+    "mh_procs": ("item 8", ["--mh-procs", "2"]),
+}
+
+
+@pytest.mark.parametrize("route", sorted(UNPORTED))
+def test_unported_routes_raise(route, tmp_path):
+    # queries over 1024 rows, flow-routed databases and units over the
+    # giant threshold run now (tests/test_torch_long*.py,
+    # test_torch_routes.py, test_torch_giants.py)
+    item, argv = UNPORTED[route]
+    match = f"ROADMAP Queue 1 {item}"
+    if argv is None:
+        db = FastaDatabase(io.StringIO(">a\nACGTACGT\n"), "nt", title="t")
+        with pytest.raises(NotImplementedError, match=match):
+            SearchEngine(db, SearchParams(symtype=0, matchscore=200,
+                                          mismatchscore=-300), device="cpu")
+        return
+    (tmp_path / "q.fa").write_text(">q\nACDEFGHIK\n")
+    with pytest.raises(NotImplementedError, match=match):
+        torch_cli_main(["-i", str(tmp_path / "q.fa"), "-d",
+                        str(tmp_path / "db"), *argv])
 
 
 def test_import_rule():
