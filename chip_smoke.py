@@ -1174,6 +1174,65 @@ def time_tiles(calls, report):
     return out
 
 
+def tile_profiles(dev, card, seed=9):
+    """``--tile-profiles``: the tile passes (K5) of one chunk with and
+    without profiles at three long shapes (a Swiss-Prot-model chunk of
+    1024 x 16,384 against 4 queries of 1,537-2,048 aa and against 4 of
+    1,100-1,536 aa; a chunk of 4,000 gene-length records, 200-3,000 nt,
+    against one 1,542-nt query on both strands, blastn scoring): each pair
+    of dumps must be equal.  Prints one JSON line of times."""
+    rng = np.random.default_rng(seed)
+    sym = [SYM_NCBI_AA.index(c) for c in SWISSPROT_AA_PERCENT]
+    freqs = np.array(list(SWISSPROT_AA_PERCENT.values()))
+    freqs /= freqs.sum()
+    lens = np.clip(rng.lognormal(LEN_MU, LEN_SIGMA, 50_000).astype(np.int64),
+                   LEN_MIN, LEN_MAX)
+    res = rng.choice(sym, size=int(lens.sum()), p=freqs).astype(np.int8)
+    prot = np.split(res, np.cumsum(lens)[:-1])
+    m62 = sw.build_matrix8(ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix)
+    genes = [rng.choice(np.array([1, 2, 4, 8], np.int8), size=int(n),
+                        p=[0.246, 0.254, 0.254, 0.246])
+             for n in rng.integers(200, 3001, size=GENOME_GENES)]
+    nt = sw.build_matrix8(ScoreMatrix.nucleotide(1, -3, 5, 2).matrix)
+    q16s = rng.choice(np.array([1, 2, 4, 8], np.int8), size=LONG_NT_QUERY_LEN)
+    comp = np.zeros(16, np.int8)
+    comp[[1, 2, 4, 8]] = [8, 4, 2, 1]
+    shapes = (("aa 4 x 1537-2048", prot, m62, (12, 1),
+               [rng.choice(sym, size=int(n)).astype(np.int8)
+                for n in np.linspace(1537, 2048, 4)], 2048),
+              ("aa 4 x 1100-1536", prot, m62, (12, 1),
+               [rng.choice(sym, size=int(n)).astype(np.int8)
+                for n in np.linspace(1100, 1536, 4)], 1536),
+              ("nt 2 x 1542", genes, nt, (7, 2),
+               [q16s, comp[q16s[::-1]]], 2048))
+    out = {}
+    for label, seqs, m8, (go, ge), qs, qlen_pad in shapes:
+        ch = pack_stream(seqs, nseqs=1024, max_cols=16384)[0]
+        data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
+                                             ch.end_block, ch.lane, dev)
+        m8 = torch.from_numpy(m8).to(dev)
+        qc, ql = (torch.from_numpy(a).to(dev)
+                  for a in sw.build_qcodes(qs, qlen_pad))
+        kw = dict(gapopenextend=go, gapextend=ge, tile_rows=512)
+        dp = sw.build_dprofile_series(m8, data)
+        report: dict = {}
+        _compare(label, sw.sw_scores_stream_long(qc, ql, m8, data, start,
+                                                 dprof=dp, **kw),
+                 sw.sw_scores_stream_long(qc, ql, m8, data, start, **kw),
+                 report)
+        if report[label]["mismatches"]:
+            raise RuntimeError(f"tile-profiles {label}: the two paths differ")
+        out[label] = {
+            "shape": [list(qc.shape), list(data.shape)],
+            "k1_ms": _time(lambda: sw.build_dprofile_series(m8, data), 5),
+            "k5_passes_profiles_ms": _time(lambda: sw.sw_scores_stream_long(
+                qc, ql, m8, data, start, dprof=dp, **kw), 2),
+            "k5_passes_matrix_ms": _time(lambda: sw.sw_scores_stream_long(
+                qc, ql, m8, data, start, **kw), 2)}
+        del dp
+    log(json.dumps({"tile_profiles": out, "card": card}))
+
+
 def _fresh(name, args):
     """The arguments with the state a wrapper updates in place cloned."""
     return tuple(a.clone() if i in STATE_ARGS.get(name, ()) else a
@@ -1274,6 +1333,9 @@ def main() -> int:
     log(f"build: kernels {sorted(_build.build_kernels())} and host library "
         f"({'built' if native else 'not built: NumPy host paths'}) in "
         f"{time.time() - t:.1f} s")
+    if sys.argv[1:] == ["--tile-profiles"]:
+        tile_profiles(dev, card)
+        return 0
 
     report: dict = {}
     t = time.time()
