@@ -19,8 +19,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               with hits and a gap across the segment cuts, the tile pass
               over four 512-row tiles of a 1024-lane, 64-block chunk
               (queries ending inside tile 1, inside tile 3, at a tile edge,
-              and an empty slot; with and without profiles, with a clamp)
-              and the tile carry pass over a compact carry series;
+              and an empty slot; without and with a clamp)
+              and the tile carry pass over a compact carry series (with
+              and without a clamp);
 3. search   — the port's normal entry points (FastaDatabase ->
               SearchEngine.search_batch -> Reporter) on a Swiss-Prot-scale
               database: 570,000 random sequences with the published
@@ -34,15 +35,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
               engine, 4 queries of 1,537-2,048 aa (20%-mutated copies of
               database records, their planted homologs): one slot group at
               qlen_pad 2048 on the long route (1024 lanes x 16,384
-              columns, four 512-row tile passes a chunk), the same checks;
+              columns, four 512-row tile passes a chunk, no profiles),
+              the same checks;
 4. proteome — the flow route: 20,000 sequences from the same model (the
               size of UniProt's human reference proteome, UP000005640)
               plus one of 35,213 aa (the model's titin-length clip); the
               same queries' shape, scoring and checks.  long-proteome: 16
               mutated copies of its records of 1,100-4,000 aa, several
               slot groups of at most 4 on the plain pack at 1024 lanes
-              (not the flow series), the titin's chunk past 16,384 columns
-              scored without profiles;
+              (not the flow series), the titin's chunk past 16,384
+              columns;
 5. genome   — blastn, +1/-3, gaps 5/2, 16 queries of 500 nt, against one
               chromosome of E. coli K-12 MG1655's length (4,641,652 bp,
               NC_000913.3) at its GC share (50.8%), synthesised from a
@@ -68,9 +70,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               own shapes; then each kernel's time and bound at its largest
               call over all the searches, its plain version's time at that
               call, and the stream kernel there without profiles too; the
-              tile passes of the long-search chunk summed, with and without
-              profiles, beside one stream-kernel pass over the same 2,048
-              rows.  The bound counts the real cells and the least
+              tile passes of the long-search chunk summed, beside one
+              stream-kernel pass over the same 2,048 rows.  The bound counts the real cells and the least
               instructions a cell takes on sm_90a;
 8. cli      — ``python -m swipe_tpu_torch -m 8`` on a small FASTA database.
 
@@ -268,6 +269,12 @@ def check_kernels(dev, report, nseqs=2048, nblocks=64, seed=1):
     ch = pack_stream(seqs, nseqs=nseqs, max_cols=nblocks * 16)[0]
     data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start, ch.end_block,
                                          ch.lane, dev)
+    # one run stopped below on symbols outside 0..31: name the stage that
+    # made them if it recurs (the native packer, or the upload)
+    if not 0 <= int(ch.data_t.min()) <= int(ch.data_t.max()) < 32:
+        raise RuntimeError("check: the packer wrote symbols outside 0..31")
+    if not torch.equal(data.t().cpu(), torch.from_numpy(ch.data_t)):
+        raise RuntimeError("check: the chunk changed on its way to the card")
     dp = sw.build_dprofile_series(m8, data)
     _compare("build_dprofile_series", dp,
              sw.build_dprofile_series_plain(m8, data), report)
@@ -395,22 +402,21 @@ def plain_tiles(fn, *a, **k):
 def check_tiles(dev, m8, rng, report):
     """K5 over the four 512-row passes of a 1024-lane, 64-block chunk:
     queries ending inside tile 1, inside tile 3 and at the edge of tile
-    1, and an empty slot; with profiles, without, with a clamp: every
-    pass's dump and planes.  K6 over a compact carry series of two giants
+    1, and an empty slot; without and with a clamp: every pass's dump
+    and planes.  K6 over a compact carry series of two giants
     cut across 1024-column chunks, no carry-in at its head, no carry-out
-    at its tail: every chunk's dump and carried (h, e, s, bh0c)."""
+    at its tail, without and with a clamp: every chunk's dump and carried
+    (h, e, s, bh0c)."""
     seqs = [rng.integers(1, 26, size=int(L), dtype=np.int8)
             for L in rng.integers(1, 300, size=1024 * 64 * 16 // 140)]
     ch = pack_stream(seqs, nseqs=1024, max_cols=64 * 16)[0]
     data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start, ch.end_block,
                                          ch.lane, dev)
-    dp = sw.build_dprofile_series(m8, data)
     qs = [rng.integers(1, 26, size=n, dtype=np.int8)
           for n in (700, 1800, 1024, 0)]
     qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 2048))
-    for prof, clamp in ((dp, None), (None, None), (dp, 80)):
-        kw = dict(gapopenextend=12, gapextend=1, tile_rows=512, clamp=clamp,
-                  dprof=prof)
+    for clamp in (None, 80):
+        kw = dict(gapopenextend=12, gapextend=1, tile_rows=512, clamp=clamp)
         got = sw._tile_planes(4, data.shape[0], 1024, dev)
         want = tuple(x.clone() for x in got)
         for t in range(4):
@@ -426,18 +432,21 @@ def check_tiles(dev, m8, rng, report):
     qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
         [rng.integers(1, 26, size=n, dtype=np.int8) for n in (600, 1100, 0)],
         1536))
-    got = sw.make_stream_state_long(3, 1536, 64, 512, dev)
-    want = tuple(x.clone() for x in got)
-    for i, ch in enumerate(carry):
-        data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
-                                             ch.end_block, ch.lane, dev)
-        kw = dict(gapopenextend=12, gapextend=1, tile_rows=512,
-                  carry_in=i > 0, carry_out=i < len(carry) - 1)
-        d1, *got = sw.sw_scores_stream_carry_long(qc, ql, m8, data, start,
-                                                  *got, **kw)
-        d2, *want = plain_tiles(sw.sw_scores_stream_carry_long, qc, ql, m8,
-                                data, start, *want, **kw)
-        _compare("stream_tile_carry_pass", (d1, *got), (d2, *want), report)
+    for clamp in (None, 80):
+        got = sw.make_stream_state_long(3, 1536, 64, 512, dev)
+        want = tuple(x.clone() for x in got)
+        for i, ch in enumerate(carry):
+            data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
+                                                 ch.end_block, ch.lane, dev)
+            kw = dict(gapopenextend=12, gapextend=1, tile_rows=512,
+                      clamp=clamp, carry_in=i > 0,
+                      carry_out=i < len(carry) - 1)
+            d1, *got = sw.sw_scores_stream_carry_long(qc, ql, m8, data,
+                                                      start, *got, **kw)
+            d2, *want = plain_tiles(sw.sw_scores_stream_carry_long, qc, ql,
+                                    m8, data, start, *want, **kw)
+            _compare("stream_tile_carry_pass", (d1, *got), (d2, *want),
+                     report)
 
 
 # ---- phases 3-6: the searches ----------------------------------------------
@@ -703,9 +712,10 @@ def long_search(label, engine, db, lens, nq, lo, hi, expect, card, calls,
                              for g in groups):
         raise RuntimeError(f"{label}: slot groups {groups} are not long "
                            "groups of at most 4 at 1024 lanes")
-    if launches["sw_scores_stream_carry"] or launches["sw_scores_stream"]:
+    if launches["sw_scores_stream_carry"] or launches["sw_scores_stream"] \
+            or launches["build_dprofile_series"]:
         raise RuntimeError(f"{label}: the long groups left the plain pack "
-                           "in tile passes")
+                           "in tile passes, or built profiles")
     nbytes = check_protein_hits(label, db, engine, queries, hitlists,
                                 [[int(r)] for r in recs])
     cells = int(lens.sum()) * sum(len(q.aa[0]) for q in queries)
@@ -1013,8 +1023,8 @@ def long_genome(engine, db, chrom, genes, frames, card, calls, seed=6):
     try:
         hitlists, tim, wall, launches, split = run_search(
             "long-genome", engine, queries,
-            ("build_dprofile_series", "stream_tile_pass",
-             "stream_tile_carry_pass", "sw_hint_stream"), calls)
+            ("stream_tile_pass", "stream_tile_carry_pass", "sw_hint_stream"),
+            calls)
     finally:
         align_hint._hint_batch = orig
         untrack_groups(engine)
@@ -1114,8 +1124,7 @@ def _work(name, args, kw, out):
         cells = int(rows.sum()) * int((db != PAD_SYMBOL).sum())
         extra = kw.get("clamp") is not None
         # the planes and the dump read and written
-        nbytes = _nbytes(qc, ql, m8, db, start, kw.get("dprof")) \
-            + 2 * _nbytes(bh, bf, sprev)
+        nbytes = _nbytes(qc, ql, m8, db, start) + 2 * _nbytes(bh, bf, sprev)
         if len(args) > 9:   # the tile's rows of the state, S and bh0c
             h, _, s, bh0c = args[9:]
             nbytes += 2 * 2 * h.shape[0] * T * h.shape[2] * 4 \
@@ -1149,88 +1158,28 @@ def time_without_profiles(args, kw, out, ms, report):
 
 
 def time_tiles(calls, report):
-    """The long-search chunk's four tile passes (K5) summed, with profiles
-    and without, beside one K2 pass over the same 2,048 rows, whose dump
-    must be the same."""
+    """The long-search chunk's four tile passes (K5) summed, beside one K2
+    pass over the same 2,048 rows (with its profiles, K1, timed apart),
+    whose dump must be the same."""
     _, args, kw = calls["long-search", "stream_tile_pass"]
     qc, ql, _, m8, db, start = args[:6]
-    dp = kw["dprof"]
     kw = dict(gapopenextend=kw["gapopenextend"], gapextend=kw["gapextend"])
-    long = sw.sw_scores_stream_long(qc, ql, m8, db, start, dprof=dp, **kw)
+    dp = sw.build_dprofile_series(m8, db)
+    long = sw.sw_scores_stream_long(qc, ql, m8, db, start, **kw)
     one = sw.sw_scores_stream(qc, ql, m8, db, start, dprof=dp, **kw)
     _compare("sw_scores_stream", one, long, report)
     del long, one
     out = {"k5_passes_ms": _time(lambda: sw.sw_scores_stream_long(
-               qc, ql, m8, db, start, dprof=dp, **kw), 2),
-           "k5_passes_no_profiles_ms": _time(lambda: sw.sw_scores_stream_long(
                qc, ql, m8, db, start, **kw), 2),
            "k2_one_pass_ms": _time(lambda: sw.sw_scores_stream(
                qc, ql, m8, db, start, dprof=dp, **kw), 2),
+           "k1_ms": _time(lambda: sw.build_dprofile_series(m8, db), 5),
            "shape": [list(qc.shape), list(db.shape)]}
     log(f"time: long-search chunk {out['shape']}: four tile passes (K5) "
-        f"{out['k5_passes_ms']:.3f} ms with profiles, "
-        f"{out['k5_passes_no_profiles_ms']:.3f} ms without; one K2 pass "
-        f"over the same rows {out['k2_one_pass_ms']:.3f} ms (same dump)")
+        f"{out['k5_passes_ms']:.3f} ms; one K2 pass over the same rows "
+        f"{out['k2_one_pass_ms']:.3f} ms with profiles, K1 "
+        f"{out['k1_ms']:.3f} ms (same dump)")
     return out
-
-
-def tile_profiles(dev, card, seed=9):
-    """``--tile-profiles``: the tile passes (K5) of one chunk with and
-    without profiles at three long shapes (a Swiss-Prot-model chunk of
-    1024 x 16,384 against 4 queries of 1,537-2,048 aa and against 4 of
-    1,100-1,536 aa; a chunk of 4,000 gene-length records, 200-3,000 nt,
-    against one 1,542-nt query on both strands, blastn scoring): each pair
-    of dumps must be equal.  Prints one JSON line of times."""
-    rng = np.random.default_rng(seed)
-    sym = [SYM_NCBI_AA.index(c) for c in SWISSPROT_AA_PERCENT]
-    freqs = np.array(list(SWISSPROT_AA_PERCENT.values()))
-    freqs /= freqs.sum()
-    lens = np.clip(rng.lognormal(LEN_MU, LEN_SIGMA, 50_000).astype(np.int64),
-                   LEN_MIN, LEN_MAX)
-    res = rng.choice(sym, size=int(lens.sum()), p=freqs).astype(np.int8)
-    prot = np.split(res, np.cumsum(lens)[:-1])
-    m62 = sw.build_matrix8(ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix)
-    genes = [rng.choice(np.array([1, 2, 4, 8], np.int8), size=int(n),
-                        p=[0.246, 0.254, 0.254, 0.246])
-             for n in rng.integers(200, 3001, size=GENOME_GENES)]
-    nt = sw.build_matrix8(ScoreMatrix.nucleotide(1, -3, 5, 2).matrix)
-    q16s = rng.choice(np.array([1, 2, 4, 8], np.int8), size=LONG_NT_QUERY_LEN)
-    comp = np.zeros(16, np.int8)
-    comp[[1, 2, 4, 8]] = [8, 4, 2, 1]
-    shapes = (("aa 4 x 1537-2048", prot, m62, (12, 1),
-               [rng.choice(sym, size=int(n)).astype(np.int8)
-                for n in np.linspace(1537, 2048, 4)], 2048),
-              ("aa 4 x 1100-1536", prot, m62, (12, 1),
-               [rng.choice(sym, size=int(n)).astype(np.int8)
-                for n in np.linspace(1100, 1536, 4)], 1536),
-              ("nt 2 x 1542", genes, nt, (7, 2),
-               [q16s, comp[q16s[::-1]]], 2048))
-    out = {}
-    for label, seqs, m8, (go, ge), qs, qlen_pad in shapes:
-        ch = pack_stream(seqs, nseqs=1024, max_cols=16384)[0]
-        data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
-                                             ch.end_block, ch.lane, dev)
-        m8 = torch.from_numpy(m8).to(dev)
-        qc, ql = (torch.from_numpy(a).to(dev)
-                  for a in sw.build_qcodes(qs, qlen_pad))
-        kw = dict(gapopenextend=go, gapextend=ge, tile_rows=512)
-        dp = sw.build_dprofile_series(m8, data)
-        report: dict = {}
-        _compare(label, sw.sw_scores_stream_long(qc, ql, m8, data, start,
-                                                 dprof=dp, **kw),
-                 sw.sw_scores_stream_long(qc, ql, m8, data, start, **kw),
-                 report)
-        if report[label]["mismatches"]:
-            raise RuntimeError(f"tile-profiles {label}: the two paths differ")
-        out[label] = {
-            "shape": [list(qc.shape), list(data.shape)],
-            "k1_ms": _time(lambda: sw.build_dprofile_series(m8, data), 5),
-            "k5_passes_profiles_ms": _time(lambda: sw.sw_scores_stream_long(
-                qc, ql, m8, data, start, dprof=dp, **kw), 2),
-            "k5_passes_matrix_ms": _time(lambda: sw.sw_scores_stream_long(
-                qc, ql, m8, data, start, **kw), 2)}
-        del dp
-    log(json.dumps({"tile_profiles": out, "card": card}))
 
 
 def _fresh(name, args):
@@ -1333,9 +1282,6 @@ def main() -> int:
     log(f"build: kernels {sorted(_build.build_kernels())} and host library "
         f"({'built' if native else 'not built: NumPy host paths'}) in "
         f"{time.time() - t:.1f} s")
-    if sys.argv[1:] == ["--tile-profiles"]:
-        tile_profiles(dev, card)
-        return 0
 
     report: dict = {}
     t = time.time()
@@ -1355,8 +1301,7 @@ def main() -> int:
             dev, workdir, 570_000, 16, card, calls)
         launches["long-search"], stats["long-search"] = long_search(
             "long-search", engine, db, lens, 4, 1537, 2048,
-            ("build_dprofile_series", "stream_tile_pass", "sw_hint_stream"),
-            card, calls, seed=7)
+            ("stream_tile_pass", "sw_hint_stream"), card, calls, seed=7)
         del engine, db, lens
         launches["proteome"], stats["proteome"], engine, db, lens = proteome(
             dev, workdir, 20_000, 16, card, calls)
@@ -1365,11 +1310,9 @@ def main() -> int:
             ("stream_tile_pass", "sw_hint_stream"), card, calls, seed=8)
         titin = max(c.data_t.shape[1] for c in engine._stream_chunks(
             1024, engine.LONG_MAX_COLS))
-        if titin <= engine.LONG_MAX_COLS or \
-                calls["long-proteome", "stream_tile_pass"][2]["dprof"] \
-                is not None:
-            raise RuntimeError("long-proteome: the titin's chunk was not "
-                               "scored without profiles")
+        if titin <= engine.LONG_MAX_COLS:
+            raise RuntimeError("long-proteome: the titin did not stretch its "
+                               f"chunk past {engine.LONG_MAX_COLS} columns")
         if len({g[1] for g in stats["long-proteome"]["groups"]}) < 2:
             raise RuntimeError("long-proteome: one qlen_pad group only")
         del engine, db, lens
@@ -1393,7 +1336,7 @@ def main() -> int:
         log(f"time: {time.time() - t:.1f} s")
         if any(r["mismatches"] for r in report.values()):
             raise RuntimeError("sw_scores_stream without profiles, or over "
-                               "2,048 rows, differs from its plain version")
+                               "2,048 rows, differs")
         cli(workdir)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,

@@ -27,6 +27,9 @@
 //     reset: an earlier pass's dump of a refill block already belongs to
 //     the new sequence;
 //   * the bottom row's H and F go back into the planes per column.
+// Scores come from the matrix in shared memory, not from block profiles:
+// with one warp an SM the lookup beat K1's profiles by 1.5-1.7x at every
+// long shape measured (PERF.md), so the long route builds none.
 // Every plane element, dump element and scratch row is read and then
 // written by the one thread that owns its lane, so the planes and the
 // dump are updated in place (one set, not two ping-pong buffers).  A pass
@@ -56,13 +59,12 @@ using namespace swipe;
 
 constexpr int TILE_THREADS = 32;
 
-template <bool DPROF, bool CLAMP, bool CARRY>
+template <bool CLAMP, bool CARRY>
 __global__ void __launch_bounds__(TILE_THREADS)
 tile_kernel(const int32_t* __restrict__ qcodes,
             const int32_t* __restrict__ qlens,
             const int8_t* __restrict__ m8, const int8_t* __restrict__ db,
-            const int8_t* __restrict__ start,
-            const int32_t* __restrict__ dprof, int32_t* __restrict__ out,
+            const int8_t* __restrict__ start, int32_t* __restrict__ out,
             int32_t* __restrict__ bh, int32_t* __restrict__ bf,
             int32_t* __restrict__ hst, int32_t* __restrict__ est,
             const int32_t* __restrict__ s_in,
@@ -107,8 +109,6 @@ tile_kernel(const int32_t* __restrict__ qcodes,
     }
     int d0 = reset ? 0 : bh_prev;   // the diagonal into the top row
     bh_prev = hrow[KSEG - 1];
-    const int32_t* prof =
-        DPROF ? dprof + (long long)b * NSYM * KSEG * n + lane : nullptr;
     int hnext = 0, enext = NEG_INF;
     if (!fresh && rows > 0) {
       hnext = H[0];
@@ -124,13 +124,11 @@ tile_kernel(const int32_t* __restrict__ qcodes,
       }
       const int qs = qc[i] & (NSYM - 1);
       const int* mrow = m8s + qs * NSYM;
-      const int32_t* prow = DPROF ? prof + (long long)qs * KSEG * n : nullptr;
       int diag = d0;
       int h = 0;
 #pragma unroll
       for (int j = 0; j < KSEG; ++j) {
-        const int p = DPROF ? prow[j * n] : mrow[dsym[j]];
-        h = sw_cell<CLAMP>(diag + p, e, frow[j], Q, R, clamp);
+        h = sw_cell<CLAMP>(diag + mrow[dsym[j]], e, frow[j], Q, R, clamp);
         S = max(S, h);
         diag = hrow[j];
         hrow[j] = h;
@@ -150,21 +148,21 @@ tile_kernel(const int32_t* __restrict__ qcodes,
 
 #define TILE_PARAMS                                                        \
   const int32_t *qcodes, const int32_t *qlens, const int8_t *m8,           \
-      const int8_t *db, const int8_t *start, const int32_t *dprof,         \
-      int32_t *out, int32_t *bh, int32_t *bf, int32_t *hst, int32_t *est,  \
+      const int8_t *db, const int8_t *start, int32_t *out, int32_t *bh,    \
+      int32_t *bf, int32_t *hst, int32_t *est,                             \
       const int32_t *s_in, const int32_t *bh0c, int tile, int tile_rows,   \
       int qlen_pad, int nblocks, int nseqs, int Q, int R, int clamp
 #define TILE_ARGS                                                          \
-  qcodes, qlens, m8, db, start, dprof, out, bh, bf, hst, est, s_in, bh0c,  \
+  qcodes, qlens, m8, db, start, out, bh, bf, hst, est, s_in, bh0c,         \
       tile, tile_rows, qlen_pad, nblocks, nseqs, Q, R, clamp
 
-template <bool DPROF, bool CLAMP>
-static void launch_carry(dim3 grid, cudaStream_t s, bool carry,
+template <bool CARRY>
+static void launch_clamp(dim3 grid, cudaStream_t s, bool use_clamp,
                          TILE_PARAMS) {
-  if (carry)
-    tile_kernel<DPROF, CLAMP, true><<<grid, TILE_THREADS, 0, s>>>(TILE_ARGS);
+  if (use_clamp)
+    tile_kernel<true, CARRY><<<grid, TILE_THREADS, 0, s>>>(TILE_ARGS);
   else
-    tile_kernel<DPROF, CLAMP, false><<<grid, TILE_THREADS, 0, s>>>(TILE_ARGS);
+    tile_kernel<false, CARRY><<<grid, TILE_THREADS, 0, s>>>(TILE_ARGS);
 }
 
 static int launch(int nq, int use_clamp, bool carry, void* stream,
@@ -172,13 +170,8 @@ static int launch(int nq, int use_clamp, bool carry, void* stream,
   if (nq > 0 && nseqs > 0 && nblocks > 0 && tile_rows > 0) {
     const dim3 grid((nseqs + TILE_THREADS - 1) / TILE_THREADS, nq);
     const cudaStream_t s = (cudaStream_t)stream;
-    if (dprof != nullptr) {
-      if (use_clamp) launch_carry<true, true>(grid, s, carry, TILE_ARGS);
-      else launch_carry<true, false>(grid, s, carry, TILE_ARGS);
-    } else {
-      if (use_clamp) launch_carry<false, true>(grid, s, carry, TILE_ARGS);
-      else launch_carry<false, false>(grid, s, carry, TILE_ARGS);
-    }
+    if (carry) launch_clamp<true>(grid, s, use_clamp, TILE_ARGS);
+    else launch_clamp<false>(grid, s, use_clamp, TILE_ARGS);
   }
   return (int)cudaGetLastError();
 }
@@ -186,8 +179,8 @@ static int launch(int nq, int use_clamp, bool carry, void* stream,
 // K5: out/bh/bf updated in place; hst/est a [nq, tile_rows, nseqs] scratch
 extern "C" int swipe_stream_tile(const int32_t* qcodes, const int32_t* qlens,
                                  const int8_t* m8, const int8_t* db,
-                                 const int8_t* start, const int32_t* dprof,
-                                 int32_t* out, int32_t* bh, int32_t* bf,
+                                 const int8_t* start, int32_t* out,
+                                 int32_t* bh, int32_t* bf,
                                  int32_t* hst, int32_t* est, int tile,
                                  int tile_rows, int nq, int qlen_pad,
                                  int nblocks, int nseqs, int Q, int R,
@@ -201,10 +194,10 @@ extern "C" int swipe_stream_tile(const int32_t* qcodes, const int32_t* qlens,
 // s_in [nq, nseqs] and bh0c [nq, qlen_pad / tile_rows + 1, nseqs] read
 extern "C" int swipe_stream_tile_carry(
     const int32_t* qcodes, const int32_t* qlens, const int8_t* m8,
-    const int8_t* db, const int8_t* start, const int32_t* dprof,
-    int32_t* out, int32_t* bh, int32_t* bf, int32_t* hst, int32_t* est,
-    const int32_t* s_in, const int32_t* bh0c, int tile, int tile_rows,
-    int nq, int qlen_pad, int nblocks, int nseqs, int Q, int R,
-    int use_clamp, int clamp, void* stream) {
+    const int8_t* db, const int8_t* start, int32_t* out, int32_t* bh,
+    int32_t* bf, int32_t* hst, int32_t* est, const int32_t* s_in,
+    const int32_t* bh0c, int tile, int tile_rows, int nq, int qlen_pad,
+    int nblocks, int nseqs, int Q, int R, int use_clamp, int clamp,
+    void* stream) {
   return launch(nq, use_clamp, true, stream, TILE_ARGS);
 }

@@ -110,8 +110,8 @@ _SIGNATURES = {
     "swipe_stream": ("stream", [_P] * 9 + [_I] * 8 + [_P]),
     "swipe_stream_carry": ("stream", [_P] * 10 + [_I] * 9 + [_P]),
     "swipe_hint": ("hint", [_P] * 10 + [_I] * 6 + [_P]),
-    "swipe_stream_tile": ("stream_tile", [_P] * 11 + [_I] * 10 + [_P]),
-    "swipe_stream_tile_carry": ("stream_tile", [_P] * 13 + [_I] * 10 + [_P]),
+    "swipe_stream_tile": ("stream_tile", [_P] * 10 + [_I] * 10 + [_P]),
+    "swipe_stream_tile_carry": ("stream_tile", [_P] * 12 + [_I] * 10 + [_P]),
     "swipe_wavefront": ("wavefront", [_P] * 5 + [_I] * 5 + [_P]),
 }
 _FUNCS: dict[str, ctypes._CFuncPtr] = {}
@@ -541,7 +541,7 @@ def stream_state_long_from_jax(h, e, s, bh0c):
 
 
 def _tile_plain(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev,
-                carry, *, Q: int, R: int, tile_rows: int, clamp, dprof):
+                carry, *, Q: int, R: int, tile_rows: int, clamp):
     """The column loop of both tile kernels' plain versions (_stream_plain
     over the rows of one query tile, row -1 from the planes).  ``carry``
     is None (K5: the tile's rows start fresh at block 0) or the (h, e, s,
@@ -564,7 +564,6 @@ def _tile_plain(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev,
     has = (rows > 0)[:, None]
     last = torch.clamp_min(rows - 1, 0)[:, None, None].expand(nq, 1, nseqs)
     qt = qcodes[:, r0:r0 + T].long()
-    qflat = qt.flatten()
     qprof = matrix8.to(torch.int32)[qt]                          # [NQ, T, 32]
     if carry is None:
         h = torch.zeros((nq, T, nseqs), dtype=torch.int32, device=dev)
@@ -589,11 +588,7 @@ def _tile_plain(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev,
         bhl = bh[:, (b + 1) * KSEG - 1].clone()
         for j in range(KSEG):
             c = b * KSEG + j
-            if dprof is None:
-                p = qprof.index_select(2, db[c].long())
-            else:                                         # [NQ, T, NSEQS]
-                p = dprof[b, :, j].index_select(0, qflat).view(nq, T, nseqs)
-            p = torch.where(qmask, p, -128)
+            p = torch.where(qmask, qprof.index_select(2, db[c].long()), -128)
             htop = bh[:, c].clone()
             h, f = _rows(h, e, p, Q, R, iota, clamp, top=(diag, bf[:, c]))
             e = torch.maximum(e - R, h - Q)
@@ -614,7 +609,7 @@ def _tile_plain(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev,
 
 
 def _check_tile(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev,
-                tile_rows, dprof):
+                tile_rows):
     """Validate the arguments the two tile passes share; returns the
     device."""
     dev = db.device
@@ -644,18 +639,16 @@ def _check_tile(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev,
                          f"{tuple(qcodes.shape)} db {tuple(db.shape)} start "
                          f"{tuple(start.shape)} bh {tuple(bh.shape)} sprev "
                          f"{tuple(sprev.shape)}")
-    _check_dprof(dprof, nblocks, nseqs, dev)
     return dev
 
 
 def stream_tile_pass_plain(qcodes, qlens, tile, matrix8, db, start, bh, bf,
                            sprev, *, gapopenextend: int, gapextend: int,
-                           tile_rows: int, clamp: int | None = None,
-                           dprof=None):
+                           tile_rows: int, clamp: int | None = None):
     """Plain version of stream_tile_pass (same contract)."""
     _tile_plain(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev, None,
                 Q=gapopenextend, R=gapextend, tile_rows=tile_rows,
-                clamp=clamp, dprof=dprof)
+                clamp=clamp)
     return sprev, bh, bf
 
 
@@ -664,14 +657,15 @@ def stream_tile_pass(qcodes: torch.Tensor, qlens: torch.Tensor, tile: int,
                      start: torch.Tensor, bh: torch.Tensor, bf: torch.Tensor,
                      sprev: torch.Tensor, *, gapopenextend: int,
                      gapextend: int, tile_rows: int,
-                     clamp: int | None = None,
-                     dprof: torch.Tensor | None = None):
+                     clamp: int | None = None):
     """One query-tile pass of sw_scores_stream_long: query rows
     [tile * tile_rows, (tile + 1) * tile_rows) against a lane-packed
     chunk.
 
-    qcodes/qlens/matrix8/db/start/clamp/dprof: as sw_scores_stream, with
-    qlen_pad a multiple of tile_rows.
+    qcodes/qlens/matrix8/db/start/clamp: as sw_scores_stream, with
+    qlen_pad a multiple of tile_rows.  Scores come from the matrix: the
+    tile kernel takes no block profiles (they were slower on the card at
+    every long shape measured).
     bh/bf:  [NQ, L, NSEQS] int32 — the previous tile's bottom row per
             column: its H, and its F advanced into this tile's top row
             (zeros and NEG_INF for tile 0);
@@ -685,9 +679,9 @@ def stream_tile_pass(qcodes: torch.Tensor, qlens: torch.Tensor, tile: int,
     the planes of a query's last, partial tile may differ; nothing reads
     them but passes without rows)."""
     dev = _check_tile(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev,
-                      tile_rows, dprof)
+                      tile_rows)
     kw = dict(gapopenextend=gapopenextend, gapextend=gapextend,
-              tile_rows=tile_rows, clamp=clamp, dprof=dprof)
+              tile_rows=tile_rows, clamp=clamp)
     if dev.type != "cuda":
         return stream_tile_pass_plain(qcodes, qlens, tile, matrix8, db, start,
                                       bh, bf, sprev, **kw)
@@ -696,7 +690,7 @@ def stream_tile_pass(qcodes: torch.Tensor, qlens: torch.Tensor, tile: int,
     hst = torch.empty((nq, tile_rows, nseqs), dtype=torch.int32, device=dev)
     est = torch.empty_like(hst)
     _launch("swipe_stream_tile", dev, _ptr(qcodes), _ptr(qlens),
-            _ptr(matrix8), _ptr(db), _ptr(start), _ptr(dprof), _ptr(sprev),
+            _ptr(matrix8), _ptr(db), _ptr(start), _ptr(sprev),
             _ptr(bh), _ptr(bf), _ptr(hst), _ptr(est), int(tile), tile_rows,
             nq, qlen_pad, L // KSEG, nseqs, int(gapopenextend),
             int(gapextend), int(clamp is not None),
@@ -717,32 +711,30 @@ def sw_scores_stream_long(qcodes: torch.Tensor, qlens: torch.Tensor,
                           matrix8: torch.Tensor, db: torch.Tensor,
                           start: torch.Tensor, *, gapopenextend: int,
                           gapextend: int, tile_rows: int = 512,
-                          clamp: int | None = None,
-                          dprof: torch.Tensor | None = None) -> torch.Tensor:
+                          clamp: int | None = None) -> torch.Tensor:
     """sw_scores_stream for queries over one tile: qlen_pad // tile_rows
     passes of stream_tile_pass over the chunk, each carrying its bottom
     row's H and F per column to the next (the JAX package's
-    sw_scores_stream_long).  One profile build serves every pass.  Same
-    contract and result as sw_scores_stream."""
+    sw_scores_stream_long).  Same contract and result as
+    sw_scores_stream."""
     nq, qlen_pad = qcodes.shape
     L, nseqs = db.shape
     bh, bf, out = _tile_planes(nq, L, nseqs, db.device)
     for t in range(qlen_pad // tile_rows):
         stream_tile_pass(qcodes, qlens, t, matrix8, db, start, bh, bf, out,
                          gapopenextend=gapopenextend, gapextend=gapextend,
-                         tile_rows=tile_rows, clamp=clamp, dprof=dprof)
+                         tile_rows=tile_rows, clamp=clamp)
     return out
 
 
 def stream_tile_carry_pass_plain(qcodes, qlens, tile, matrix8, db, start, bh,
                                  bf, sprev, h, e, s, bh0c, *,
                                  gapopenextend: int, gapextend: int,
-                                 tile_rows: int, clamp: int | None = None,
-                                 dprof=None):
+                                 tile_rows: int, clamp: int | None = None):
     """Plain version of stream_tile_carry_pass (same contract)."""
     _tile_plain(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev,
                 (h, e, s, bh0c), Q=gapopenextend, R=gapextend,
-                tile_rows=tile_rows, clamp=clamp, dprof=dprof)
+                tile_rows=tile_rows, clamp=clamp)
     return sprev, bh, bf, h, e
 
 
@@ -754,8 +746,7 @@ def stream_tile_carry_pass(qcodes: torch.Tensor, qlens: torch.Tensor,
                            e: torch.Tensor, s: torch.Tensor,
                            bh0c: torch.Tensor, *, gapopenextend: int,
                            gapextend: int, tile_rows: int,
-                           clamp: int | None = None,
-                           dprof: torch.Tensor | None = None):
+                           clamp: int | None = None):
     """One query-tile pass over one chunk of a carry series
     (sw_scores_stream_carry_long): stream_tile_pass whose tile rows
     continue a carried state instead of starting fresh.
@@ -772,7 +763,7 @@ def stream_tile_carry_pass(qcodes: torch.Tensor, qlens: torch.Tensor,
     updated in place; the tile's bottom-row H at the chunk's last column
     is bho[:, -1]."""
     dev = _check_tile(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev,
-                      tile_rows, dprof)
+                      tile_rows)
     for name, t, ndim in (("h", h, 3), ("e", e, 3), ("s", s, 2),
                           ("bh0c", bh0c, 3)):
         _check(name, t, torch.int32, ndim, dev)
@@ -787,13 +778,13 @@ def stream_tile_carry_pass(qcodes: torch.Tensor, qlens: torch.Tensor,
                          f"{tuple(bh0c.shape)} for qcodes "
                          f"{tuple(qcodes.shape)} db {tuple(db.shape)}")
     kw = dict(gapopenextend=gapopenextend, gapextend=gapextend,
-              tile_rows=tile_rows, clamp=clamp, dprof=dprof)
+              tile_rows=tile_rows, clamp=clamp)
     if dev.type != "cuda":
         return stream_tile_carry_pass_plain(qcodes, qlens, tile, matrix8, db,
                                             start, bh, bf, sprev, h, e, s,
                                             bh0c, **kw)
     _launch("swipe_stream_tile_carry", dev, _ptr(qcodes), _ptr(qlens),
-            _ptr(matrix8), _ptr(db), _ptr(start), _ptr(dprof), _ptr(sprev),
+            _ptr(matrix8), _ptr(db), _ptr(start), _ptr(sprev),
             _ptr(bh), _ptr(bf), _ptr(h), _ptr(e), _ptr(s), _ptr(bh0c),
             int(tile), tile_rows, nq, qlen_pad, L // KSEG, nseqs,
             int(gapopenextend), int(gapextend), int(clamp is not None),
@@ -808,7 +799,6 @@ def sw_scores_stream_carry_long(qcodes: torch.Tensor, qlens: torch.Tensor,
                                 bh0c: torch.Tensor, *, gapopenextend: int,
                                 gapextend: int, tile_rows: int = 512,
                                 clamp: int | None = None,
-                                dprof: torch.Tensor | None = None,
                                 carry_in: bool = True,
                                 carry_out: bool = True):
     """sw_scores_stream_carry for queries over one tile: one chunk of a
@@ -843,7 +833,7 @@ def sw_scores_stream_carry_long(qcodes: torch.Tensor, qlens: torch.Tensor,
         stream_tile_carry_pass(qcodes, qlens, t, matrix8, db, start, bh, bf,
                                out, *state, gapopenextend=gapopenextend,
                                gapextend=gapextend, tile_rows=tile_rows,
-                               clamp=clamp, dprof=dprof)
+                               clamp=clamp)
         bottom.append(bh[:, -1].clone())
     if carry_out:
         # after the last pass: tile t + 1 read slot t + 1 at its start

@@ -22,7 +22,7 @@ device-to-host copy feeding hit entry:
 * queries over 1024 rows (the "long" groups: qlen_pad rounded to 512,
   1024 lanes, SLOT_BATCH_LONG slots) take the plain pack at
   LONG_MAX_COLS columns, whatever the flow heuristic says, scored in
-  512-row tile passes (K5) with one profile build (K1) per chunk.
+  512-row tile passes (K5) that look scores up in the matrix (no K1).
 
 Chromosome-scale units follow, per slot group, on one of three giant
 routes: overlapped pieces on K2 (segmented), the anti-diagonal
@@ -538,20 +538,23 @@ class SearchEngine:
             if data.numel() * 128 <= self.DPROF_MAX_BYTES else None
 
     def _stream_scores(self, chunks, qc, ql, m8, long=False):
-        """Score plain-pack chunks (K1, then K2, or K5's tile passes for a
-        long group): yields (dump, end_block, lane, unit ids) per chunk;
-        one profile build serves the whole slot group and every tile
-        pass."""
+        """Score plain-pack chunks (K1, then K2; a long group: K5's tile
+        passes, which look scores up in the matrix): yields (dump,
+        end_block, lane, unit ids) per chunk; one profile build serves
+        the whole slot group."""
         from .ops.sw_stream import sw_scores_stream, sw_scores_stream_long
         p = self.params
         kw = dict(gapopenextend=p.gapopenextend, gapextend=p.gapextend)
-        if long:
-            kw["tile_rows"] = self.LONG_TILE_ROWS
-        score = sw_scores_stream_long if long else sw_scores_stream
         for data, start, eb, ln, ud in chunks:
-            dp = self._profiles(m8, data)
-            out = score(qc, ql, m8, data, start, dprof=dp, **kw)
-            del dp
+            if long:
+                out = sw_scores_stream_long(qc, ql, m8, data, start,
+                                            tile_rows=self.LONG_TILE_ROWS,
+                                            **kw)
+            else:
+                dp = self._profiles(m8, data)
+                out = sw_scores_stream(qc, ql, m8, data, start, dprof=dp,
+                                       **kw)
+                del dp
             yield out, eb, ln, ud
 
     def _flow_scores(self, nseqs, qc, ql, m8, qlen_pad):

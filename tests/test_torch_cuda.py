@@ -254,9 +254,8 @@ def test_engine_routes_on_card_match_cpu(dev, route):
     assert on_card == on_cpu and on_card[0][0] == 30
 
 
-@pytest.mark.parametrize("dprof,clamp", [(False, None), (True, None),
-                                         (True, 50)])
-def test_tile_kernel_matches_plain(dev, chunk, dprof, clamp):
+@pytest.mark.parametrize("clamp", [None, 50])
+def test_tile_kernel_matches_plain(dev, chunk, clamp):
     # three 512-row passes: queries ending inside tile 1, inside tile 2,
     # at the edge of tile 1, and an empty slot; dump and planes each pass
     m8, data, start = chunk
@@ -264,8 +263,7 @@ def test_tile_kernel_matches_plain(dev, chunk, dprof, clamp):
     qs = [rng.integers(1, 26, size=n, dtype=np.int8)
           for n in (700, 1300, 1024, 0)]
     qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 1536))
-    kw = dict(gapopenextend=12, gapextend=1, tile_rows=512, clamp=clamp,
-              dprof=sw.build_dprofile_series(m8, data) if dprof else None)
+    kw = dict(gapopenextend=12, gapextend=1, tile_rows=512, clamp=clamp)
     got = sw._tile_planes(4, data.shape[0], data.shape[1], dev)
     want = tuple(x.clone() for x in got)
     n = sw.stream_tile_pass.launches
@@ -281,7 +279,8 @@ def test_tile_kernel_matches_plain(dev, chunk, dprof, clamp):
                                                    **kw2))
 
 
-def test_tile_carry_kernel_matches_plain(dev, chunk):
+@pytest.mark.parametrize("clamp", [None, 50])
+def test_tile_carry_kernel_matches_plain(dev, chunk, clamp):
     # a compact carry series in 256-row tile passes: every chunk's dump
     # and carried (h, e, s, bh0c), no carry-in at its head, no carry-out
     # at its tail
@@ -297,7 +296,7 @@ def test_tile_carry_kernel_matches_plain(dev, chunk):
     for i, ch in enumerate(chunks):
         data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
                                              ch.end_block, ch.lane, dev)
-        kw = dict(gapopenextend=12, gapextend=1, tile_rows=256,
+        kw = dict(gapopenextend=12, gapextend=1, tile_rows=256, clamp=clamp,
                   carry_in=i > 0, carry_out=i < len(chunks) - 1)
         d1, *got = sw.sw_scores_stream_carry_long(qc, ql, m8, data, start,
                                                   *got, **kw)

@@ -73,14 +73,11 @@ def test_tile_pass_matches_jax_pass_by_pass(tiled, clamp):
     bf = jnp.full_like(bh, tsw.NEG_INF)
     out = jnp.zeros((3, nb, 8, nseqs // 8), jnp.int32)
     args = [_t(a) for a in (qc, ql)]
-    dprof = tsw.build_dprofile_series(_t(m8), _t(ch.data))
     for t in range(4):
         tb, tf, to = tsw.tile_planes_from_jax(bh, bf, out)
-        prof = dprof if t % 2 else None
         got = tsw.stream_tile_pass(
             *args, t, _t(m8), _t(ch.data), _t(ch.start), tb, tf, to,
-            gapopenextend=12, gapextend=1, tile_rows=T, clamp=clamp,
-            dprof=prof)
+            gapopenextend=12, gapextend=1, tile_rows=T, clamp=clamp)
         assert got[0] is to and got[1] is tb and got[2] is tf   # in place
         out, bh, bf = jsw._stream_tile_pass(
             jnp.asarray(qc), jnp.asarray(ql), jnp.asarray([t], jnp.int32),
