@@ -28,7 +28,7 @@ import shutil
 import subprocess
 
 __all__ = ["BUILD_DIR", "KERNEL_SOURCES", "NVCC_FLAGS", "build_kernels",
-           "kernel_library", "native_library"]
+           "cuda_tool", "kernel_library", "native_library"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -36,7 +36,8 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NATIVE_DIR = os.path.join(os.path.dirname(_PKG), "native")
 
 # one shared library per kernel source; headers are hashed into each
-KERNEL_SOURCES = ("dprofile", "stream", "hint", "wavefront", "stream_tile")
+KERNEL_SOURCES = ("dprofile", "stream", "hint", "wavefront", "stream_tile",
+                  "segment", "peak")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
@@ -64,12 +65,16 @@ def _locked():
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str | None:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump): under CUDA_HOME
+    (default /usr/local/cuda), else on PATH; None when missing."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
+    cand = os.path.join(cuda_home, "bin", name)
+    return cand if os.path.exists(cand) else shutil.which(name)
+
+
+def _nvcc() -> str:
+    found = cuda_tool("nvcc")
     if found is None:
         raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
                            "PATH): the CUDA kernels are built from "

@@ -1,7 +1,9 @@
-"""Host-side database batching: LPT lane packing for the stream kernel.
+"""Host-side database batching: LPT lane packing for the stream kernel,
+and length-sorted segment packing for the segmented kernels.
 
 Port of ``swipe_tpu/batching.py`` (``pack_stream``, ``StreamChunk``,
-``pack_stream_flow``, ``FlowChunk``, ``pack_stream_carry``, ``round_up``).
+``pack_stream_flow``, ``FlowChunk``, ``pack_stream_carry``,
+``pack_database``, ``PackedChunk``, ``round_up``).
 Packs are byte-identical to the JAX package's, so one pack can feed both
 implementations.  The flow and carry packers keep the JAX package's TPU
 shapes (1024-lane drain widths, the one-shot drain, 8-block height
@@ -20,11 +22,13 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["FlowChunk", "StreamChunk", "pack_stream", "pack_stream_carry",
-           "pack_stream_flow", "round_up", "PAD_SYMBOL", "NEG_INF"]
+__all__ = ["FlowChunk", "PackedChunk", "StreamChunk", "pack_database",
+           "pack_stream", "pack_stream_carry", "pack_stream_flow",
+           "round_up", "PAD_SYMBOL", "NEG_INF", "SEG_BLK"]
 
 PAD_SYMBOL = 31       # db/query padding symbol; profile row/col forced -128
 NEG_INF = -(1 << 30)  # -inf stand-in that survives adds without overflow
+SEG_BLK = 32          # db columns per segment block; segment granularity
 
 
 def round_up(x: int, m: int) -> int:
@@ -461,4 +465,109 @@ def pack_stream_carry(seqs: list[np.ndarray], nseqs: int = 1024,
             np.array(lanev, dtype=np.int32),
             np.array(endv, dtype=np.int32),
             residues))
+    return chunks
+
+
+@dataclass
+class PackedChunk:
+    """One packed multi-segment batch for the segmented kernels
+    (ops.sw_segmented, ops.sw_tiled).
+
+    A *segment* holds ``nseqs`` consecutive length-sorted sequences, one
+    per lane, padded with PAD_SYMBOL to the segment length (the longest
+    member rounded up to SEG_BLK columns); the chunk concatenates
+    segments along the db axis.
+
+    data:    [L, nseqs] int8, PAD_SYMBOL-padded, L multiple of SEG_BLK
+    seg_ids: [L // SEG_BLK + 1] int32 nondecreasing block->segment map
+    seqnos:  [nsegs, nseqs] int64 original sequence numbers (-1 = empty lane)
+    lengths: [nsegs, nseqs] int64 true lengths
+    """
+
+    data: np.ndarray
+    seg_ids: np.ndarray
+    seqnos: np.ndarray
+    lengths: np.ndarray
+
+    @property
+    def nsegs(self) -> int:
+        return self.seqnos.shape[0]
+
+    @property
+    def nseqs(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def n_cols(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def residues(self) -> int:
+        return int(self.lengths.sum())
+
+    @property
+    def occupancy(self) -> float:
+        return self.residues / (self.data.size or 1)
+
+
+def pack_database(seqs: list[np.ndarray], nseqs: int = 512,
+                  max_cols: int = 16384,
+                  seqnos: np.ndarray | None = None) -> list[PackedChunk]:
+    """Length-sort and pack sequences into segment chunks (the JAX
+    package's pack_database, byte for byte).
+
+    ``max_cols`` caps a chunk's column count; a single segment longer
+    than max_cols still becomes its own (oversized) chunk.  A chunk's
+    length rounds up to a multiple of 512 columns, its padding stretching
+    the last segment, and its segment count (the seqnos rows) to a power
+    of two; the padded segments are named by no block."""
+    if seqnos is None:
+        seqnos = np.arange(len(seqs), dtype=np.int64)
+    lens = np.array([len(s) for s in seqs], dtype=np.int64)
+    order = np.argsort(-lens, kind="stable")  # longest first
+    segments = [order[i:i + nseqs] for i in range(0, len(order), nseqs)]
+
+    chunks: list[PackedChunk] = []
+    group: list[np.ndarray] = []
+    group_cols = 0
+
+    def flush():
+        nonlocal group, group_cols
+        if not group:
+            return
+        L = round_up(group_cols, 512)
+        # lane-major build, then one contiguous transpose
+        data_t = np.full((nseqs, L), PAD_SYMBOL, dtype=np.int8)
+        nsegs = len(group)
+        nsegs_pad = 1
+        while nsegs_pad < nsegs:
+            nsegs_pad *= 2
+        snos = np.full((nsegs_pad, nseqs), -1, dtype=np.int64)
+        lengths = np.zeros((nsegs_pad, nseqs), dtype=np.int64)
+        seg_ids = np.zeros(L // SEG_BLK + 1, dtype=np.int32)
+        col = 0
+        for k, idx in enumerate(group):
+            seg_len = round_up(max(int(lens[idx].max()), 1), SEG_BLK)
+            for lane, si in enumerate(idx):
+                s = seqs[si]
+                data_t[lane, col: col + len(s)] = s
+                snos[k, lane] = seqnos[si]
+                lengths[k, lane] = len(s)
+            seg_ids[col // SEG_BLK: (col + seg_len) // SEG_BLK] = k
+            col += seg_len
+        seg_ids[col // SEG_BLK:] = nsegs - 1
+        chunks.append(PackedChunk(np.ascontiguousarray(data_t.T), seg_ids,
+                                  snos, lengths))
+        group = []
+        group_cols = 0
+
+    for idx in segments:
+        seg_len = round_up(max(int(lens[idx].max()), 1), SEG_BLK)
+        if group and group_cols + seg_len > max_cols:
+            flush()
+        group.append(idx)
+        group_cols += seg_len
+        if group_cols >= max_cols:
+            flush()
+    flush()
     return chunks

@@ -8,8 +8,12 @@ per-query loop main/work() (swipe.cc:2436-2611).
 
 Extra capability over the reference: ``-d`` may point at a plain FASTA file
 (auto-detected), not just a formatdb/makeblastdb database; ``--backend``
-selects the device: ``auto`` and ``stream`` run the CUDA kernels on the
-card, ``lax`` runs their plain PyTorch versions on the CPU.
+selects the route and the device: ``auto`` and ``stream`` run the stream
+route's CUDA kernels on the card, ``pallas`` and ``pallas_v1`` the
+segment-packed route's (the tiled and the untiled kernel);
+``stream_interpret`` and ``lax`` run the stream route's plain PyTorch
+versions on the CPU, ``pallas_interpret`` the segment route's.  (The JAX
+package's ``lax`` runs its segment route; the hit lists are the same.)
 """
 
 from __future__ import annotations
@@ -403,8 +407,11 @@ def _fatal_on_internal_error(gen):
             fatal(str(e))
 
 
-# --backend -> device of the engine
-BACKEND_DEVICES = {"auto": None, "stream": "cuda", "lax": "cpu"}
+# --backend -> (the engine's backend, its device)
+BACKENDS = {"auto": ("stream", None), "stream": ("stream", "cuda"),
+            "stream_interpret": ("stream", "cpu"), "lax": ("stream", "cpu"),
+            "pallas": ("pallas", "cuda"), "pallas_v1": ("pallas_v1", "cuda"),
+            "pallas_interpret": ("pallas_v1", "cpu")}
 
 
 def main(argv=None) -> int:
@@ -415,11 +422,9 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "--mh-* multi-host runs are not ported yet (ROADMAP Queue 1 "
             "item 8)")
-    if a.backend not in BACKEND_DEVICES:
-        raise NotImplementedError(
-            f"--backend {a.backend}: the port runs auto/stream (CUDA) and "
-            "lax (CPU); the segment backends are not ported yet (ROADMAP "
-            "Queue 1 item 9)")
+    if a.backend not in BACKENDS:
+        fatal(f"Unknown backend {a.backend} (one of "
+              f"{', '.join(BACKENDS)}).")
     if a.dump:
         raise NotImplementedError(
             "-N database dumps are not ported yet (ROADMAP Queue 1 item 7)")
@@ -449,7 +454,8 @@ def main(argv=None) -> int:
         except OSError:
             fatal("Cannot open query file.")
 
-    engine = SearchEngine(db, params, device=BACKEND_DEVICES[a.backend])
+    backend, device = BACKENDS[a.backend]
+    engine = SearchEngine(db, params, device=device, backend=backend)
 
     show_begin(out, a.view)
 

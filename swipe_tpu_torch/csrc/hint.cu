@@ -10,11 +10,14 @@
 //     only on a strict increase and only at columns >= the lane's first
 //     tracked column (starts[q, lane]);
 //   * bestq stays -1 when a lane never scores above 0.
-// Columns past a subject's end hold PAD (-128).  There a column's max
-// never rises (while above 0 it falls by min(R, 128) a column), so once
-// a lane is past its last residue and its first tracked column no column
+// Columns past a subject's end hold PAD.  There a column's max never
+// rises (while above 0 it falls by min(R, -PAD) a column), so once a
+// lane is past its last residue and its first tracked column no column
 // can raise S: the lane stops at the block that holds the later of the
-// two.
+// two.  That needs only a strictly negative PAD score: -128 in
+// build_matrix8, and build_matrix_wide guarantees it for the wide
+// instantiation (matrices outside int8, the matrix element type a
+// template parameter), which the per-bin route runs for such bins.
 //
 // Design: as stream.cu -- one thread per (query bin, lane), the db
 // blocks walked in order, the 16 columns' previous-row H/F and their
@@ -32,9 +35,10 @@
 
 using namespace swipe;
 
+template <typename M>
 __global__ void __launch_bounds__(THREADS)
 hint_kernel(const int32_t* __restrict__ qcodes,
-            const int32_t* __restrict__ qlens, const int8_t* __restrict__ m8,
+            const int32_t* __restrict__ qlens, const M* __restrict__ m8,
             const int8_t* __restrict__ db, const int32_t* __restrict__ starts,
             int32_t* __restrict__ s_out, int32_t* __restrict__ bq_out,
             int32_t* __restrict__ bp_out, int32_t* __restrict__ hst,
@@ -116,17 +120,33 @@ hint_kernel(const int32_t* __restrict__ qcodes,
   bp_out[q * n + lane] = bestpos;
 }
 
+template <typename M>
+static int launch(const int32_t* qcodes, const int32_t* qlens, const M* m,
+                  const int8_t* db, const int32_t* starts, int32_t* s_out,
+                  int32_t* bq_out, int32_t* bp_out, int32_t* hst,
+                  int32_t* est, int nq, int qlen_pad, int nblocks, int nseqs,
+                  int Q, int R, void* stream) {
+  if (nq > 0 && nseqs > 0) {
+    const dim3 grid((nseqs + THREADS - 1) / THREADS, nq);
+    hint_kernel<M><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        qcodes, qlens, m, db, starts, s_out, bq_out, bp_out, hst, est,
+        qlen_pad, nblocks, nseqs, Q, R);
+  }
+  return (int)cudaGetLastError();
+}
+
+// m is the int8 matrix (build_matrix8), or with wide set the int32 one
+// (build_matrix_wide).
 extern "C" int swipe_hint(const int32_t* qcodes, const int32_t* qlens,
-                          const int8_t* m8, const int8_t* db,
+                          const void* m, int wide, const int8_t* db,
                           const int32_t* starts, int32_t* s_out,
                           int32_t* bq_out, int32_t* bp_out, int32_t* hst,
                           int32_t* est, int nq, int qlen_pad, int nblocks,
                           int nseqs, int Q, int R, void* stream) {
-  if (nq > 0 && nseqs > 0) {
-    const dim3 grid((nseqs + THREADS - 1) / THREADS, nq);
-    hint_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        qcodes, qlens, m8, db, starts, s_out, bq_out, bp_out, hst, est,
-        qlen_pad, nblocks, nseqs, Q, R);
-  }
-  return (int)cudaGetLastError();
+  if (wide)
+    return launch(qcodes, qlens, (const int32_t*)m, db, starts, s_out,
+                  bq_out, bp_out, hst, est, nq, qlen_pad, nblocks, nseqs, Q,
+                  R, stream);
+  return launch(qcodes, qlens, (const int8_t*)m, db, starts, s_out, bq_out,
+                bp_out, hst, est, nq, qlen_pad, nblocks, nseqs, Q, R, stream);
 }

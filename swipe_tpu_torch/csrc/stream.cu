@@ -43,6 +43,12 @@
 // 16-bit lanes are later work).  A giant carry series packs few lanes, so
 // there the chain's latency alone sets the time.
 //
+// Matrices outside int8 (build_matrix_wide: int32 scores, a strictly
+// negative PAD row and column) take a wide instantiation of K3, the
+// matrix element type a template parameter: matrix lookup only, no
+// profiles and no clamp.  It serves the carry series of the segment
+// route at any query length, as the row state has no cap.
+//
 // Running exactly qlen rows is enough: the TPU kernel's round-up to 4
 // rows only added PAD rows, which decay and never raise S.  Rows at and
 // past qlen are neither read nor written.
@@ -50,11 +56,11 @@
 
 using namespace swipe;
 
-template <bool DPROF, bool CLAMP, bool CARRY, bool WRITE_S>
+template <typename M, bool DPROF, bool CLAMP, bool CARRY, bool WRITE_S>
 __global__ void __launch_bounds__(THREADS)
 stream_kernel(const int32_t* __restrict__ qcodes,
               const int32_t* __restrict__ qlens,
-              const int8_t* __restrict__ m8, const int8_t* __restrict__ db,
+              const M* __restrict__ m8, const int8_t* __restrict__ db,
               const int8_t* __restrict__ start,
               const int32_t* __restrict__ dprof, int32_t* __restrict__ out,
               int32_t* __restrict__ hst, int32_t* __restrict__ est,
@@ -116,7 +122,7 @@ stream_kernel(const int32_t* __restrict__ qcodes,
 }
 
 #define STREAM_PARAMS                                                      \
-  const int32_t *qcodes, const int32_t *qlens, const int8_t *m8,           \
+  const int32_t *qcodes, const int32_t *qlens, const M *m8,                \
       const int8_t *db, const int8_t *start, const int32_t *dprof,         \
       int32_t *out, int32_t *hst, int32_t *est, int32_t *s_io,             \
       int qlen_pad, int nblocks, int nseqs, int Q, int R, int clamp
@@ -124,32 +130,40 @@ stream_kernel(const int32_t* __restrict__ qcodes,
   qcodes, qlens, m8, db, start, dprof, out, hst, est, s_io, qlen_pad,      \
       nblocks, nseqs, Q, R, clamp
 
-// mode 0: K2; 1: K3 from a fresh state; 2: K3 reading the carried state
-template <bool DPROF, bool CLAMP>
+// mode 0: K2; 1: K3 from a fresh state; 2: K3 reading the carried state.
+// The wide matrix (int32) serves K3 only.
+template <typename M, bool DPROF, bool CLAMP>
 static void launch_mode(dim3 grid, cudaStream_t s, int mode,
                         STREAM_PARAMS) {
   if (mode == 2)
-    stream_kernel<DPROF, CLAMP, true, true>
+    stream_kernel<M, DPROF, CLAMP, true, true>
         <<<grid, THREADS, 0, s>>>(STREAM_ARGS);
   else if (mode == 1)
-    stream_kernel<DPROF, CLAMP, false, true>
+    stream_kernel<M, DPROF, CLAMP, false, true>
         <<<grid, THREADS, 0, s>>>(STREAM_ARGS);
-  else
-    stream_kernel<DPROF, CLAMP, false, false>
+  else if constexpr (sizeof(M) == 1)
+    stream_kernel<M, DPROF, CLAMP, false, false>
         <<<grid, THREADS, 0, s>>>(STREAM_ARGS);
 }
 
+// The int8 matrix takes profiles and a clamp in any combination; the
+// wide one neither (matrix lookup only, and no route clamps it).
+template <typename M>
 static int launch(int nq, int use_clamp, int mode, void* stream,
                   STREAM_PARAMS) {
+  if (sizeof(M) == 4 && (dprof != nullptr || use_clamp))
+    return (int)cudaErrorInvalidValue;
   if (nq > 0 && nseqs > 0 && nblocks > 0) {
     const dim3 grid((nseqs + THREADS - 1) / THREADS, nq);
     const cudaStream_t s = (cudaStream_t)stream;
-    if (dprof != nullptr) {
-      if (use_clamp) launch_mode<true, true>(grid, s, mode, STREAM_ARGS);
-      else launch_mode<true, false>(grid, s, mode, STREAM_ARGS);
+    if constexpr (sizeof(M) == 4) {
+      launch_mode<M, false, false>(grid, s, mode, STREAM_ARGS);
+    } else if (dprof != nullptr) {
+      if (use_clamp) launch_mode<M, true, true>(grid, s, mode, STREAM_ARGS);
+      else launch_mode<M, true, false>(grid, s, mode, STREAM_ARGS);
     } else {
-      if (use_clamp) launch_mode<false, true>(grid, s, mode, STREAM_ARGS);
-      else launch_mode<false, false>(grid, s, mode, STREAM_ARGS);
+      if (use_clamp) launch_mode<M, false, true>(grid, s, mode, STREAM_ARGS);
+      else launch_mode<M, false, false>(grid, s, mode, STREAM_ARGS);
     }
   }
   return (int)cudaGetLastError();
@@ -167,11 +181,20 @@ extern "C" int swipe_stream(const int32_t* qcodes, const int32_t* qlens,
 
 // hst/est/s_io hold the carried state and are updated in place; with
 // carry_in 0 every lane starts fresh at block 0 and H/E/S are not read.
+// m is the int8 matrix (build_matrix8), or with wide set the int32 one
+// (build_matrix_wide: the carry series of the segment route for matrices
+// outside int8), which takes no profiles and no clamp.
 extern "C" int swipe_stream_carry(
-    const int32_t* qcodes, const int32_t* qlens, const int8_t* m8,
+    const int32_t* qcodes, const int32_t* qlens, const void* m,
     const int8_t* db, const int8_t* start, const int32_t* dprof,
     int32_t* out, int32_t* hst, int32_t* est, int32_t* s_io, int carry_in,
-    int nq, int qlen_pad, int nblocks, int nseqs, int Q, int R,
+    int wide, int nq, int qlen_pad, int nblocks, int nseqs, int Q, int R,
     int use_clamp, int clamp, void* stream) {
-  return launch(nq, use_clamp, carry_in ? 2 : 1, stream, STREAM_ARGS);
+  const int mode = carry_in ? 2 : 1;
+  if (wide) {
+    const int32_t* m8 = (const int32_t*)m;
+    return launch(nq, use_clamp, mode, stream, STREAM_ARGS);
+  }
+  const int8_t* m8 = (const int8_t*)m;
+  return launch(nq, use_clamp, mode, stream, STREAM_ARGS);
 }

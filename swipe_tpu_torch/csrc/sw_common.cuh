@@ -17,11 +17,14 @@ constexpr int PAD_SYMBOL = NSYM - 1;   // scores -128 against everything
 constexpr int NEG_INF = -(1 << 30);    // survives adds without overflow
 constexpr int THREADS = 128;           // lanes per thread block
 
-// The [32, 32] int8 score matrix as int32 in shared memory.  Every
-// thread of a warp walks the same query row, so a lookup
+// The [32, 32] score matrix as int32 in shared memory: int8
+// (build_matrix8), or int32 for matrices outside int8
+// (build_matrix_wide, a separate instantiation of the kernels that take
+// it).  Every thread of a warp walks the same query row, so a lookup
 // m8s[qsym * 32 + dsym] reads one 32-word row, one bank per db symbol:
 // no bank conflicts whatever the db symbols are.
-__device__ __forceinline__ void load_matrix(int* m8s, const int8_t* m8) {
+template <typename M>
+__device__ __forceinline__ void load_matrix(int* m8s, const M* m8) {
   for (int i = threadIdx.x; i < NSYM * NSYM; i += blockDim.x) {
     m8s[i] = m8[i];
   }

@@ -24,10 +24,12 @@ The align phase's grid keeps the JAX package's domain (int8 matrices,
 queries up to 1024 rows, bins up to 1024 subjects); other bins go to
 hint_endpoints_many, which sends a batch over DEVICE_CELLS cells to the
 hint kernel too, whatever its query length, as the JAX package sends it
-to its accelerator.  Only matrices outside int8, small batches and
-launches over the byte caps take the NumPy host pass.  Results are
-exact on either route.  A failure of the kernel raises; nothing falls
-back.
+to its accelerator.  A matrix outside int8 leaves the grid, as in the
+JAX package, and its batches over DEVICE_CELLS run on the hint kernel's
+wide instantiation (an int32 matrix, build_matrix_wide).  Only small
+batches and launches over the byte caps take the NumPy host pass.
+Results are exact on either route.  A failure of the kernel raises;
+nothing falls back.
 
 Chromosome-scale subjects (over GIANT_HINT_MIN columns) are cut into
 overlapped pieces that ride the hint kernel as lanes of one launch, each
@@ -274,7 +276,8 @@ def _hint_launch(bins, mat, Q, R, device, starts=None):
     import torch
 
     from ..batching import PAD_SYMBOL
-    from .sw_stream import build_matrix8, build_qcodes, sw_hint_stream
+    from .sw_stream import (build_matrix8, build_matrix_wide, build_qcodes,
+                            sw_hint_stream)
 
     cols, lanes = _launch_dims(bins)
     qc, ql = build_qcodes([np.asarray(q) for q, _ in bins],
@@ -289,7 +292,8 @@ def _hint_launch(bins, mat, Q, R, device, starts=None):
     dev = torch.device("cpu" if device is None else device)
     S, bq, bp = (t.cpu().numpy() for t in sw_hint_stream(
         torch.from_numpy(qc).to(dev), torch.from_numpy(ql).to(dev),
-        torch.from_numpy(build_matrix8(mat)).to(dev),
+        torch.from_numpy((build_matrix8 if _fits_int8(mat)
+                          else build_matrix_wide)(mat)).to(dev),
         torch.from_numpy(dense).to(dev), torch.from_numpy(st).to(dev),
         gapopenextend=int(Q), gapextend=int(R)))
     return [[(int(S[b, i]), int(bq[b, i]), int(bp[b, i]))
@@ -307,11 +311,11 @@ def _hint_batch(q, dseqs, mat, Q, R, device=None, starts=None):
     if starts is None:
         starts = np.zeros(n, dtype=np.int64)
 
-    # the kernel route, at any query length: one launch holds the bin.  A
+    # the kernel route, at any query length and for any matrix (the wide
+    # instantiation outside int8): one launch holds the bin.  A
     # chromosome-scale subject (over 512 MB of padded lanes) or a row
     # scratch over its cap stays on the host instead
-    if (n * maxlen * m > DEVICE_CELLS and _on_cuda(device)
-            and _fits_int8(mat) and m > 0
+    if (n * maxlen * m > DEVICE_CELLS and _on_cuda(device) and m > 0
             and _launch_bytes([(q, dseqs)]) <= _BIN_LAUNCH_BYTES
             and 8 * m * _launch_dims([(q, dseqs)])[1] <= _SCRATCH_BYTES):
         return _hint_launch([(q, dseqs)], mat, Q, R, device, starts)[0]

@@ -20,6 +20,9 @@ ctypes:
   instantiation) — the same over one chunk of a carry series
   (``sw_scores_stream_carry_long``).
 
+The carry and hint kernels also take an int32 matrix
+(``build_matrix_wide``, scores outside int8) in wide instantiations.
+
 Each wrapper takes its kernel for CUDA tensors and its plain version
 (``*_plain``, same module) for CPU tensors, and nothing else: a failed
 launch raises.  Each counts its kernel launches in ``.launches``.
@@ -43,7 +46,8 @@ import torch
 from .. import _build
 from ..batching import NEG_INF, PAD_SYMBOL
 
-__all__ = ["KSEG", "build_matrix8", "build_qcodes", "chunk_tensors",
+__all__ = ["KSEG", "build_matrix8", "build_matrix_wide", "build_qcodes",
+           "chunk_tensors",
            "build_dprofile_series", "build_dprofile_series_plain",
            "sw_scores_stream", "sw_scores_stream_plain", "gather_scores",
            "make_stream_state", "permute_stream_state",
@@ -67,6 +71,34 @@ def build_matrix8(matrix: np.ndarray) -> np.ndarray:
     m8[PAD_SYMBOL, :] = -128
     m8[:, PAD_SYMBOL] = -128
     return m8
+
+
+def build_matrix_wide(matrix: np.ndarray) -> np.ndarray:
+    """[32, 32] int32 matrix for scores outside int8 (the carry and hint
+    kernels' wide instantiations): the PAD row and column only need to be
+    strictly negative, so padding never raises a running max."""
+    m = np.asarray(matrix, dtype=np.int64).reshape(32, 32)
+    m32 = m.astype(np.int32).copy()
+    pad = int(min(m.min(), -1))
+    m32[PAD_SYMBOL, :] = pad
+    m32[:, PAD_SYMBOL] = pad
+    return m32
+
+
+def _pad_score(matrix: torch.Tensor) -> int:
+    """The score of a PAD row or column: -128 in build_matrix8, the
+    matrix minimum (strictly negative) in build_matrix_wide."""
+    return min(int(matrix.min()), -1)
+
+
+def _check_matrix(matrix: torch.Tensor, device) -> bool:
+    """Validate an int8 (build_matrix8) or int32 (build_matrix_wide)
+    [32, 32] matrix; returns whether it is the wide one."""
+    wide = matrix.dtype == torch.int32
+    _check("matrix", matrix, torch.int32 if wide else torch.int8, 2, device)
+    if tuple(matrix.shape) != (32, 32):
+        raise ValueError(f"matrix shape {tuple(matrix.shape)} != (32, 32)")
+    return wide
 
 
 def build_qcodes(queries: list[np.ndarray], qlen_pad: int
@@ -108,11 +140,14 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "swipe_dprofile": ("dprofile", [_P, _P, _P, ctypes.c_longlong, _I, _P]),
     "swipe_stream": ("stream", [_P] * 9 + [_I] * 8 + [_P]),
-    "swipe_stream_carry": ("stream", [_P] * 10 + [_I] * 9 + [_P]),
-    "swipe_hint": ("hint", [_P] * 10 + [_I] * 6 + [_P]),
+    "swipe_stream_carry": ("stream", [_P] * 10 + [_I] * 10 + [_P]),
+    "swipe_hint": ("hint", [_P] * 3 + [_I] + [_P] * 7 + [_I] * 6 + [_P]),
     "swipe_stream_tile": ("stream_tile", [_P] * 10 + [_I] * 10 + [_P]),
     "swipe_stream_tile_carry": ("stream_tile", [_P] * 12 + [_I] * 10 + [_P]),
     "swipe_wavefront": ("wavefront", [_P] * 5 + [_I] * 5 + [_P]),
+    "swipe_segment": ("segment", [_P, _I] + [_P] * 5 + [_I] * 7 + [_P]),
+    "swipe_segment_tiled": ("segment", [_P] * 6 + [_I] * 7 + [_P]),
+    "swipe_peak": ("peak", [_P] * 2 + [_I] * 6 + [_P]),
 }
 _FUNCS: dict[str, ctypes._CFuncPtr] = {}
 
@@ -260,7 +295,7 @@ def _stream_plain(qcodes, qlens, matrix8, db, start, state, *, Q: int,
     qmask = iota < qlens[:, None, None]                   # [NQ, QLEN, 1]
     qflat = qcodes.long().flatten()
     qprof = matrix8.to(torch.int32)[qcodes.long()]        # [NQ, QLEN, 32]
-    pad_pen = -128            # the PAD row of build_matrix8
+    pad_pen = _pad_score(matrix8)          # the PAD row of the matrix
     if carry_in:
         h = torch.where(qmask, state[0], 0)
         e = torch.where(qmask, state[1], NEG_INF)
@@ -434,6 +469,9 @@ def sw_scores_stream_carry(qcodes: torch.Tensor, qlens: torch.Tensor,
     (batching.pack_stream_flow / pack_stream_carry), with each lane's DP
     state carried in and out, so a chunk boundary is invisible to the DP.
 
+    matrix8 is int8 (build_matrix8) or, for scores outside int8, int32
+    (build_matrix_wide: the kernel's wide instantiation, no profiles).
+
     h/e: [NQ, QLEN, NSEQS] int32 and s: [NQ, NSEQS] int32 — per query
     row, H at the last column and E pre-advanced into the next one, and
     the running max (make_stream_state for a fresh series;
@@ -455,13 +493,15 @@ def sw_scores_stream_carry(qcodes: torch.Tensor, qlens: torch.Tensor,
     dev = db.device
     for name, t, dtype, ndim in (("qcodes", qcodes, torch.int32, 2),
                                  ("qlens", qlens, torch.int32, 1),
-                                 ("matrix8", matrix8, torch.int8, 2),
                                  ("db", db, torch.int8, 2),
                                  ("start", start, torch.int8, 2),
                                  ("h", h, torch.int32, 3),
                                  ("e", e, torch.int32, 3),
                                  ("s", s, torch.int32, 2)):
         _check(name, t, dtype, ndim, dev)
+    wide = _check_matrix(matrix8, dev)
+    if wide and (dprof is not None or clamp is not None):
+        raise ValueError("block profiles and the clamp are int8-matrix only")
     nq, qlen_pad = qcodes.shape
     nseqs = h.shape[2]
     db, start = _pad_to_state_width(db, start, nseqs)
@@ -472,7 +512,7 @@ def sw_scores_stream_carry(qcodes: torch.Tensor, qlens: torch.Tensor,
     if db.shape[1] != nseqs or tuple(start.shape) != (nblocks, nseqs) \
             or tuple(h.shape) != (nq, qlen_pad, nseqs) \
             or e.shape != h.shape or tuple(s.shape) != (nq, nseqs) \
-            or qlens.shape[0] != nq or tuple(matrix8.shape) != (32, 32):
+            or qlens.shape[0] != nq:
         raise ValueError("sw_scores_stream_carry: inconsistent shapes "
                          f"qcodes {tuple(qcodes.shape)} db "
                          f"{tuple(db.shape)} start {tuple(start.shape)} "
@@ -492,11 +532,12 @@ def sw_scores_stream_carry(qcodes: torch.Tensor, qlens: torch.Tensor,
         hst, est, sio = h.clone(), e.clone(), s.clone()
     else:
         hst, est, sio = (torch.empty_like(x) for x in (h, e, s))
+    clampv = (int(clamp is not None), int(clamp) if clamp is not None else 0)
     _launch("swipe_stream_carry", dev, _ptr(qcodes), _ptr(qlens),
             _ptr(matrix8), _ptr(db), _ptr(start), _ptr(dprof), _ptr(out),
-            _ptr(hst), _ptr(est), _ptr(sio), int(carry_in), nq, qlen_pad,
-            nblocks, nseqs, int(gapopenextend), int(gapextend),
-            int(clamp is not None), int(clamp) if clamp is not None else 0)
+            _ptr(hst), _ptr(est), _ptr(sio), int(carry_in), int(wide), nq,
+            qlen_pad, nblocks, nseqs, int(gapopenextend), int(gapextend),
+            *clampv)
     return out, h, e, s
 
 
@@ -864,6 +905,7 @@ def sw_hint_stream_plain(qcodes, qlens, matrix8, db, starts, *,
                                                                   None]
     rowvalid = iota < qlens[:, None, None]
     qprof = matrix8.to(torch.int32)[qcodes.long()]        # [NQ, QLEN, 32]
+    pad_pen = _pad_score(matrix8)
     h = torch.zeros((nq, qlen_pad, nseqs), dtype=torch.int32, device=dev)
     e = torch.full_like(h, NEG_INF)
     S = torch.zeros((nq, nseqs), dtype=torch.int32, device=dev)
@@ -871,7 +913,7 @@ def sw_hint_stream_plain(qcodes, qlens, matrix8, db, starts, *,
     bp = torch.zeros_like(S)
     for j in range(L):
         sym = db[:, j].long()[:, None, :].expand(nq, qlen_pad, nseqs)
-        p = torch.where(rowvalid, torch.gather(qprof, 2, sym), -128)
+        p = torch.where(rowvalid, torch.gather(qprof, 2, sym), pad_pen)
         h, e = _column(h, e, p, Q, R, iota, None)
         hv = torch.where(rowvalid, h, 0)
         colmax = hv.amax(dim=1)                           # [NQ, NSEQS]
@@ -891,7 +933,9 @@ def sw_hint_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
     subjects, one subject per lane.
 
     qcodes: [NQ, QLEN] int32 (build_qcodes), qlens: [NQ] int32,
-    matrix8: [32, 32] int8, db: [NQ, L, NSEQS] int8 — bin q's subject i in
+    matrix8: [32, 32] int8 (build_matrix8) or int32 (build_matrix_wide,
+    for scores outside int8: the kernel's wide instantiation),
+    db: [NQ, L, NSEQS] int8 — bin q's subject i in
     lane (q, i), PAD_SYMBOL padded; starts: [NQ, NSEQS] int32 per-lane
     first-tracked column (zeros for whole subjects).  Returns
     (S, bestq, bestpos), each [NQ, NSEQS] int32, with search16s tie
@@ -901,14 +945,13 @@ def sw_hint_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
     dev = db.device
     _check("qcodes", qcodes, torch.int32, 2, dev)
     _check("qlens", qlens, torch.int32, 1, dev)
-    _check("matrix8", matrix8, torch.int8, 2, dev)
+    wide = _check_matrix(matrix8, dev)
     _check("db", db, torch.int8, 3, dev)
     _check("starts", starts, torch.int32, 2, dev)
     nq, qlen_pad = qcodes.shape
     nqd, L, nseqs = db.shape
     if nqd != nq or qlens.shape[0] != nq \
-            or tuple(starts.shape) != (nq, nseqs) \
-            or tuple(matrix8.shape) != (32, 32):
+            or tuple(starts.shape) != (nq, nseqs):
         raise ValueError("sw_hint_stream: inconsistent shapes "
                          f"qcodes {tuple(qcodes.shape)} db "
                          f"{tuple(db.shape)} starts {tuple(starts.shape)}")
@@ -923,8 +966,8 @@ def sw_hint_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
     hst = torch.empty((nq, qlen_pad, nseqs), dtype=torch.int32, device=dev)
     est = torch.empty_like(hst)
     _launch("swipe_hint", dev, _ptr(qcodes), _ptr(qlens), _ptr(matrix8),
-            _ptr(db), _ptr(starts), *map(_ptr, outs), _ptr(hst), _ptr(est),
-            nq, qlen_pad, L // KSEG, nseqs, int(gapopenextend),
+            int(wide), _ptr(db), _ptr(starts), *map(_ptr, outs), _ptr(hst),
+            _ptr(est), nq, qlen_pad, L // KSEG, nseqs, int(gapopenextend),
             int(gapextend))
     return tuple(outs)
 

@@ -32,8 +32,13 @@ the carry series, in tile passes (K6).  The align phase's endpoint
 hints run the hint kernel (K4) through
 ops.align_hint.hint_endpoints_grid.
 
-Routes of the JAX engine that this port does not cover yet raise
-NotImplementedError naming their ROADMAP item.
+The segment-packed route (the JAX engine's _search_segments) serves
+``backend="pallas"`` (the query-tiled kernel K8), ``"pallas_v1"`` (the
+untiled K9) and every score matrix outside int8 whatever the backend
+(K9 on an int32 profile, as the JAX engine's lax twin): the units up to
+the giant threshold are packed by pack_database at 512 lanes, all slots
+score at once, one kernel call a chunk, and the giants follow on the
+carry series (K3, int32 matrix when wide) at any query length.
 """
 
 from __future__ import annotations
@@ -44,8 +49,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .batching import (PAD_SYMBOL, pack_stream, pack_stream_carry,
-                       pack_stream_flow, round_up)
+from .batching import (PAD_SYMBOL, StreamChunk, pack_database, pack_stream,
+                       pack_stream_carry, pack_stream_flow, round_up)
 from .hits import HitList
 from .io.db import Database
 from .io.fasta import Query
@@ -217,32 +222,48 @@ class SearchEngine:
     # else the carry series (tests pin routes with these two)
     WAVEFRONT_MAX_GIANTS = 64
     SEGMENT_GIANTS = True
+    # scoring backends: the stream route, or the segment-packed route on
+    # the query-tiled (pallas) or untiled (pallas_v1) kernel
+    BACKENDS = ("stream", "pallas", "pallas_v1")
 
     def __init__(self, db: Database, params: SearchParams, *, device=None,
-                 nseqs: int | None = None, max_cols: int | None = None):
+                 nseqs: int | None = None, max_cols: int | None = None,
+                 backend: str = "stream"):
         self.db = db
         self.params = params
         self.device = resolve_device(device)
+        if backend not in self.BACKENDS:
+            raise ValueError(f"backend {backend!r} is not one of "
+                             f"{self.BACKENDS}")
+        self.backend = backend
         self.matrix = self._build_matrix()
-        if not self.matrix.fits_int8:
-            raise NotImplementedError(
-                "score matrices outside int8 take the JAX package's lax "
-                "route; not ported yet (ROADMAP Queue 1 item 9)")
-        valid = tuple(n for n, _ in self.STREAM_CONFIGS)
+        stream = backend == "stream"
+        # only the segment route scores matrices outside int8
+        self._segment_route = not stream or not self.matrix.fits_int8
         self._forced_nseqs = None
-        if nseqs is None:
-            nseqs = valid[0]
-        elif nseqs not in valid:
-            raise ValueError(
-                f"stream lane counts are {valid}, got {nseqs}")
-        else:
-            self._forced_nseqs = nseqs
+        if stream:
+            valid = tuple(n for n, _ in self.STREAM_CONFIGS)
+            if nseqs is None:
+                nseqs = valid[0]
+            elif nseqs not in valid:
+                raise ValueError(
+                    f"stream lane counts are {valid}, got {nseqs}")
+            else:
+                self._forced_nseqs = nseqs
+        elif nseqs is None:
+            nseqs = 512
+        # the segment pack's (lanes, chunk height): the engine's for the
+        # segment backends, 512 x 16,384 for a wide matrix on the stream
+        # backend (the JAX engine's _segment_chunks)
+        self._seg_shape = (512, 16384) if stream else \
+            (nseqs, max_cols or 16384)
         if max_cols is None:
-            # 2048 lanes x 8192 columns = 16 MB per chunk, whose block
-            # profiles (2 GB) fit DPROF_MAX_BYTES; units up to 65536
-            # columns stay in the plain pack as oversized chunks
-            max_cols = 8192
-            self._giant_cols = 65536
+            # stream: 2048 lanes x 8192 columns = 16 MB per chunk, whose
+            # block profiles (2 GB) fit DPROF_MAX_BYTES; units up to 65536
+            # columns stay in the plain pack as oversized chunks.  The
+            # segment backends' giants are units over a chunk's height
+            max_cols = 8192 if stream else 16384
+            self._giant_cols = 65536 if stream else max_cols
         else:
             self._giant_cols = max_cols
         self._max_cols = max_cols
@@ -279,9 +300,15 @@ class SearchEngine:
         self._carry_packs: dict[int, list] = {}
         self._seg_packs: dict[tuple, tuple] = {}
         self._dev_seg: dict[tuple, list] = {}
-        # flow-routed databases never touch the plain lane pack
-        self.chunks = None if self._flow_cols(nseqs) is not None \
-            else self._stream_chunks(nseqs)
+        self._seg_chunks = None
+        self._dev_segpack: dict[int, list] = {}
+        if self._segment_route:
+            # the segment route reads only its own pack
+            self.chunks = self._segment_chunks()
+        else:
+            # flow-routed databases never touch the plain lane pack
+            self.chunks = None if self._flow_cols(nseqs) is not None \
+                else self._stream_chunks(nseqs)
 
     @property
     def unit_count(self) -> int:
@@ -321,6 +348,16 @@ class SearchEngine:
                 nseqs=nseqs, max_cols=self._flow_cols(nseqs),
                 drain_cols=128, seqnos=self._normal_ids)
         return self._flow_packs[nseqs]
+
+    def _segment_chunks(self):
+        """Segment-packed chunks of the units up to the giant threshold
+        (built once)."""
+        if self._seg_chunks is None:
+            nseqs, max_cols = self._seg_shape
+            self._seg_chunks = pack_database(
+                [self._unit_seqs[i] for i in self._normal_ids],
+                nseqs=nseqs, max_cols=max_cols, seqnos=self._normal_ids)
+        return self._seg_chunks
 
     def _carry_chunks(self, nseqs: int):
         """Carry-series chunks of the giant units (built once): each lane
@@ -369,12 +406,17 @@ class SearchEngine:
         if slots:
             if timings is not None:
                 timings.begin()
-            for (qlen_pad, nseqs, long), group in self._slot_groups(slots):
-                # a tail group pads to its own power of two
-                step = self.SLOT_BATCH_LONG if long else self.SLOT_BATCH
-                for i in range(0, len(group), step):
-                    self._search_stream_group(group[i:i + step], qlen_pad,
-                                              nseqs, timings, long)
+            if self._segment_route:
+                self._search_segments(slots, timings)
+            else:
+                for (qlen_pad, nseqs, long), group in self._slot_groups(
+                        slots):
+                    # a tail group pads to its own power of two
+                    step = self.SLOT_BATCH_LONG if long else self.SLOT_BATCH
+                    for i in range(0, len(group), step):
+                        self._search_stream_group(group[i:i + step],
+                                                  qlen_pad, nseqs, timings,
+                                                  long)
             if timings is not None:
                 timings.end_batch(self.db.symcount_masked(), queries,
                                   p.symtype, p.querystrands)
@@ -444,7 +486,9 @@ class SearchEngine:
         """Device tensors of ``packs`` (prep per chunk), cached in
         ``cache[key]`` while their total is within DEVICE_CACHE_BYTES,
         else prepared lazily per chunk."""
-        if sum(c.data_t.size for c in packs) <= self.DEVICE_CACHE_BYTES:
+        size = sum(c.data_t.size if isinstance(c, StreamChunk)
+                   else c.data.size for c in packs)
+        if size <= self.DEVICE_CACHE_BYTES:
             if key not in cache:
                 cache[key] = [prep(c) for c in packs]
             yield from cache[key]
@@ -481,6 +525,46 @@ class SearchEngine:
 
         return self._dev_chunks(self._flow_chunks(nseqs), self._dev_flow,
                                 nseqs, prep)
+
+    def _search_segments(self, slots, timings):
+        """The segment-packed route (the JAX engine's _search_segments):
+        every slot at once at qlen_pad = max(64, the longest slot rounded
+        to 64), one kernel call per chunk (K8 for backend "pallas", else
+        K9; an int32 profile for matrices outside int8), the scores mapped
+        back to units through the chunk's seqnos and entered with the
+        tier counters from the host scores; then the giants on the carry
+        series."""
+        from .ops.sw_segmented import build_qpt, sw_scores_segmented
+        from .ops.sw_tiled import sw_scores_tiled
+        p = self.params
+        wide = not self.matrix.fits_int8
+        score = sw_scores_tiled if self.backend == "pallas" and not wide \
+            else sw_scores_segmented
+        qlen_pad = max(64, round_up(max(len(s[3]) for s in slots), 64))
+        qpt = torch.from_numpy(build_qpt(
+            [s[3] for s in slots], self.matrix.matrix, qlen_pad,
+            dtype=np.int32 if wide else np.int8)).to(self.device)
+
+        def prep(c):
+            return (torch.from_numpy(c.data).to(self.device),
+                    torch.from_numpy(c.seg_ids).to(self.device), c)
+
+        for data, seg_ids, chunk in self._dev_chunks(
+                self._segment_chunks(), self._dev_segpack, 0, prep):
+            out = score(qpt, data, seg_ids, nsegs=chunk.nsegs,
+                        gapopenextend=p.gapopenextend,
+                        gapextend=p.gapextend).cpu().numpy()
+            unit_idx = chunk.seqnos.ravel()
+            valid = unit_idx >= 0
+            meta = self.unit_meta[unit_idx[valid]]
+            flats = []
+            for fi, (hits, qstrand, qframe, _) in enumerate(slots):
+                flat = out[fi].reshape(-1)[valid]
+                flats.append(flat)
+                hits.enter_batch(meta[:, 0], flat, qstrand, qframe,
+                                 meta[:, 1], meta[:, 2])
+            self._count_tiers(timings, np.stack(flats), len(slots))
+        self._score_carry_series(slots, qlen_pad, timings, lax=True)
 
     def _search_stream_group(self, slots, qlen_pad, nseqs, timings,
                              long=False):
@@ -645,16 +729,20 @@ class SearchEngine:
 
     # ---- giant units --------------------------------------------------------
 
-    def _score_carry_series(self, slots, qlen_pad, timings):
+    def _score_carry_series(self, slots, qlen_pad, timings, lax=False):
         """Score the giant units against the slots, SLOT_BATCH (long:
-        SLOT_BATCH_LONG) at a time, and enter their hits."""
+        SLOT_BATCH_LONG) at a time, and enter their hits.  ``lax``: the
+        segment route's giants, always on the untiled carry series (the
+        JAX engine's lax mode)."""
         if self._giant_ids.size == 0:
             return
         step = self.SLOT_BATCH if qlen_pad <= self.ROW_CAP \
             else self.SLOT_BATCH_LONG
         for i in range(0, len(slots), step):
             group = slots[i:i + step]
-            for units, sc in self._iter_carry_scores(group, qlen_pad):
+            scored = self._iter_carry_series(group, qlen_pad, lax=True) \
+                if lax else self._iter_carry_scores(group, qlen_pad)
+            for units, sc in scored:
                 self._enter_chunk(group, units, sc, timings)
 
     def _iter_carry_scores(self, slots, qlen_pad):
@@ -675,19 +763,26 @@ class SearchEngine:
         yield from self._iter_carry_series(slots, qlen_pad)
 
     def _slot_tensors(self, slots, qlen_pad):
-        """(qcodes, qlens, matrix8) of unpadded slots on the device."""
-        from .ops.sw_stream import build_matrix8, build_qcodes
+        """(qcodes, qlens, matrix) of unpadded slots on the device; the
+        matrix is int8 (build_matrix8), or int32 (build_matrix_wide) for
+        scores outside int8."""
+        from .ops.sw_stream import (build_matrix8, build_matrix_wide,
+                                    build_qcodes)
         qc, ql = build_qcodes([s[3] for s in slots], qlen_pad)
         dev = self.device
+        mat = (build_matrix8 if self.matrix.fits_int8
+               else build_matrix_wide)(self.matrix.matrix)
         return (torch.from_numpy(qc).to(dev), torch.from_numpy(ql).to(dev),
-                torch.from_numpy(build_matrix8(self.matrix.matrix)).to(dev))
+                torch.from_numpy(mat).to(dev))
 
-    def _iter_carry_series(self, slots, qlen_pad):
-        """The carry series on K3 (long groups: K6's tile passes): each
-        giant streams through chunks of max_cols columns on one lane, its
-        state carried chunk to chunk.  The JAX engine pads the pack's
-        compact lanes to 1024; here the state is the compact width
-        rounded to a warp (the scores of real lanes are the same)."""
+    def _iter_carry_series(self, slots, qlen_pad, lax=False):
+        """The carry series on K3 (long groups: K6's tile passes; with
+        ``lax``, K3 at any query length): each giant streams through
+        chunks of max_cols columns on one lane, its state carried chunk
+        to chunk.  The JAX engine pads the pack's compact lanes to 1024
+        (its lax mode keeps them compact); here the state is the compact
+        width rounded to a warp (the scores of real lanes are the
+        same)."""
         from .ops.sw_stream import (chunk_tensors, gather_scores,
                                     make_stream_state,
                                     make_stream_state_long,
@@ -698,7 +793,7 @@ class SearchEngine:
         qc, ql, m8 = self._slot_tensors(slots, qlen_pad)
         width = round_up(chunks[0].nseqs, 32)
         kw = dict(gapopenextend=p.gapopenextend, gapextend=p.gapextend)
-        if qlen_pad > self.ROW_CAP:
+        if qlen_pad > self.ROW_CAP and not lax:
             score = sw_scores_stream_carry_long
             kw["tile_rows"] = self.LONG_TILE_ROWS
             state = make_stream_state_long(len(slots), qlen_pad, width,

@@ -338,3 +338,115 @@ def test_engine_long_query_on_card_matches_cpu(dev, route):
     assert eng._giant_ids.size == (route == "giant")
     _, on_cpu = _engine_hits(fasta, "aa", q, 1, params, "cpu", **kw)
     assert on_card == on_cpu and on_card[0][0] == 30
+
+
+def _segment_chunk(dev, wide):
+    """A pack_database chunk at 512 lanes with padded segments, and
+    queries of 64-300 rows as an int8 profile (BLOSUM62) or an int32 one
+    (blastn +200/-300)."""
+    from swipe_tpu_torch.batching import pack_database
+    from swipe_tpu_torch.ops.sw_segmented import build_qpt
+    rng = np.random.default_rng(11 + wide)
+    hi = 15 if wide else 26
+    seqs = [rng.integers(1, hi, size=int(n), dtype=np.int8)
+            for n in rng.integers(5, 400, size=512 * 10)]
+    ch = pack_database(seqs, nseqs=512, max_cols=16384)[0]
+    assert ch.nsegs > int(ch.seg_ids.max()) + 1       # padded segments
+    m = (ScoreMatrix.nucleotide(200, -300, 400, 200) if wide else
+         ScoreMatrix.builtin("BLOSUM62", 11, 1))
+    qs = [rng.integers(1, hi, size=n, dtype=np.int8) for n in (64, 150, 300)]
+    qpt = build_qpt(qs, m.matrix, 320, dtype=np.int32 if wide else np.int8)
+    args = [torch.from_numpy(a).to(dev) for a in (qpt, ch.data, ch.seg_ids)]
+    kw = dict(nsegs=ch.nsegs, gapopenextend=m.gapopen + m.gapextend,
+              gapextend=m.gapextend)
+    return args, kw
+
+
+@pytest.mark.parametrize("kernel", ["segmented_int8", "segmented_int32",
+                                    "tiled"])
+def test_segment_kernels_match_plain(dev, kernel):
+    from swipe_tpu_torch.ops import sw_segmented as seg
+    from swipe_tpu_torch.ops import sw_tiled as tiled
+    args, kw = _segment_chunk(dev, kernel == "segmented_int32")
+    fn = tiled.sw_scores_tiled if kernel == "tiled" \
+        else seg.sw_scores_segmented
+    n = fn.launches
+    got = fn(*args, **kw)
+    assert fn.launches == n + 1
+    assert torch.equal(got, seg.sw_scores_segmented_plain(*args, **kw))
+
+
+def test_wide_carry_and_hint_kernels_match_plain(dev):
+    from swipe_tpu_torch.batching import pack_stream_carry
+    m = ScoreMatrix.nucleotide(200, -300, 400, 200).matrix
+    mw = torch.from_numpy(sw.build_matrix_wide(m)).to(dev)
+    rng = np.random.default_rng(13)
+    seqs = [rng.integers(1, 15, size=int(n), dtype=np.int8)
+            for n in [9000, 7000] + list(rng.integers(1, 900, 40))]
+    chunks = pack_stream_carry(seqs, nseqs=1024, max_cols=1024)
+    qs = [rng.integers(1, 15, size=n, dtype=np.int8) for n in (7, 100, 1100)]
+    qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 1152))
+    got = sw.make_stream_state(3, 1152, 64, dev)
+    want = tuple(x.clone() for x in got)
+    for i, ch in enumerate(chunks):
+        data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
+                                             ch.end_block, ch.lane, dev)
+        kw = dict(gapopenextend=600, gapextend=200, carry_in=i > 0,
+                  carry_out=i < len(chunks) - 1)
+        d1, *got = sw.sw_scores_stream_carry(qc, ql, mw, data, start, *got,
+                                             **kw)
+        d2, *want = sw.sw_scores_stream_carry_plain(qc, ql, mw, data, start,
+                                                    *want, **kw)
+        assert torch.equal(d1, d2)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    # the wide hint kernel on pieces with first tracked columns
+    db = np.full((1, 2048, 64), 31, np.int8)
+    for j in range(60):
+        s = seqs[0][j * 100: j * 100 + int(rng.integers(100, 2048))]
+        db[0, :len(s), j] = s
+    starts = np.zeros((1, 64), np.int32)
+    starts[0, 1:] = 300
+    hargs = [torch.from_numpy(a).to(dev)
+             for a in (*sw.build_qcodes(qs[1:2], 128), db, starts)]
+    hargs.insert(2, mw)
+    n = sw.sw_hint_stream.launches
+    got = sw.sw_hint_stream(*hargs, gapopenextend=600, gapextend=200)
+    assert sw.sw_hint_stream.launches == n + 1
+    for g, w in zip(got, sw.sw_hint_stream_plain(*hargs, gapopenextend=600,
+                                                  gapextend=200)):
+        assert torch.equal(g, w)
+
+
+def test_peak_kernel_matches_plain(dev):
+    from swipe_tpu_torch.ops import peak
+    rng = np.random.default_rng(14)
+    for chains, block in ((8, 256), (1, 32)):
+        x = torch.from_numpy(rng.integers(-1000, 1000, size=(chains, 1024),
+                                          dtype=np.int32)).to(dev)
+        for dpx in (False, True):
+            got = peak.peak_chain(x, 3, dpx=dpx, block=block)
+            assert torch.equal(got, peak.peak_chain_plain(
+                x, 3 * peak.PEAK_STEPS))
+
+
+def test_engine_pallas_on_card_matches_stream(dev):
+    from swipe_tpu_torch.ops import sw_tiled as tiled
+    rng = np.random.default_rng(15)
+    aa = list("ARNDCQEGHILKMFPSTWYV")
+    recs = ["".join(rng.choice(aa, int(n)))
+            for n in rng.integers(20, 600, size=3000)]
+    q = "".join(rng.choice(aa, 150))
+    recs[9] = q[10:120]
+    recs.append("".join(rng.choice(aa, 20000)) + q)     # a giant
+    fasta = "".join(f">s{i}\n{s}\n" for i, s in enumerate(recs))
+    hits = []
+    for backend in ("pallas", "stream"):
+        eng = SearchEngine(FastaDatabase(io.StringIO(fasta), "aa", title="t"),
+                           SearchParams(descriptions=100, alignments=20),
+                           device=dev, backend=backend)
+        n = tiled.sw_scores_tiled.launches
+        hl = eng.search(preprocess_query("q", q, 1, 3))
+        assert (tiled.sw_scores_tiled.launches > n) == (backend == "pallas")
+        hits.append([(h.seqno, h.score, h.alignment) for h in hl.hits])
+    assert hits[0] == hits[1] and hits[0][0][0] == 3000

@@ -208,11 +208,8 @@ def test_engine_needs_cuda_unless_cpu(monkeypatch):
         "cpu"
 
 
-# what the port still raises on, each naming its ROADMAP item: a score
-# matrix outside int8 (engine), then CLI options
+# what the port still raises on, each naming its ROADMAP item: CLI options
 UNPORTED = {
-    "matrix_outside_int8": ("item 9", None),
-    "backend_pallas": ("item 9", ["--backend", "pallas"]),
     "dump_N": ("item 7", ["-N", "1"]),
     "mh_procs": ("item 8", ["--mh-procs", "2"]),
 }
@@ -220,17 +217,12 @@ UNPORTED = {
 
 @pytest.mark.parametrize("route", sorted(UNPORTED))
 def test_unported_routes_raise(route, tmp_path):
-    # queries over 1024 rows, flow-routed databases and units over the
-    # giant threshold run now (tests/test_torch_long*.py,
-    # test_torch_routes.py, test_torch_giants.py)
+    # queries over 1024 rows, flow-routed databases, units over the giant
+    # threshold, the segment backends and score matrices outside int8 run
+    # now (tests/test_torch_long*.py, test_torch_routes.py,
+    # test_torch_giants.py, test_torch_segment*.py)
     item, argv = UNPORTED[route]
     match = f"ROADMAP Queue 1 {item}"
-    if argv is None:
-        db = FastaDatabase(io.StringIO(">a\nACGTACGT\n"), "nt", title="t")
-        with pytest.raises(NotImplementedError, match=match):
-            SearchEngine(db, SearchParams(symtype=0, matchscore=200,
-                                          mismatchscore=-300), device="cpu")
-        return
     (tmp_path / "q.fa").write_text(">q\nACDEFGHIK\n")
     with pytest.raises(NotImplementedError, match=match):
         torch_cli_main(["-i", str(tmp_path / "q.fa"), "-d",
