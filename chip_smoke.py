@@ -13,16 +13,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
               of 32-512 rows (with and without profiles, with a clamp), the
               hint kernel on 1024-lane bins with forced ties and first
               tracked columns (also with BLOSUM62 scaled by 100: the wide
-              instantiation), the carry kernel over a 2048-lane flow
-              series (lane permutes, a narrowing drain, no carry-in at its
-              head, no carry-out at its tail) and a compact carry series
-              (also wide), every chunk's dump and carried state, the
+              instantiation), the carry kernel's lane form over a
+              2048-lane flow series (lane permutes, a narrowing drain, no
+              carry-in at its head, no carry-out at its tail) and a compact
+              carry series (lanes refilled mid-chunk; also wide), its row
+              form over the compact series with queries that end inside a
+              strip, at a strip edge, at a band edge, take three bands, and
+              an empty slot (int8, with a clamp, wide), every chunk's dump
+              and carried state, the
               wavefront kernel over a 3-segment giant with hits and a gap
               across the segment cuts, the tile pass over four 512-row
               tiles of a 1024-lane, 64-block chunk (queries ending inside
               tile 1, inside tile 3, at a tile edge, and an empty slot;
               without and with a clamp), the tile carry pass over a
-              compact carry series (with and without a clamp), the
+              compact carry series (the same kinds of query ends, with and
+              without a clamp), the
               segmented kernel (int8 and int32 profiles) and the tiled one
               on a 512-lane pack_database chunk of 24 segments and 8
               padded ones with queries of 64-512 rows, and the peak probe
@@ -49,7 +54,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               queries with backend "pallas" (pack_database at 512 lanes x
               16,384 columns, the tiled segment kernel): every hit list
               must equal the plain-pack route's;
-5. proteome — the flow route: 20,000 sequences from the same model (the
+5. proteome — the flow route (K3's lane form): 20,000 sequences from the same model (the
               size of UniProt's human reference proteome, UP000005640)
               plus one of 35,213 aa (the model's titin-length clip); the
               same queries' shape, scoring and checks.  long-proteome: 16
@@ -69,18 +74,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
               long-genome: a 16S-length query (1,542 nt, a 10%-mutated copy
               of a chromosome window inside a gene) on both strands: the
               genes in tile passes, the chromosome on the carry series in
-              tile passes, hints on the hint kernel over 1,542 rows.
+              tile passes (K6), hints on the hint kernel over 1,542 rows.
               wide-genome: 8 of the queries with the scoring scaled by 100
               (-r 100 -q -300 -G 500 -E 200, outside int8): the genes on
               the segmented kernel with an int32 profile, the chromosome's
-              567 chunks on the wide carry kernel, hints on the wide hint
+              567 chunks on the wide carry kernel's row form (one launch a
+              chunk, none of the lane form), hints on the wide hint
               kernel; planted windows at their oracle, every hit of the
               int8 search a hit here at exactly 100 x its score;
 7. tblastn  — the same database under tblastn (db_gencode 11), 16 queries
               of 400 aa with mutated back-translated copies planted the
               same way: the six chromosome frames take the wavefront
               kernel; then the same search with WAVEFRONT_MAX_GIANTS = 0
-              (the carry series), whose hit list must be the same.
+              (the carry series on K3's row form, one launch a chunk),
+              whose hit list must be the same.
               Chromosome hits are held against the oracle over a window
               of +-2 query lengths around each plant, gene hits against
               the oracle over the whole gene;
@@ -92,10 +99,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
               time at that call, and the stream kernel there without
               profiles too; the tile passes of the long-search chunk
               summed, beside one stream-kernel pass over the same 2,048
-              rows.  The bound counts the real cells and the least
-              instructions a cell takes on sm_90a: those of the ALU pipe
-              at the rate phase 3 measured, all of them at the issue
-              ceiling;
+              rows; the warp-a-pair kernels (K3's row form, K6) at each
+              search's largest call.  The bound is the largest of three
+              terms: the bytes at the data sheet's rate, the real cells'
+              least sm_90a instructions (those of the ALU pipe at the rate
+              phase 3 measured, all of them at the issue ceiling), and the
+              DP's critical path (rows + columns - 1 cells of the longest
+              sequence, 3 dependent instructions each at the latency phase
+              3 measured);
 9. cli      — ``python -m swipe_tpu_torch -m 8`` on a small FASTA database.
 
 Every search phase sets the launch counts to 0 before it runs and reads
@@ -123,7 +134,7 @@ import torch
 from swipe_tpu_torch import _build
 from swipe_tpu_torch.alphabet import GENETIC_CODES, SYM_NCBI_AA
 from swipe_tpu_torch.hits import HitList
-from swipe_tpu_torch.batching import (PAD_SYMBOL, pack_database,
+from swipe_tpu_torch.batching import (PAD_SYMBOL, SEG_BLK, pack_database,
                                       pack_stream, pack_stream_carry,
                                       pack_stream_flow)
 from swipe_tpu_torch.io.db import FastaDatabase
@@ -176,21 +187,32 @@ PEAK: dict = {}       # the peak phase's measured rates (measure_peak)
 # pipe's measured rate and all instructions over the issue ceiling.
 CELL_OPS, HINT_CELL_OPS = (5, 6, 10), (5, 7, 13)
 CLAMP_OPS, PEAK_STEP_OPS = (1, 1, 1), (2, 2, 4)
+# The DP's critical path: a cell depends on the cells above, left and
+# diagonal, so a launch takes at least the longest chain of cells, rows +
+# columns - 1 of one sequence against one query, times the dependent
+# instructions a cell adds to it, h = max(diag + p, E, F, 0), t = h - Q,
+# F = max(F - R, t): 3, each at the latency per instruction the peak phase
+# measured (K10's DPX chain, two instructions a step).  A step of K10's
+# chain is two.  The least time of a launch is the largest of the bytes,
+# the operations and this term.
+CHAIN_OPS, PEAK_CHAIN_OPS = 3, 2
 
 KERNELS = {   # wrapper -> (its module, source, TPU kernel it replaces)
     "build_dprofile_series": (sw, "swipe_tpu_torch/csrc/dprofile.cu",
                               "swipe_tpu/ops/sw_stream.py:154"),
     "sw_scores_stream": (sw, "swipe_tpu_torch/csrc/stream.cu",
                          "swipe_tpu/ops/sw_stream.py:568"),
-    "sw_scores_stream_carry": (sw, "swipe_tpu_torch/csrc/stream.cu",
-                               "swipe_tpu/ops/sw_stream.py:733"),
+    "sw_scores_stream_carry_lanes": (sw, "swipe_tpu_torch/csrc/stream.cu",
+                                     "swipe_tpu/ops/sw_stream.py:733"),
+    "sw_scores_stream_carry_rows": (sw, "swipe_tpu_torch/csrc/carry_rows.cu",
+                                    "swipe_tpu/ops/sw_stream.py:733"),
     "sw_hint_stream": (sw, "swipe_tpu_torch/csrc/hint.cu",
                        "swipe_tpu/ops/sw_stream.py:990"),
     "sw_wavefront": (wf, "swipe_tpu_torch/csrc/wavefront.cu",
                      "swipe_tpu/ops/sw_wavefront.py:227"),
     "stream_tile_pass": (sw, "swipe_tpu_torch/csrc/stream_tile.cu",
                          "swipe_tpu/ops/sw_stream.py:1263"),
-    "stream_tile_carry_pass": (sw, "swipe_tpu_torch/csrc/stream_tile.cu",
+    "stream_tile_carry_pass": (sw, "swipe_tpu_torch/csrc/carry_rows.cu",
                                "swipe_tpu/ops/sw_stream.py:1419"),
     "sw_scores_tiled": (tiled, "swipe_tpu_torch/csrc/segment.cu",
                         "swipe_tpu/ops/sw_tiled.py:146"),
@@ -201,10 +223,13 @@ KERNELS = {   # wrapper -> (its module, source, TPU kernel it replaces)
 }
 # plain versions not named <wrapper>_plain in the wrapper's module
 PLAIN = {"sw_scores_tiled": seg.sw_scores_segmented_plain,
+         "sw_scores_stream_carry_lanes": sw.sw_scores_stream_carry_plain,
+         "sw_scores_stream_carry_rows": sw.sw_scores_stream_carry_plain,
          "peak_chain": lambda x, iters, dpx=False, block=256:
          peak.peak_chain_plain(x, iters * peak.PEAK_STEPS)}
 # state arguments each wrapper updates in place (cloned before a replay)
-STATE_ARGS = {"sw_scores_stream_carry": (5, 6, 7), "sw_wavefront": (2, 3, 4),
+STATE_ARGS = {"sw_scores_stream_carry_lanes": (5, 6, 7),
+              "sw_scores_stream_carry_rows": (5, 6, 7), "sw_wavefront": (2, 3, 4),
               "stream_tile_pass": (6, 7, 8),
               "stream_tile_carry_pass": (6, 7, 8, 9, 10)}
 # the align phase's steps, timed on the host in every search: step ->
@@ -411,25 +436,41 @@ def check_peak(dev, rng, report):
 
 
 def check_carry(dev, m8, mw, qc, ql, rng, report):
-    """K3 over a 2048-lane flow series (cut chains continued on permuted
-    lanes, a drain narrowed to 1024 lanes, no carry-in at the head, no
-    carry-out at the tail, profiles on) and a compact carry series (two
-    giants cut across chunks, the state at the compact width rounded to a
-    warp), the latter also with the int32 matrix ``mw`` (the wide
-    instantiation): every chunk's dump and carried (h, e, s)."""
+    """K3's two forms.  The lane form over a 2048-lane flow series (cut
+    chains continued on permuted lanes, a drain narrowed to 1024 lanes,
+    profiles on) through the entry point, and over a compact carry series
+    (two giants cut across chunks, short records refilling 16 lanes
+    mid-chunk, the state wider than the chunks) called directly, with the int8 and the int32 matrix ``mw``.
+    The row form through the entry point (carry_form picks it) over the
+    compact series with queries that end inside a strip, at a strip edge,
+    at a band edge, take several bands, and an empty slot (0-1,100 rows
+    at qlen_pad 1,536): int8, int8 with a clamp, int32.  No carry-in at
+    a series' head, no carry-out at its tail; every chunk's dump and
+    carried (h, e, s)."""
     lens = np.concatenate([rng.integers(5, 300, 6000), [3000, 2100],
                            [700] * 1100])
     seqs = [rng.integers(1, 26, size=int(n), dtype=np.int8) for n in lens]
     flow = pack_stream_flow(seqs, nseqs=2048, max_cols=256, drain_cols=128)
     giants = [rng.integers(1, 26, size=int(n), dtype=np.int8)
               for n in [20000, 15000] + list(rng.integers(1, 900, 40))]
-    carry = pack_stream_carry(giants, nseqs=1024, max_cols=2048)
-    if {c.nseqs for c in flow} != {1024, 2048} or len(carry) < 3:
+    # 16 lanes: the short records refill lanes mid-chunk
+    carry = pack_stream_carry(giants, nseqs=16, max_cols=2048)
+    if {c.nseqs for c in flow} != {1024, 2048} or len(carry) < 3 \
+            or not any(c.start[1:].any() for c in carry):
         raise RuntimeError("check: the K3 series lack a drain or chunks")
-    for chunks, width, profiles, mat, scale in (
-            (flow, 2048, True, m8, 1), (carry, 64, False, m8, 1),
-            (carry, 64, False, mw, 100)):
-        got = sw.make_stream_state(qc.shape[0], qc.shape[1], width, dev)
+    lq, ll = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
+        [rng.integers(1, 26, size=n, dtype=np.int8)
+         for n in (300, 496, 512, 0, 1024, 1100)], 1536))
+    lanes, rows = sw.sw_scores_stream_carry_lanes, sw.sw_scores_stream_carry_rows
+    entry = sw.sw_scores_stream_carry
+    for chunks, width, profiles, mat, scale, clamp, fn, form, q in (
+            (flow, 2048, True, m8, 1, None, entry, lanes, (qc, ql)),
+            (carry, 64, False, m8, 1, None, lanes, lanes, (qc, ql)),
+            (carry, 64, False, mw, 100, None, lanes, lanes, (qc, ql)),
+            (carry, 64, False, m8, 1, None, entry, rows, (lq, ll)),
+            (carry, 64, False, m8, 1, 80, entry, rows, (lq, ll)),
+            (carry, 64, False, mw, 100, None, entry, rows, (lq, ll))):
+        got = sw.make_stream_state(q[0].shape[0], q[0].shape[1], width, dev)
         want = tuple(x.clone() for x in got)
         for i, ch in enumerate(chunks):
             if i and profiles:
@@ -438,16 +479,18 @@ def check_carry(dev, m8, mw, qc, ql, rng, report):
                 want = sw.permute_stream_state(*want, src)
             data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
                                                  ch.end_block, ch.lane, dev)
-            kw = dict(gapopenextend=12 * scale, gapextend=scale,
+            kw = dict(gapopenextend=12 * scale, gapextend=scale, clamp=clamp,
                       carry_in=i > 0, carry_out=i < len(chunks) - 1,
                       dprof=sw.build_dprofile_series(m8, data)
                       if profiles else None)
-            d1, *got = sw.sw_scores_stream_carry(qc, ql, mat, data, start,
-                                                 *got, **kw)
+            n = form.launches
+            d1, *got = fn(*q, mat, data, start, *got, **kw)
+            if form.launches != n + 1:
+                raise RuntimeError(f"check: {form.__name__} did not take "
+                                   "the K3 launch")
             d2, *want = sw.sw_scores_stream_carry_plain(
-                qc, ql, mat, data, start, *want, **kw)
-            _compare("sw_scores_stream_carry", (d1, *got), (d2, *want),
-                     report)
+                *q, mat, data, start, *want, **kw)
+            _compare(form.__name__, (d1, *got), (d2, *want), report)
 
 
 def check_wavefront(dev, m8, rng, report):
@@ -498,8 +541,10 @@ def check_tiles(dev, m8, rng, report):
     1, and an empty slot; without and with a clamp: every pass's dump
     and planes.  K6 over a compact carry series of two giants
     cut across 1024-column chunks, no carry-in at its head, no carry-out
-    at its tail, without and with a clamp: every chunk's dump and carried
-    (h, e, s, bh0c)."""
+    at its tail, without and with a clamp, queries that end inside a
+    strip, at a strip edge (528), at a tile edge (1,024), in the third
+    tile, and an empty slot: every chunk's dump and carried (h, e, s,
+    bh0c)."""
     seqs = [rng.integers(1, 26, size=int(L), dtype=np.int8)
             for L in rng.integers(1, 300, size=1024 * 64 * 16 // 140)]
     ch = pack_stream(seqs, nseqs=1024, max_cols=64 * 16)[0]
@@ -519,14 +564,15 @@ def check_tiles(dev, m8, rng, report):
             _compare("stream_tile_pass", got, want, report)
     giants = [rng.integers(1, 26, size=int(n), dtype=np.int8)
               for n in [5000, 4000] + list(rng.integers(1, 900, 40))]
-    carry = pack_stream_carry(giants, nseqs=1024, max_cols=1024)
-    if len(carry) < 3:
-        raise RuntimeError("check: the K6 series has fewer than 3 chunks")
+    carry = pack_stream_carry(giants, nseqs=16, max_cols=1024)
+    if len(carry) < 3 or not any(c.start[1:].any() for c in carry):
+        raise RuntimeError("check: the K6 series has fewer than 3 chunks "
+                           "or no refill")
     qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
-        [rng.integers(1, 26, size=n, dtype=np.int8) for n in (600, 1100, 0)],
-        1536))
+        [rng.integers(1, 26, size=n, dtype=np.int8)
+         for n in (600, 1100, 0, 1024, 528, 300)], 1536))
     for clamp in (None, 80):
-        got = sw.make_stream_state_long(3, 1536, 64, 512, dev)
+        got = sw.make_stream_state_long(6, 1536, 64, 512, dev)
         want = tuple(x.clone() for x in got)
         for i, ch in enumerate(carry):
             data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
@@ -688,12 +734,14 @@ def segment_search(label, dev, db, queries, want, backend, kernel, card,
                           device=dev, backend=backend)
     pack_s = time.time() - t0
     expect = (kernel, "sw_hint_stream") + (
-        ("sw_scores_stream_carry",) if engine._giant_ids.size else ())
+        ("sw_scores_stream_carry_rows",) if engine._giant_ids.size else ())
     hitlists, timings, wall, launches, split = run_search(
         label, engine, queries, expect, calls)
+    # the giants' carry series is a few-pair launch: K3's row form
     others = {"build_dprofile_series", "sw_scores_stream", "sw_wavefront",
               "stream_tile_pass", "stream_tile_carry_pass",
-              "sw_scores_tiled", "sw_scores_segmented"} - {kernel}
+              "sw_scores_stream_carry_lanes", "sw_scores_tiled",
+              "sw_scores_segmented"} - {kernel}
     if any(launches[n] for n in others):
         raise RuntimeError(f"{label}: a kernel of another route launched")
     if hit_keys(hitlists) != hit_keys(want):
@@ -810,8 +858,10 @@ def proteome(dev, workdir, nseq, nq, card, calls, seed=4):
         f"{engine._flow_cols(2048)} columns")
     hitlists, timings, wall, launches, split = run_search(
         "proteome", engine, queries,
-        ("build_dprofile_series", "sw_scores_stream_carry",
+        ("build_dprofile_series", "sw_scores_stream_carry_lanes",
          "sw_hint_stream"), calls)
+    if launches["sw_scores_stream_carry_rows"]:
+        raise RuntimeError("proteome: a flow chunk took K3's row form")
     nbytes = check_protein_hits("proteome", db, engine, queries, hitlists,
                                 homologs)
     cells = residues * 200 * nq
@@ -883,7 +933,9 @@ def long_search(label, engine, db, lens, nq, lo, hi, expect, card, calls,
                              for g in groups):
         raise RuntimeError(f"{label}: slot groups {groups} are not long "
                            "groups of at most 4 at 1024 lanes")
-    if launches["sw_scores_stream_carry"] or launches["sw_scores_stream"] \
+    if launches["sw_scores_stream_carry_lanes"] \
+            or launches["sw_scores_stream_carry_rows"] \
+            or launches["sw_scores_stream"] \
             or launches["build_dprofile_series"]:
         raise RuntimeError(f"{label}: the long groups left the plain pack "
                            "in tile passes, or built profiles")
@@ -1131,13 +1183,16 @@ def genome_searches(dev, workdir, card, calls, seed=5):
     for route, expect in (
             ("wavefront", ("sw_wavefront", "sw_scores_stream",
                            "build_dprofile_series", "sw_hint_stream")),
-            ("carry", ("sw_scores_stream_carry", "sw_scores_stream",
+            ("carry", ("sw_scores_stream_carry_rows", "sw_scores_stream",
                        "sw_hint_stream"))):
         label = f"tblastn-{route}"
         if route == "carry":
             engine.WAVEFRONT_MAX_GIANTS = 0
         hitlists, tim, wall, launches[label], split = run_search(
             label, engine, queries, expect, calls)
+        if route == "carry":
+            check_carry_forms(label, launches[label],
+                              len(engine._carry_chunks(1024)))
         n = check_genome_hits(label, db, engine, queries, hitlists,
                               plants[nq:], gaps, frames)
         keys.append([[(h.seqno, h.score, h.dstrand, h.dframe, h.score_align,
@@ -1153,6 +1208,17 @@ def genome_searches(dev, workdir, card, calls, seed=5):
         raise RuntimeError("tblastn: the wavefront and carry hit lists differ")
     log("tblastn: the wavefront and carry series hit lists are equal")
     return launches, stats
+
+
+def check_carry_forms(label, launches, nchunks):
+    """A giant carry series of one slot group: every chunk one launch of
+    K3's row form, none of the lane form."""
+    got = (launches["sw_scores_stream_carry_rows"],
+           launches["sw_scores_stream_carry_lanes"])
+    if got != (nchunks, 0):
+        raise RuntimeError(f"{label}: K3 launched {got[0]} times in the row "
+                           f"form and {got[1]} in the lane form, not "
+                           f"{nchunks} and 0")
 
 
 def track_hints(split):
@@ -1250,10 +1316,12 @@ def wide_genome(dev, db, nt_q, plants, int8_hits, frames, card, calls):
     try:
         hitlists, tim, wall, launches, split = run_search(
             "wide-genome", engine, queries,
-            ("sw_scores_segmented", "sw_scores_stream_carry",
+            ("sw_scores_segmented", "sw_scores_stream_carry_rows",
              "sw_hint_stream"), calls)
     finally:
         align_hint._hint_batch = orig
+    check_carry_forms("wide-genome", launches,
+                      len(engine._carry_chunks(1024)))
     if any(launches[n] for n in ("build_dprofile_series", "sw_scores_stream",
                                  "sw_scores_tiled", "stream_tile_pass",
                                  "stream_tile_carry_pass", "sw_wavefront")):
@@ -1347,7 +1415,8 @@ def _work(name, args, kw, out):
     if name == "build_dprofile_series":
         m8, db = args
         return _nbytes(m8, db, out), 0, 0, 0
-    if name in ("sw_scores_stream", "sw_scores_stream_carry"):
+    if name in ("sw_scores_stream", "sw_scores_stream_carry_lanes",
+                "sw_scores_stream_carry_rows"):
         qc, ql, m8, db, start = args[:5]
         if isinstance(out, tuple):      # the dump and the state
             out = out[0]
@@ -1393,6 +1462,50 @@ def _work(name, args, kw, out):
     cells = int((ql.long() * residues).sum())
     return (_nbytes(qc, ql, m8, db, starts, *out),
             *_ops(cells, HINT_CELL_OPS))
+
+
+def _longest(start, db):
+    """The longest sequence of a lane-packed chunk, in real columns: the
+    non-PAD columns between a lane's start bits (a lane without one runs
+    the whole chunk)."""
+    st = start.cpu().numpy() != 0                      # [nblocks, NSEQS]
+    nb, n = st.shape
+    real = (db != PAD_SYMBOL).view(nb, sw.KSEG, n).sum(dim=1).cpu().numpy()
+    key = np.cumsum(st, axis=0) * n + np.arange(n)
+    return int(np.bincount(key.ravel(), weights=real.ravel()).max())
+
+
+def _chain(name, args, kw):
+    """The dependent instructions on the longest chain of one call (the
+    critical path term of the bound)."""
+    if name == "build_dprofile_series":
+        return 0
+    if name == "peak_chain":
+        return args[1] * peak.PEAK_STEPS * PEAK_CHAIN_OPS
+    if name in ("sw_scores_stream", "sw_scores_stream_carry_lanes",
+                "sw_scores_stream_carry_rows"):
+        qc, ql, _, db, start = args[:5]
+        rows = min(int(ql.max()), qc.shape[1])
+        cols = _longest(start, db)
+    elif name in ("stream_tile_pass", "stream_tile_carry_pass"):
+        _, ql, tile, _, db, start = args[:6]
+        T = kw["tile_rows"]
+        rows = int((ql.long() - tile * T).clamp(0, T).max())
+        cols = _longest(start, db)
+    elif name in ("sw_scores_segmented", "sw_scores_tiled"):
+        qpt, db, seg_ids = args
+        pad = -128 if qpt.dtype == torch.int8 else -(1 << 20)
+        rows = int((qpt != pad).any(dim=2).sum(dim=1).max())
+        cols = int(torch.bincount(seg_ids.long()).max()) * SEG_BLK
+    elif name == "sw_wavefront":
+        mq, db = args[:2]
+        rows = int((mq != -128).any(dim=2).sum(dim=1).max())
+        cols = int((db != PAD_SYMBOL).sum())
+    else:                                              # sw_hint_stream
+        _, ql, _, db, _ = args
+        rows = int(ql.max())
+        cols = int((db != PAD_SYMBOL).sum(dim=1).max())
+    return (rows + cols - 1) * CHAIN_OPS if rows and cols else 0
 
 
 def time_without_profiles(args, kw, out, ms, report):
@@ -1480,26 +1593,43 @@ def time_kernels(calls, plain_ms, report):
         reps = 2 if name == "sw_wavefront" else 5
         ms = _time(lambda: fn(*args, **kw), reps)
         nbytes, alu, ops, int32_ops = _work(name, args, kw, out)
+        chain = _chain(name, args, kw)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         alu_ms = alu / PEAK["thread_instructions_per_s"] * 1e3
         issue_ms = ops / DATASHEET_ISSUE_PER_S * 1e3
-        ops_ms = max(alu_ms, issue_ms)
+        path_ms = chain * PEAK["dpx_latency_ns_per_step"] / 2 * 1e-6
+        terms = {"bytes": bytes_ms, "throughput": max(alu_ms, issue_ms),
+                 "critical path": path_ms}
+        term = max(terms, key=terms.get)
         rows[name] = dict(ms=ms, plain_ms=plain_ms[label, name],
-                          bound_ms=max(bytes_ms, ops_ms),
-                          bound_by="bytes" if bytes_ms >= ops_ms
-                          else "operations")
+                          bound_ms=terms[term],
+                          bound_by="bytes" if term == "bytes"
+                          else "operations", bound_term=term)
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         log(f"time: {name} at {shapes} ({label}): {ms:.3f} ms, plain "
             f"{rows[name]['plain_ms']:.1f} ms, bound "
-            f"{rows[name]['bound_ms']:.4f} ms "
-            f"({rows[name]['bound_by']}; bytes {bytes_ms:.4f} ms, "
-            f"{alu} least ALU instructions {alu_ms:.4f} ms at the measured "
-            f"ALU rate, {ops} least instructions {issue_ms:.4f} ms at the "
-            f"data sheet's issue ceiling; as two-operand int32 on the ALU "
-            f"pipe {int32_ops / INT32_OPS_PER_S * 1e3:.4f} ms)")
+            f"{rows[name]['bound_ms']:.4f} ms ({term}; bytes "
+            f"{bytes_ms:.4f} ms, {alu} least ALU instructions "
+            f"{alu_ms:.4f} ms at the measured ALU rate, {ops} least "
+            f"instructions {issue_ms:.4f} ms at the data sheet's issue "
+            f"ceiling, {chain} dependent instructions on the critical path "
+            f"{path_ms:.4f} ms; as two-operand int32 on the ALU pipe "
+            f"{int32_ops / INT32_OPS_PER_S * 1e3:.4f} ms)")
         if name == "sw_scores_stream" and kw.get("dprof") is not None:
             time_without_profiles(args, kw, out, ms, report)
     return rows
+
+
+def time_by_search(calls):
+    """The warp-a-pair kernels (K3's row form, K6) at each search's
+    largest call of them: ms a launch by search."""
+    out = {}
+    for (label, name), (_, args, kw) in calls.items():
+        if name in ("sw_scores_stream_carry_rows", "stream_tile_carry_pass"):
+            fn = getattr(KERNELS[name][0], name)
+            out[f"{label}/{name}"] = ms = _time(lambda: fn(*args, **kw), 3)
+            log(f"time: {name} at {label}'s largest call: {ms:.3f} ms")
+    return out
 
 
 # ---- phase 9: the CLI ------------------------------------------------------
@@ -1600,6 +1730,7 @@ def main() -> int:
         t = time.time()
         rows = time_kernels(calls, plain_ms, report)
         stats["time-tiles"] = time_tiles(calls, report)
+        stats["time-by-search"] = time_by_search(calls)
         del calls
         log(f"time: {time.time() - t:.1f} s")
         if any(r["mismatches"] for r in report.values()):

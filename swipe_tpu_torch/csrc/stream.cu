@@ -24,8 +24,10 @@
 // given, else from the matrix in shared memory indexed by the query
 // symbol and the column's db symbol.
 //
-// The carry form (K3) is the same kernel over one chunk of a flow or
-// carry series.  The scratch IS the carried state, updated in place (for
+// The carry form (K3's lane form) is the same kernel over one chunk of a
+// flow series.  Launches with few (query, lane) pairs -- the giant carry
+// series, a chromosome lane each -- take K3's row form in carry_rows.cu
+// instead (ops/sw_stream.py carry_form).  The scratch IS the carried state, updated in place (for
 // a series' last chunk the caller passes a copy).  With CARRY the first
 // block reads the carried H/E from the scratch and S from s_io, and a
 // lane starts fresh there only where its start bit is set -- not at
@@ -40,14 +42,14 @@
 // time (chip_smoke.py).  The simple design is far from it: a cell's
 // add/max form one dependent chain per thread, and NQ x NSEQS / 128
 // thread blocks leave few warps per SM to cover it (tuning, DPX and
-// 16-bit lanes are later work).  A giant carry series packs few lanes, so
-// there the chain's latency alone sets the time.
+// 16-bit lanes are later work).
 //
 // Matrices outside int8 (build_matrix_wide: int32 scores, a strictly
 // negative PAD row and column) take a wide instantiation of K3, the
 // matrix element type a template parameter: matrix lookup only, no
-// profiles and no clamp.  It serves the carry series of the segment
-// route at any query length, as the row state has no cap.
+// profiles and no clamp.  The row state has no cap, so it takes any query
+// length; the segment route's giants, wide or not, are few-pair launches
+// and take the row form.
 //
 // Running exactly qlen rows is enough: the TPU kernel's round-up to 4
 // rows only added PAD rows, which decay and never raise S.  Rows at and

@@ -1,15 +1,15 @@
-// Query-tile passes of stream scoring (K5) and their carry form (K6), for
-// queries over one tile of rows.
+// Query-tile passes of stream scoring (K5), for queries over one tile of
+// rows on the plain pack.
 //
-// Replaces the TPU kernels swipe_tpu/ops/sw_stream.py _stream_tile_pass
-// (_stream_tile_kernel, driven by sw_scores_stream_long) and
-// _stream_tile_carry_pass (_stream_tile_carry_kernel, driven by
-// sw_scores_stream_carry_long).  A query of QLEN rows is scored in
-// QLEN / T passes over the chunk; pass t walks rows [t*T, t*T + T) (fewer
-// where the query ends) and carries the DP boundary to the next pass in
-// two planes [NQ, L, NSEQS]: the H of its bottom row at every column and
-// that row's F advanced into the next tile's top row.  The per-block dump
-// out[q, b, lane] is max-merged over the passes.
+// Replaces the TPU kernel swipe_tpu/ops/sw_stream.py _stream_tile_pass
+// (_stream_tile_kernel, driven by sw_scores_stream_long).  A query of QLEN
+// rows is scored in QLEN / T passes over the chunk; pass t walks rows
+// [t*T, t*T + T) (fewer where the query ends) and carries the DP boundary
+// to the next pass in two planes [NQ, L, NSEQS]: the H of its bottom row
+// at every column and that row's F advanced into the next tile's top row.
+// The per-block dump out[q, b, lane] is max-merged over the passes.  The
+// carry form of the tile pass (K6), whose launches hold a chromosome
+// lane's few pairs, is carry_rows.cu's.
 //
 // Design: stream.cu's.  One thread owns one (query, lane) and walks the
 // db blocks in order; the 16 columns' previous-row H/F sit in registers
@@ -21,11 +21,10 @@
 //   * the diagonal into the top row at a block's first column is the
 //     previous block's last bh, kept in a register and masked to 0 on a
 //     start bit (that column belongs to the previous sequence).  At block
-//     0 it is 0, or bh0c[q, t] for a carry series;
-//   * S restarts at 0 in every pass (K6: tile 0 reads the carried S) and
-//     on start bits; each block stores max(out, S) -- per block, no
-//     reset: an earlier pass's dump of a refill block already belongs to
-//     the new sequence;
+//     0 it is 0;
+//   * S restarts at 0 in every pass and on start bits; each block stores
+//     max(out, S) -- per block, no reset: an earlier pass's dump of a
+//     refill block already belongs to the new sequence;
 //   * the bottom row's H and F go back into the planes per column.
 // Scores come from the matrix in shared memory, not from block profiles:
 // with one warp an SM the lookup beat K1's profiles by 1.5-1.7x at every
@@ -36,15 +35,9 @@
 // in which the query has no rows left walks no rows: the planes pass
 // through and the dump keeps its value.
 //
-// K6 (CARRY): the scratch is the series' [NQ, QLEN, NSEQS] H/E state;
-// the tile reads its rows at block 0 (reset where the start bit is set)
-// and leaves them updated in place.  The tile's bottom-row H at the
-// chunk's last column is the plane's last column, which the wrapper
-// stacks into bh0c for the next chunk.
-//
 // Kept apart from stream.cu on purpose: K2's compiled code is sensitive
 // to any change (a run-time branch there doubled its time), so the tile
-// kernels are their own instantiations of the shared sw_cell.
+// kernel is its own instantiation of the shared sw_cell.
 //
 // Thread blocks of one warp.  A long-query slot group is at most 4
 // queries x 1024 lanes, 128 warps: in blocks of 128 threads they would
@@ -59,17 +52,16 @@ using namespace swipe;
 
 constexpr int TILE_THREADS = 32;
 
-template <bool CLAMP, bool CARRY>
+template <bool CLAMP>
 __global__ void __launch_bounds__(TILE_THREADS)
 tile_kernel(const int32_t* __restrict__ qcodes,
             const int32_t* __restrict__ qlens,
             const int8_t* __restrict__ m8, const int8_t* __restrict__ db,
             const int8_t* __restrict__ start, int32_t* __restrict__ out,
             int32_t* __restrict__ bh, int32_t* __restrict__ bf,
-            int32_t* __restrict__ hst, int32_t* __restrict__ est,
-            const int32_t* __restrict__ s_in,
-            const int32_t* __restrict__ bh0c, int tile, int tile_rows,
-            int qlen_pad, int nblocks, int nseqs, int Q, int R, int clamp) {
+            int32_t* __restrict__ hst, int32_t* __restrict__ est, int tile,
+            int tile_rows, int qlen_pad, int nblocks, int nseqs, int Q,
+            int R, int clamp) {
   __shared__ int m8s[NSYM * NSYM];
   load_matrix(m8s, m8);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -79,24 +71,21 @@ tile_kernel(const int32_t* __restrict__ qcodes,
   const int r0 = tile * tile_rows;
   const int rows = max(0, min(min(qlens[q], qlen_pad) - r0, tile_rows));
   const int32_t* qc = qcodes + (long long)q * qlen_pad + r0;
-  // K5: a [NQ, T, NSEQS] scratch; K6: the tile's rows of the state
-  const long long srow =
-      CARRY ? (long long)q * qlen_pad + r0 : (long long)q * tile_rows;
+  // a [NQ, T, NSEQS] scratch
+  const long long srow = (long long)q * tile_rows;
   int32_t* H = hst + srow * n + lane;
   int32_t* E = est + srow * n + lane;
   int32_t* dump = out + (long long)q * nblocks * n + lane;
   int32_t* BH = bh + (long long)q * nblocks * KSEG * n + lane;
   int32_t* BF = bf + (long long)q * nblocks * KSEG * n + lane;
-  const int ntiles = qlen_pad / tile_rows;
 
-  int S = CARRY && tile == 0 ? s_in[q * n + lane] : 0;
+  int S = 0;
   // bottom-row H of the tile above at the previous block's last column
-  int bh_prev = CARRY ? bh0c[((long long)q * (ntiles + 1) + tile) * n + lane]
-                      : 0;
+  int bh_prev = 0;
   for (int b = 0; b < nblocks; ++b) {
     const bool reset = start[b * n + lane] != 0;
-    // K5: block 0 starts from the fresh state, like a set start bit
-    const bool fresh = (!CARRY && b == 0) || reset;
+    // block 0 starts from the fresh state, like a set start bit
+    const bool fresh = b == 0 || reset;
     if (reset) S = 0;
     const long long c0 = (long long)b * KSEG * n;
     const int8_t* col = db + c0 + lane;
@@ -146,37 +135,7 @@ tile_kernel(const int32_t* __restrict__ qcodes,
   }
 }
 
-#define TILE_PARAMS                                                        \
-  const int32_t *qcodes, const int32_t *qlens, const int8_t *m8,           \
-      const int8_t *db, const int8_t *start, int32_t *out, int32_t *bh,    \
-      int32_t *bf, int32_t *hst, int32_t *est,                             \
-      const int32_t *s_in, const int32_t *bh0c, int tile, int tile_rows,   \
-      int qlen_pad, int nblocks, int nseqs, int Q, int R, int clamp
-#define TILE_ARGS                                                          \
-  qcodes, qlens, m8, db, start, out, bh, bf, hst, est, s_in, bh0c,         \
-      tile, tile_rows, qlen_pad, nblocks, nseqs, Q, R, clamp
-
-template <bool CARRY>
-static void launch_clamp(dim3 grid, cudaStream_t s, bool use_clamp,
-                         TILE_PARAMS) {
-  if (use_clamp)
-    tile_kernel<true, CARRY><<<grid, TILE_THREADS, 0, s>>>(TILE_ARGS);
-  else
-    tile_kernel<false, CARRY><<<grid, TILE_THREADS, 0, s>>>(TILE_ARGS);
-}
-
-static int launch(int nq, int use_clamp, bool carry, void* stream,
-                  TILE_PARAMS) {
-  if (nq > 0 && nseqs > 0 && nblocks > 0 && tile_rows > 0) {
-    const dim3 grid((nseqs + TILE_THREADS - 1) / TILE_THREADS, nq);
-    const cudaStream_t s = (cudaStream_t)stream;
-    if (carry) launch_clamp<true>(grid, s, use_clamp, TILE_ARGS);
-    else launch_clamp<false>(grid, s, use_clamp, TILE_ARGS);
-  }
-  return (int)cudaGetLastError();
-}
-
-// K5: out/bh/bf updated in place; hst/est a [nq, tile_rows, nseqs] scratch
+// out/bh/bf updated in place; hst/est a [nq, tile_rows, nseqs] scratch
 extern "C" int swipe_stream_tile(const int32_t* qcodes, const int32_t* qlens,
                                  const int8_t* m8, const int8_t* db,
                                  const int8_t* start, int32_t* out,
@@ -185,19 +144,17 @@ extern "C" int swipe_stream_tile(const int32_t* qcodes, const int32_t* qlens,
                                  int tile_rows, int nq, int qlen_pad,
                                  int nblocks, int nseqs, int Q, int R,
                                  int use_clamp, int clamp, void* stream) {
-  const int32_t* s_in = nullptr;
-  const int32_t* bh0c = nullptr;
-  return launch(nq, use_clamp, false, stream, TILE_ARGS);
-}
-
-// K6: hst/est the series' [nq, qlen_pad, nseqs] state, updated in place;
-// s_in [nq, nseqs] and bh0c [nq, qlen_pad / tile_rows + 1, nseqs] read
-extern "C" int swipe_stream_tile_carry(
-    const int32_t* qcodes, const int32_t* qlens, const int8_t* m8,
-    const int8_t* db, const int8_t* start, int32_t* out, int32_t* bh,
-    int32_t* bf, int32_t* hst, int32_t* est, const int32_t* s_in,
-    const int32_t* bh0c, int tile, int tile_rows, int nq, int qlen_pad,
-    int nblocks, int nseqs, int Q, int R, int use_clamp, int clamp,
-    void* stream) {
-  return launch(nq, use_clamp, true, stream, TILE_ARGS);
+  if (nq > 0 && nseqs > 0 && nblocks > 0 && tile_rows > 0) {
+    const dim3 grid((nseqs + TILE_THREADS - 1) / TILE_THREADS, nq);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (use_clamp)
+      tile_kernel<true><<<grid, TILE_THREADS, 0, s>>>(
+          qcodes, qlens, m8, db, start, out, bh, bf, hst, est, tile,
+          tile_rows, qlen_pad, nblocks, nseqs, Q, R, clamp);
+    else
+      tile_kernel<false><<<grid, TILE_THREADS, 0, s>>>(
+          qcodes, qlens, m8, db, start, out, bh, bf, hst, est, tile,
+          tile_rows, qlen_pad, nblocks, nseqs, Q, R, clamp);
+  }
+  return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 """Stream Smith-Waterman on lane-packed chunks: the CUDA kernels and their
 plain PyTorch versions.
 
-Port of ``swipe_tpu/ops/sw_stream.py``.  Six kernels, hand-written CUDA
+Port of ``swipe_tpu/ops/sw_stream.py``.  Seven kernels, hand-written CUDA
 C++ for sm_90a under ``csrc/`` and bound through a plain C interface with
 ctypes:
 
@@ -9,15 +9,19 @@ ctypes:
   profiles of a chunk;
 * ``sw_scores_stream`` (``csrc/stream.cu``) — exact affine-gap scores of
   NQ queries against every lane of a chunk, dumped per block;
-* ``sw_scores_stream_carry`` (``csrc/stream.cu``, the carry instantiation)
-  — the same over one chunk of a flow or carry series, with each lane's
-  DP state carried in and out;
+* ``sw_scores_stream_carry`` — the same over one chunk of a flow or
+  carry series, with each lane's DP state carried in and out, in one of
+  two forms picked by the launch's shape (``carry_form``): the lane form
+  ``sw_scores_stream_carry_lanes`` (``csrc/stream.cu``, the carry
+  instantiation; the flow series) and the row form
+  ``sw_scores_stream_carry_rows`` (``csrc/carry_rows.cu``, a warp a
+  (query, lane); the giant carry series);
 * ``sw_hint_stream`` (``csrc/hint.cu``) — alignment-endpoint hints with
   search16s tie rules;
 * ``stream_tile_pass`` (``csrc/stream_tile.cu``) — one query-tile pass of
   ``sw_scores_stream_long``, the scores of queries over one tile;
-* ``stream_tile_carry_pass`` (``csrc/stream_tile.cu``, the carry
-  instantiation) — the same over one chunk of a carry series
+* ``stream_tile_carry_pass`` (``csrc/carry_rows.cu``, a warp a (query,
+  lane)) — the same over one chunk of a carry series
   (``sw_scores_stream_carry_long``).
 
 The carry and hint kernels also take an int32 matrix
@@ -25,7 +29,9 @@ The carry and hint kernels also take an int32 matrix
 
 Each wrapper takes its kernel for CUDA tensors and its plain version
 (``*_plain``, same module) for CPU tensors, and nothing else: a failed
-launch raises.  Each counts its kernel launches in ``.launches``.
+launch raises.  Each counts its kernel launches in ``.launches``
+(``sw_scores_stream_carry`` launches nothing itself: its two forms
+count apart).
 
 The recurrence, shared by all of them (Q = gapopen + gapextend,
 R = gapextend):
@@ -51,7 +57,8 @@ __all__ = ["KSEG", "build_matrix8", "build_matrix_wide", "build_qcodes",
            "build_dprofile_series", "build_dprofile_series_plain",
            "sw_scores_stream", "sw_scores_stream_plain", "gather_scores",
            "make_stream_state", "permute_stream_state",
-           "stream_state_from_jax", "sw_scores_stream_carry",
+           "stream_state_from_jax", "carry_form", "sw_scores_stream_carry",
+           "sw_scores_stream_carry_lanes", "sw_scores_stream_carry_rows",
            "sw_scores_stream_carry_plain", "sw_hint_stream",
            "sw_hint_stream_plain", "tile_planes_from_jax",
            "make_stream_state_long", "stream_state_long_from_jax",
@@ -143,7 +150,9 @@ _SIGNATURES = {
     "swipe_stream_carry": ("stream", [_P] * 10 + [_I] * 10 + [_P]),
     "swipe_hint": ("hint", [_P] * 3 + [_I] + [_P] * 7 + [_I] * 6 + [_P]),
     "swipe_stream_tile": ("stream_tile", [_P] * 10 + [_I] * 10 + [_P]),
-    "swipe_stream_tile_carry": ("stream_tile", [_P] * 12 + [_I] * 10 + [_P]),
+    "swipe_stream_tile_carry": ("carry_rows", [_P] * 12 + [_I] * 10 + [_P]),
+    "swipe_carry_rows": ("carry_rows", [_P] * 11 + [_I] * 10 + [_P]),
+    "swipe_carry_rows_strip": ("carry_rows", [_I]),
     "swipe_wavefront": ("wavefront", [_P] * 5 + [_I] * 5 + [_P]),
     "swipe_segment": ("segment", [_P, _I] + [_P] * 5 + [_I] * 7 + [_P]),
     "swipe_segment_tiled": ("segment", [_P] * 6 + [_I] * 7 + [_P]),
@@ -457,39 +466,26 @@ def sw_scores_stream_carry_plain(qcodes, qlens, matrix8, db, start, h, e, s,
     return out, h, e, s
 
 
-def sw_scores_stream_carry(qcodes: torch.Tensor, qlens: torch.Tensor,
-                           matrix8: torch.Tensor, db: torch.Tensor,
-                           start: torch.Tensor, h: torch.Tensor,
-                           e: torch.Tensor, s: torch.Tensor, *,
-                           gapopenextend: int, gapextend: int,
-                           clamp: int | None = None,
-                           dprof: torch.Tensor | None = None,
-                           carry_in: bool = True, carry_out: bool = True):
-    """sw_scores_stream over ONE chunk of a flow or carry series
-    (batching.pack_stream_flow / pack_stream_carry), with each lane's DP
-    state carried in and out, so a chunk boundary is invisible to the DP.
+# The lane form gives each (query, lane) pair one thread, 128 to a block;
+# below one warp an SM of an H100 (132 SMs x 32 pairs) its launches leave
+# SMs idle, and the row form gives each pair a warp instead.
+ROW_FORM_PAIRS = 132 * 32
 
-    matrix8 is int8 (build_matrix8) or, for scores outside int8, int32
-    (build_matrix_wide: the kernel's wide instantiation, no profiles).
 
-    h/e: [NQ, QLEN, NSEQS] int32 and s: [NQ, NSEQS] int32 — per query
-    row, H at the last column and E pre-advanced into the next one, and
-    the running max (make_stream_state for a fresh series;
-    permute_stream_state between the chunks of a flow series).  A lane
-    whose start bit is set at block 0 ignores the carried state.  Rows
-    at and past qlens[q] are no part of the state.
-    db/start may be narrower than the state (compact carry chunks): the
-    missing lanes are PAD-filled on the device.  ``dprof`` holds the
-    profiles at the state's width.
+def carry_form(nq: int, nseqs: int, profiles: bool) -> str:
+    """Which kernel scores a carry launch of NQ queries x NSEQS lanes on
+    the card: "rows" (csrc/carry_rows.cu: a warp a (query, lane) pair,
+    the query's rows spread over it) when the launch takes no block
+    profiles and has fewer than ROW_FORM_PAIRS pairs (the giant carry
+    series), else "lanes" (csrc/stream.cu: a thread a pair; the flow
+    series).  Both compute the same function."""
+    return "rows" if not profiles and nq * nseqs < ROW_FORM_PAIRS \
+        else "lanes"
 
-    With ``carry_out`` the state tensors are updated IN PLACE and
-    returned.  Without it they are returned unchanged and must not be
-    threaded on (a series' last chunk).  With ``carry_in=False`` every
-    lane starts fresh at block 0 and h/e/s are not read (a series' first
-    chunk).  Returns (dump [NQ, L // KSEG, NSEQS], h, e, s).
 
-    Scores and state are the JAX package's sw_scores_stream_carry
-    (``minter`` and ``ru`` are TPU-only and change no result)."""
+def _check_carry(qcodes, qlens, matrix8, db, start, h, e, s, clamp, dprof):
+    """Validate a carry call; returns (wide, db, start) with db/start
+    PAD-filled to the state's width."""
     dev = db.device
     for name, t, dtype, ndim in (("qcodes", qcodes, torch.int32, 2),
                                  ("qlens", qlens, torch.int32, 1),
@@ -518,26 +514,139 @@ def sw_scores_stream_carry(qcodes: torch.Tensor, qlens: torch.Tensor,
                          f"{tuple(db.shape)} start {tuple(start.shape)} "
                          f"h {tuple(h.shape)} s {tuple(s.shape)}")
     _check_dprof(dprof, nblocks, nseqs, dev)
+    return wide, db, start
+
+
+def _carry_state(h, e, s, carry_in: bool, carry_out: bool):
+    """The state a carry kernel updates in place: the state itself, or
+    for a series' last chunk a copy (without carry-in, a scratch)."""
+    if carry_out:
+        return h, e, s
+    if carry_in:
+        return h.clone(), e.clone(), s.clone()
+    return tuple(torch.empty_like(x) for x in (h, e, s))
+
+
+def _clampv(clamp):
+    return int(clamp is not None), int(clamp) if clamp is not None else 0
+
+
+def sw_scores_stream_carry(qcodes: torch.Tensor, qlens: torch.Tensor,
+                           matrix8: torch.Tensor, db: torch.Tensor,
+                           start: torch.Tensor, h: torch.Tensor,
+                           e: torch.Tensor, s: torch.Tensor, *,
+                           gapopenextend: int, gapextend: int,
+                           clamp: int | None = None,
+                           dprof: torch.Tensor | None = None,
+                           carry_in: bool = True, carry_out: bool = True):
+    """sw_scores_stream over ONE chunk of a flow or carry series
+    (batching.pack_stream_flow / pack_stream_carry), with each lane's DP
+    state carried in and out, so a chunk boundary is invisible to the DP.
+
+    matrix8 is int8 (build_matrix8) or, for scores outside int8, int32
+    (build_matrix_wide: the kernels' wide instantiations, no profiles).
+
+    h/e: [NQ, QLEN, NSEQS] int32 and s: [NQ, NSEQS] int32 — per query
+    row, H at the last column and E pre-advanced into the next one, and
+    the running max (make_stream_state for a fresh series;
+    permute_stream_state between the chunks of a flow series).  A lane
+    whose start bit is set at block 0 ignores the carried state.  Rows
+    at and past qlens[q] are no part of the state.
+    db/start may be narrower than the state (compact carry chunks): the
+    missing lanes are PAD-filled on the device.  ``dprof`` holds the
+    profiles at the state's width.
+
+    With ``carry_out`` the state tensors are updated IN PLACE and
+    returned.  Without it they are returned unchanged and must not be
+    threaded on (a series' last chunk).  With ``carry_in=False`` every
+    lane starts fresh at block 0 and h/e/s are not read (a series' first
+    chunk).  Returns (dump [NQ, L // KSEG, NSEQS], h, e, s).
+
+    The call takes one of two forms by its shape (carry_form):
+    sw_scores_stream_carry_rows or sw_scores_stream_carry_lanes, which
+    validate it and, on the CPU, both run the plain version.  Scores and
+    state are the JAX package's
+    sw_scores_stream_carry (``minter`` and ``ru`` are TPU-only and change
+    no result)."""
+    form = carry_form(qcodes.shape[0], h.shape[2], dprof is not None)
+    fn = sw_scores_stream_carry_rows if form == "rows" \
+        else sw_scores_stream_carry_lanes
+    return fn(qcodes, qlens, matrix8, db, start, h, e, s,
+              gapopenextend=gapopenextend, gapextend=gapextend, clamp=clamp,
+              dprof=dprof, carry_in=carry_in, carry_out=carry_out)
+
+
+def sw_scores_stream_carry_lanes(qcodes, qlens, matrix8, db, start, h, e, s,
+                                 *, gapopenextend: int, gapextend: int,
+                                 clamp: int | None = None, dprof=None,
+                                 carry_in: bool = True,
+                                 carry_out: bool = True):
+    """sw_scores_stream_carry on the lane form (csrc/stream.cu, the carry
+    instantiation): one thread a (query, lane), 128 lanes a block.  Same
+    contract."""
+    wide, db, start = _check_carry(qcodes, qlens, matrix8, db, start, h, e,
+                                   s, clamp, dprof)
     kw = dict(gapopenextend=gapopenextend, gapextend=gapextend, clamp=clamp,
               dprof=dprof, carry_in=carry_in, carry_out=carry_out)
+    dev = db.device
     if dev.type != "cuda":
         return sw_scores_stream_carry_plain(qcodes, qlens, matrix8, db,
                                             start, h, e, s, **kw)
-    out = torch.empty((nq, nblocks, nseqs), dtype=torch.int32, device=dev)
-    # the kernel updates its state in place: a series' last chunk gets a
-    # copy (or, without carry-in, a scratch)
-    if carry_out:
-        hst, est, sio = h, e, s
-    elif carry_in:
-        hst, est, sio = h.clone(), e.clone(), s.clone()
-    else:
-        hst, est, sio = (torch.empty_like(x) for x in (h, e, s))
-    clampv = (int(clamp is not None), int(clamp) if clamp is not None else 0)
+    nq, qlen_pad = qcodes.shape
+    L, nseqs = db.shape
+    out = torch.empty((nq, L // KSEG, nseqs), dtype=torch.int32, device=dev)
+    hst, est, sio = _carry_state(h, e, s, carry_in, carry_out)
     _launch("swipe_stream_carry", dev, _ptr(qcodes), _ptr(qlens),
             _ptr(matrix8), _ptr(db), _ptr(start), _ptr(dprof), _ptr(out),
             _ptr(hst), _ptr(est), _ptr(sio), int(carry_in), int(wide), nq,
-            qlen_pad, nblocks, nseqs, int(gapopenextend), int(gapextend),
-            *clampv)
+            qlen_pad, L // KSEG, nseqs, int(gapopenextend), int(gapextend),
+            *_clampv(clamp))
+    return out, h, e, s
+
+
+def _check_gaps(gapopenextend: int, gapextend: int) -> None:
+    """The row-form kernels take F from the cell before the max with F,
+    exact when the gap open penalty is at least 0."""
+    if gapopenextend < gapextend:
+        raise ValueError(f"gapopenextend {gapopenextend} < gapextend "
+                         f"{gapextend}: a negative gap open penalty")
+
+
+def sw_scores_stream_carry_rows(qcodes, qlens, matrix8, db, start, h, e, s,
+                                *, gapopenextend: int, gapextend: int,
+                                clamp: int | None = None, dprof=None,
+                                carry_in: bool = True,
+                                carry_out: bool = True):
+    """sw_scores_stream_carry on the row form (csrc/carry_rows.cu): one
+    warp a (query, lane), the query's rows spread over its threads in
+    bands walked in turn.  Same contract; takes no block profiles and
+    needs gapopenextend >= gapextend."""
+    wide, db, start = _check_carry(qcodes, qlens, matrix8, db, start, h, e,
+                                   s, clamp, dprof)
+    kw = dict(gapopenextend=gapopenextend, gapextend=gapextend, clamp=clamp,
+              dprof=dprof, carry_in=carry_in, carry_out=carry_out)
+    dev = db.device
+    if dev.type != "cuda":
+        return sw_scores_stream_carry_plain(qcodes, qlens, matrix8, db,
+                                            start, h, e, s, **kw)
+    if dprof is not None:
+        raise ValueError("the row form takes no block profiles")
+    _check_gaps(gapopenextend, gapextend)
+    nq, qlen_pad = qcodes.shape
+    L, nseqs = db.shape
+    out = torch.zeros((nq, L // KSEG, nseqs), dtype=torch.int32, device=dev)
+    hst, est, sio = _carry_state(h, e, s, carry_in, carry_out)
+    # the planes between a query's bands, when it has more than one
+    band = 32 * _kernel("swipe_carry_rows_strip")(int(wide))
+    bh = bf = None
+    if qlen_pad > band:
+        bh = torch.empty((nq, L, nseqs), dtype=torch.int32, device=dev)
+        bf = torch.empty_like(bh)
+    _launch("swipe_carry_rows", dev, _ptr(qcodes), _ptr(qlens),
+            _ptr(matrix8), _ptr(db), _ptr(start), _ptr(out), _ptr(hst),
+            _ptr(est), _ptr(sio), _ptr(bh), _ptr(bf), int(carry_in),
+            int(wide), nq, qlen_pad, L // KSEG, nseqs, int(gapopenextend),
+            int(gapextend), *_clampv(clamp))
     return out, h, e, s
 
 
@@ -802,7 +911,8 @@ def stream_tile_carry_pass(qcodes: torch.Tensor, qlens: torch.Tensor,
     A lane whose start bit is set at block 0 ignores the carried state.
     db/start have the state's width.  Returns (out, bho, bfo, h, e), all
     updated in place; the tile's bottom-row H at the chunk's last column
-    is bho[:, -1]."""
+    is bho[:, -1].  On the card (csrc/carry_rows.cu: a warp a (query,
+    lane)) it needs gapopenextend >= gapextend."""
     dev = _check_tile(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev,
                       tile_rows)
     for name, t, ndim in (("h", h, 3), ("e", e, 3), ("s", s, 2),
@@ -824,6 +934,7 @@ def stream_tile_carry_pass(qcodes: torch.Tensor, qlens: torch.Tensor,
         return stream_tile_carry_pass_plain(qcodes, qlens, tile, matrix8, db,
                                             start, bh, bf, sprev, h, e, s,
                                             bh0c, **kw)
+    _check_gaps(gapopenextend, gapextend)
     _launch("swipe_stream_tile_carry", dev, _ptr(qcodes), _ptr(qlens),
             _ptr(matrix8), _ptr(db), _ptr(start), _ptr(sprev),
             _ptr(bh), _ptr(bf), _ptr(h), _ptr(e), _ptr(s), _ptr(bh0c),
@@ -977,7 +1088,8 @@ def sw_hint_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
 # counts on the original; ops.sw_wavefront adds its own)
 _COUNTED = {"swipe_dprofile": build_dprofile_series,
             "swipe_stream": sw_scores_stream,
-            "swipe_stream_carry": sw_scores_stream_carry,
+            "swipe_stream_carry": sw_scores_stream_carry_lanes,
+            "swipe_carry_rows": sw_scores_stream_carry_rows,
             "swipe_hint": sw_hint_stream,
             "swipe_stream_tile": stream_tile_pass,
             "swipe_stream_tile_carry": stream_tile_carry_pass}

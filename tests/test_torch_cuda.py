@@ -137,23 +137,51 @@ def _carry_series(dev, flow):
     else:
         seqs = [rng.integers(1, 26, size=int(n), dtype=np.int8)
                 for n in [9000, 7000] + list(rng.integers(1, 900, 40))]
-        chunks = pack_stream_carry(seqs, nseqs=1024, max_cols=1024)
+        # 16 lanes: the short records refill lanes mid-chunk
+        chunks = pack_stream_carry(seqs, nseqs=16, max_cols=1024)
     qs = [rng.integers(1, 26, size=n, dtype=np.int8) for n in (7, 100, 250)]
     qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 256))
     return chunks, qc, ql
 
 
-@pytest.mark.parametrize("flow", [True, False])
-def test_carry_kernel_matches_plain(dev, chunk, flow):
+# queries that end inside a strip, at a strip edge (496), at a band edge
+# (512, 1024), take several bands (1,100), and an empty slot
+LONG_CARRY_QUERIES = (300, 496, 512, 0, 1024, 1100)
+
+
+@pytest.mark.parametrize("flow,form,queries,wide,clamp", [
+    (True, "lanes", "short", False, None),
+    (False, "rows", "short", False, None),
+    (False, "lanes", "short", False, None),
+    (False, "rows", "long", False, None),
+    (False, "rows", "long", False, 80),
+    (False, "rows", "long", True, None),
+    (False, "lanes", "long", True, None)])
+def test_carry_kernel_matches_plain(dev, chunk, flow, form, queries, wide,
+                                    clamp):
     # every chunk's dump and carried state, the head without carry-in,
-    # the tail without carry-out, with profiles on the flow series
+    # the tail without carry-out, with profiles on the flow series; the
+    # entry point picks the row form for the compact series' few pairs,
+    # and the lane form is also called directly there
     m8 = chunk[0]
+    scale = 100 if wide else 1
+    if wide:
+        m = ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix * scale
+        m8 = torch.from_numpy(sw.build_matrix_wide(m)).to(dev)
     chunks, qc, ql = _carry_series(dev, flow)
+    if queries == "long":
+        rng = np.random.default_rng(12)
+        qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
+            [rng.integers(1, 26, size=n, dtype=np.int8)
+             for n in LONG_CARRY_QUERIES], 1536))
     assert len(chunks) > 3
     width = chunks[0].nseqs if flow else 64
-    got = sw.make_stream_state(3, 256, width, dev)
+    nq, qlen_pad = qc.shape
+    got = sw.make_stream_state(nq, qlen_pad, width, dev)
     want = tuple(x.clone() for x in got)
-    n = sw.sw_scores_stream_carry.launches
+    kernel = getattr(sw, f"sw_scores_stream_carry_{form}")
+    fn = sw.sw_scores_stream_carry if flow or form == "rows" else kernel
+    n = kernel.launches
     for i, ch in enumerate(chunks):
         if flow and i:
             src = torch.from_numpy(ch.carry_src).to(dev)
@@ -161,17 +189,16 @@ def test_carry_kernel_matches_plain(dev, chunk, flow):
             want = sw.permute_stream_state(*want, src)
         data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
                                              ch.end_block, ch.lane, dev)
-        kw = dict(gapopenextend=12, gapextend=1, carry_in=i > 0,
-                  carry_out=i < len(chunks) - 1,
+        kw = dict(gapopenextend=12 * scale, gapextend=scale, clamp=clamp,
+                  carry_in=i > 0, carry_out=i < len(chunks) - 1,
                   dprof=sw.build_dprofile_series(m8, data) if flow else None)
-        d1, *got = sw.sw_scores_stream_carry(qc, ql, m8, data, start, *got,
-                                             **kw)
+        d1, *got = fn(qc, ql, m8, data, start, *got, **kw)
         d2, *want = sw.sw_scores_stream_carry_plain(qc, ql, m8, data, start,
                                                     *want, **kw)
         assert torch.equal(d1, d2)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-    assert sw.sw_scores_stream_carry.launches == n + len(chunks)
+    assert kernel.launches == n + len(chunks)
 
 
 def test_wavefront_kernel_matches_plain(dev, chunk):
@@ -241,8 +268,11 @@ def test_engine_routes_on_card_match_cpu(dev, route):
         kw["attrs"] = {"SEGMENT_GIANTS": False}
     if route == "carry":
         kw["attrs"] = {"SEGMENT_GIANTS": False, "WAVEFRONT_MAX_GIANTS": 0}
-    counted = (sw.sw_scores_stream_carry if route in ("flow", "carry") else
-               sw.sw_scores_stream)
+    # the flow series' launches take K3's lane form, the giants' carry
+    # series (few pairs) its row form
+    counted = {"flow": sw.sw_scores_stream_carry_lanes,
+               "carry": sw.sw_scores_stream_carry_rows}.get(
+                   route, sw.sw_scores_stream)
     n = counted.launches
     eng, on_card = _engine_hits(fasta, "aa", q, 1, params, dev, **kw)
     assert counted.launches > n
@@ -279,25 +309,31 @@ def test_tile_kernel_matches_plain(dev, chunk, clamp):
                                                    **kw2))
 
 
-@pytest.mark.parametrize("clamp", [None, 50])
-def test_tile_carry_kernel_matches_plain(dev, chunk, clamp):
-    # a compact carry series in 256-row tile passes: every chunk's dump
-    # and carried (h, e, s, bh0c), no carry-in at its head, no carry-out
-    # at its tail
+@pytest.mark.parametrize("tile_rows,clamp", [(256, None), (256, 50),
+                                             (512, None), (512, 50)])
+def test_tile_carry_kernel_matches_plain(dev, chunk, tile_rows, clamp):
+    # a compact carry series in tile passes: every chunk's dump and
+    # carried (h, e, s, bh0c), no carry-in at its head, no carry-out at
+    # its tail; queries that end inside a strip, at a strip edge (272,
+    # 496), at a tile or band edge (512), in the third tile, and an empty
+    # slot
     m8 = chunk[0]
     chunks, _, _ = _carry_series(dev, False)
     rng = np.random.default_rng(10)
-    qs = [rng.integers(1, 26, size=n, dtype=np.int8) for n in (300, 700, 0)]
-    qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 768))
-    got = sw.make_stream_state_long(3, 768, 64, 256, dev)
+    qlen_pad = 3 * tile_rows
+    qs = [rng.integers(1, 26, size=min(n, qlen_pad), dtype=np.int8)
+          for n in (300, 700, 0, 512, 272, 496, 1100)]
+    qc, ql = (torch.from_numpy(a).to(dev)
+              for a in sw.build_qcodes(qs, qlen_pad))
+    got = sw.make_stream_state_long(len(qs), qlen_pad, 64, tile_rows, dev)
     want = tuple(x.clone() for x in got)
     n = sw.stream_tile_carry_pass.launches
     saved = sw.stream_tile_carry_pass
     for i, ch in enumerate(chunks):
         data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
                                              ch.end_block, ch.lane, dev)
-        kw = dict(gapopenextend=12, gapextend=1, tile_rows=256, clamp=clamp,
-                  carry_in=i > 0, carry_out=i < len(chunks) - 1)
+        kw = dict(gapopenextend=12, gapextend=1, tile_rows=tile_rows,
+                  clamp=clamp, carry_in=i > 0, carry_out=i < len(chunks) - 1)
         d1, *got = sw.sw_scores_stream_carry_long(qc, ql, m8, data, start,
                                                   *got, **kw)
         sw.stream_tile_carry_pass = sw.stream_tile_carry_pass_plain

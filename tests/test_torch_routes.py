@@ -38,13 +38,14 @@ def test_flow_route_matches_jax():
     parts[17] = ("s17 long", q[5:50] + "".join(rng.choice(list(AA), 900)))
     params = dict(gapopen=11, gapextend=1, descriptions=150, alignments=3,
                   expect=1e9)
-    n = tsw.sw_scores_stream_carry.launches
+    forms = (tsw.sw_scores_stream_carry_lanes, tsw.sw_scores_stream_carry_rows)
+    n = [f.launches for f in forms]
     (jeng, teng), hits = run_both(_fasta(parts), "aa", [q], 1, 3, params,
                                   nseqs=1024,
                                   attrs={"FLOW_MIN_AVG_LANE": 0})
     assert teng._flow_cols(1024) is not None and teng.chunks is not None
     assert len(teng._flow_chunks(1024)) > 3
-    assert tsw.sw_scores_stream_carry.launches == n   # the plain version
+    assert [f.launches for f in forms] == n   # the plain version
     got = {h[0]: h[1] for h in hits[0][0]}
     assert {5, 17} <= set(got)
 
