@@ -435,6 +435,56 @@ def check_peak(dev, rng, report):
                      peak.peak_chain_plain(x, 4 * peak.PEAK_STEPS), report)
 
 
+def plant_cuts(chunks, queries, plants, span=24):
+    """Copy into queries the symbols of carried lanes around chunk cuts,
+    so that the best alignment of each planted (query, lane) runs
+    diagonally from row x - 1 at a cut's last column into row x at the
+    next chunk's first column.  With x a band's first row plus its strip
+    height, that cell is the one whose diagonal a row-form kernel takes
+    from the carried H of another thread.  plants: (query index, x)
+    pairs, each given its own cut (a lane whose symbols no start bit or
+    PAD breaks within span columns of the cut).  Returns the planted
+    queries and each plant's (chunk index, query index, x)."""
+    queries = [q.copy() for q in queries]
+    cuts = []
+    for c in range(1, len(chunks)):
+        prev, cur = chunks[c - 1], chunks[c]
+        for lane in range(min(prev.nseqs, cur.nseqs)):
+            a, b = prev.data_t[lane, -span:], cur.data_t[lane, :span]
+            tail = prev.start[-(span // sw.KSEG + 1):, lane]
+            if (a != PAD_SYMBOL).all() and (b != PAD_SYMBOL).all() \
+                    and not tail[1:].any() \
+                    and not cur.start[:span // sw.KSEG + 1, lane].any():
+                cuts.append((c, np.concatenate([a, b])))
+    if len(cuts) < len(plants):
+        raise RuntimeError("plant_cuts: too few carried lanes at cuts")
+    where = []
+    for (k, x), (c, sym) in zip(plants, cuts[::max(1, len(cuts)
+                                                   // len(plants))]):
+        a = min(span // 2, x)
+        if x - a < 0 or x + span - a > len(queries[k]):
+            raise RuntimeError(f"plant_cuts: row {x} outside query {k}")
+        queries[k][x - a:x + span - a] = sym[span - a:2 * span - a]
+        where.append((c, k, x))
+    return queries, where
+
+
+def cut_matters(plain, where, chunk, args, state, kw) -> bool:
+    """Whether a planted chunk's dump depends on the carried H of row
+    x - 1 at column -1, the diagonal into row x at column 0: plain (a
+    carry series' plain step) on copies of the state with and without
+    those rows zeroed."""
+    rows = [(k, x) for c, k, x in where if c == chunk]
+    if not rows:
+        return False
+    want = plain(*args, *(t.clone() for t in state), **kw)[0]
+    h = state[0].clone()
+    for k, x in rows:
+        h[k, x - 1] = 0
+    got = plain(*args, h, *(t.clone() for t in state[1:]), **kw)[0]
+    return not torch.equal(got, want)
+
+
 def check_carry(dev, m8, mw, qc, ql, rng, report):
     """K3's two forms.  The lane form over a 2048-lane flow series (cut
     chains continued on permuted lanes, a drain narrowed to 1024 lanes,
@@ -444,7 +494,9 @@ def check_carry(dev, m8, mw, qc, ql, rng, report):
     The row form through the entry point (carry_form picks it) over the
     compact series with queries that end inside a strip, at a strip edge,
     at a band edge, take several bands, and an empty slot (0-1,100 rows
-    at qlen_pad 1,536): int8, int8 with a clamp, int32.  No carry-in at
+    at qlen_pad 1,536): int8, int8 with a clamp, int32, with lanes
+    planted across chunk cuts into a band's second strip (plant_cuts; a
+    planted chunk's dump must depend on that diagonal).  No carry-in at
     a series' head, no carry-out at its tail; every chunk's dump and
     carried (h, e, s)."""
     lens = np.concatenate([rng.integers(5, 300, 6000), [3000, 2100],
@@ -458,18 +510,26 @@ def check_carry(dev, m8, mw, qc, ql, rng, report):
     if {c.nseqs for c in flow} != {1024, 2048} or len(carry) < 3 \
             or not any(c.start[1:].any() for c in carry):
         raise RuntimeError("check: the K3 series lack a drain or chunks")
-    lq, ll = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
-        [rng.integers(1, 26, size=n, dtype=np.int8)
-         for n in (300, 496, 512, 0, 1024, 1100)], 1536))
+    long_qs = [rng.integers(1, 26, size=n, dtype=np.int8)
+               for n in (300, 496, 512, 0, 1024, 1100)]
+    # the second strip of a band: of the int8 bands (512 rows, laid from
+    # the query's end: 1100 - 512 + 16) and of the int32 ones (256; the
+    # second band of 1024)
+    planted = {}
+    for wide, plants in ((False, [(5, 604), (4, 16)]),
+                         (True, [(5, 340), (4, 264)])):
+        qs, where = plant_cuts(carry, long_qs, plants)
+        planted[wide] = (tuple(torch.from_numpy(a).to(dev)
+                               for a in sw.build_qcodes(qs, 1536)), where)
     lanes, rows = sw.sw_scores_stream_carry_lanes, sw.sw_scores_stream_carry_rows
     entry = sw.sw_scores_stream_carry
-    for chunks, width, profiles, mat, scale, clamp, fn, form, q in (
-            (flow, 2048, True, m8, 1, None, entry, lanes, (qc, ql)),
-            (carry, 64, False, m8, 1, None, lanes, lanes, (qc, ql)),
-            (carry, 64, False, mw, 100, None, lanes, lanes, (qc, ql)),
-            (carry, 64, False, m8, 1, None, entry, rows, (lq, ll)),
-            (carry, 64, False, m8, 1, 80, entry, rows, (lq, ll)),
-            (carry, 64, False, mw, 100, None, entry, rows, (lq, ll))):
+    for chunks, width, profiles, mat, scale, clamp, fn, form, q, where in (
+            (flow, 2048, True, m8, 1, None, entry, lanes, (qc, ql), ()),
+            (carry, 64, False, m8, 1, None, lanes, lanes, (qc, ql), ()),
+            (carry, 64, False, mw, 100, None, lanes, lanes, (qc, ql), ()),
+            (carry, 64, False, m8, 1, None, entry, rows, *planted[False]),
+            (carry, 64, False, m8, 1, 80, entry, rows, *planted[False]),
+            (carry, 64, False, mw, 100, None, entry, rows, *planted[True])):
         got = sw.make_stream_state(q[0].shape[0], q[0].shape[1], width, dev)
         want = tuple(x.clone() for x in got)
         for i, ch in enumerate(chunks):
@@ -483,6 +543,11 @@ def check_carry(dev, m8, mw, qc, ql, rng, report):
                       carry_in=i > 0, carry_out=i < len(chunks) - 1,
                       dprof=sw.build_dprofile_series(m8, data)
                       if profiles else None)
+            if clamp is None and any(c == i for c, _, _ in where) and \
+                    not cut_matters(sw.sw_scores_stream_carry_plain, where,
+                                    i, (*q, mat, data, start), want, kw):
+                raise RuntimeError(f"check: chunk {i}'s planted cuts "
+                                   "do not reach its dump")
             n = form.launches
             d1, *got = fn(*q, mat, data, start, *got, **kw)
             if form.launches != n + 1:
@@ -543,7 +608,9 @@ def check_tiles(dev, m8, rng, report):
     cut across 1024-column chunks, no carry-in at its head, no carry-out
     at its tail, without and with a clamp, queries that end inside a
     strip, at a strip edge (528), at a tile edge (1,024), in the third
-    tile, and an empty slot: every chunk's dump and carried (h, e, s,
+    tile, and an empty slot, lanes planted across chunk cuts into a
+    tile's second strip (plant_cuts; a planted chunk's dump must depend
+    on that diagonal): every chunk's dump and carried (h, e, s,
     bh0c)."""
     seqs = [rng.integers(1, 26, size=int(L), dtype=np.int8)
             for L in rng.integers(1, 300, size=1024 * 64 * 16 // 140)]
@@ -568,9 +635,18 @@ def check_tiles(dev, m8, rng, report):
     if len(carry) < 3 or not any(c.start[1:].any() for c in carry):
         raise RuntimeError("check: the K6 series has fewer than 3 chunks "
                            "or no refill")
-    qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
-        [rng.integers(1, 26, size=n, dtype=np.int8)
-         for n in (600, 1100, 0, 1024, 528, 300)], 1536))
+    # a tile's second strip (row 16 of a 512-row tile), the partial
+    # tile of the 600-row query among them
+    qs, where = plant_cuts(carry, [
+        rng.integers(1, 26, size=n, dtype=np.int8)
+        for n in (600, 1100, 0, 1024, 528, 300)],
+        [(1, 528), (3, 16), (0, 528)])
+    qc, ql = (torch.from_numpy(a).to(dev)
+              for a in sw.build_qcodes(qs, 1536))
+
+    def plain(*a, **k):
+        return plain_tiles(sw.sw_scores_stream_carry_long, *a, **k)
+
     for clamp in (None, 80):
         got = sw.make_stream_state_long(6, 1536, 64, 512, dev)
         want = tuple(x.clone() for x in got)
@@ -580,10 +656,14 @@ def check_tiles(dev, m8, rng, report):
             kw = dict(gapopenextend=12, gapextend=1, tile_rows=512,
                       clamp=clamp, carry_in=i > 0,
                       carry_out=i < len(carry) - 1)
+            if clamp is None and any(c == i for c, _, _ in where) and \
+                    not cut_matters(plain, where, i,
+                                    (qc, ql, m8, data, start), want, kw):
+                raise RuntimeError(f"check: K6 chunk {i}'s planted cuts "
+                                   "do not reach its dump")
             d1, *got = sw.sw_scores_stream_carry_long(qc, ql, m8, data,
                                                       start, *got, **kw)
-            d2, *want = plain_tiles(sw.sw_scores_stream_carry_long, qc, ql,
-                                    m8, data, start, *want, **kw)
+            d2, *want = plain(qc, ql, m8, data, start, *want, **kw)
             _compare("stream_tile_carry_pass", (d1, *got), (d2, *want),
                      report)
 
@@ -737,7 +817,7 @@ def segment_search(label, dev, db, queries, want, backend, kernel, card,
         ("sw_scores_stream_carry_rows",) if engine._giant_ids.size else ())
     hitlists, timings, wall, launches, split = run_search(
         label, engine, queries, expect, calls)
-    # the giants' carry series is a few-pair launch: K3's row form
+    # the giants' carry series takes no profiles: K3's row form
     others = {"build_dprofile_series", "sw_scores_stream", "sw_wavefront",
               "stream_tile_pass", "stream_tile_carry_pass",
               "sw_scores_stream_carry_lanes", "sw_scores_tiled",

@@ -4,11 +4,12 @@
 // Replaces the TPU kernels swipe_tpu/ops/sw_stream.py
 // _stream_tile_carry_pass (:1419, _stream_tile_carry_kernel, driven by
 // sw_scores_stream_carry_long) and sw_scores_stream_carry (:733) in its
-// few-lane use: the giant carry series (pack_stream_carry), whose state is
-// the chromosomes' compact lane count rounded to a warp, so a launch holds
-// a few hundred (query, lane) pairs at most, most of them PAD.  The flow
-// series' many-lane launches keep the lane form (stream.cu); which form a
-// launch takes is ops/sw_stream.py carry_form.
+// launches without block profiles: the giant carry series
+// (pack_stream_carry), whose state is the chromosomes' compact lane count
+// rounded to a warp, so a launch holds a few hundred (query, lane) pairs,
+// most of them PAD.  The flow series' launches, which read block
+// profiles, keep the lane form (stream.cu); ops/sw_stream.py carry_form
+// picks the form.
 //
 // Why a warp per pair.  One thread per pair (stream.cu, the old K6) walks
 // a chromosome lane's whole chain: two to sixteen real pairs left 130 of
@@ -57,30 +58,25 @@
 // left as 0 and restarts S; what arrives from above is not reset (the
 // thread above applied the reset at the same column).
 //
-// Bound: the DP's critical path.  A launch holds few pairs, so neither
-// the bytes nor the ALU rate bind; each band takes L + 31 steps of RS
-// cells, and the card runs one to four warps an SM.
+// Bound: the DP's critical path.  A giant launch holds few pairs, so
+// neither the bytes nor the ALU rate bind; each band takes L + 31 steps
+// of RS cells, and the card runs one to four warps an SM.
 #include "sw_common.cuh"
 
 using namespace swipe;
 
 namespace {
 
-#ifndef CARRY_ROWS_R8
-#define CARRY_ROWS_R8 16      // rows a thread, int8 matrix (K6, K3)
-#endif
-#ifndef CARRY_ROWS_R32
-#define CARRY_ROWS_R32 8      // rows a thread, int32 matrix (wide K3)
-#endif
-
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WIN = 32;            // columns staged at a time
 constexpr int RING = 2 * WIN;      // staged columns
 constexpr int RESET = 32;          // ring code bit: a start bit at this column
 
+// rows a thread, by matrix element type (chosen by timing 8, 16 and 32;
+// ops/sw_stream.py ROW_BANDS mirrors the band heights, 32 * RS)
 template <typename M> struct Rows;
-template <> struct Rows<int8_t> { static constexpr int RS = CARRY_ROWS_R8; };
-template <> struct Rows<int32_t> { static constexpr int RS = CARRY_ROWS_R32; };
+template <> struct Rows<int8_t> { static constexpr int RS = 16; };
+template <> struct Rows<int32_t> { static constexpr int RS = 8; };
 
 // One band of a pair: rows [r0, r1) of the query, at most 32 * RS.
 template <typename M>
@@ -212,7 +208,11 @@ __device__ int walk_band(const Band<M>& b, M* prof, uint8_t* ring,
   fetch(0);
 
   int S = t == 0 ? s_in : 0;
-  int hin = 0, fin = NEG_INF;       // from the row above, this column
+  // H from the row above, this column; before the first column it is the
+  // carried H of the row above at column -1, thread 1's diagonal at
+  // column 0 (threads t >= 2 receive it by the shuffle at step t - 2;
+  // thread 0 takes its own from the staged planes)
+  int hin = __shfl_up_sync(FULL, H[RS - 1], 1), fin = NEG_INF;
   int hprev = diag0;                // from the row above, the column before
   int hout = H[RS - 1], fout = NEG_INF;
   const int steps = b.L + 31;
@@ -483,7 +483,7 @@ extern "C" int swipe_carry_rows(
     int wide, int nq, int qlen_pad, int nblocks, int nseqs, int Q, int R,
     int use_clamp, int clamp, void* stream) {
   if (Q < R || (wide && use_clamp)) return (int)cudaErrorInvalidValue;
-  const int band = 32 * (wide ? CARRY_ROWS_R32 : CARRY_ROWS_R8);
+  const int band = 32 * (wide ? Rows<int32_t>::RS : Rows<int8_t>::RS);
   if (qlen_pad > band && bh == nullptr) return (int)cudaErrorInvalidValue;
   if (nq <= 0 || nseqs <= 0 || nblocks <= 0) return (int)cudaGetLastError();
   const dim3 grid(nseqs, nq);
@@ -499,9 +499,4 @@ extern "C" int swipe_carry_rows(
   return launch_rows<int8_t, false>(
       grid, st, qcodes, qlens, (const int8_t*)m, db, start, out, hst, est,
       s_io, bh, bf, carry_in, qlen_pad, nblocks, nseqs, Q, R, clamp);
-}
-
-// rows a thread of each instantiation: the band is 32 x this
-extern "C" int swipe_carry_rows_strip(int wide) {
-  return wide ? CARRY_ROWS_R32 : CARRY_ROWS_R8;
 }

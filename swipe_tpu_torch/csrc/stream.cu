@@ -25,10 +25,11 @@
 // symbol and the column's db symbol.
 //
 // The carry form (K3's lane form) is the same kernel over one chunk of a
-// flow series.  Launches with few (query, lane) pairs -- the giant carry
-// series, a chromosome lane each -- take K3's row form in carry_rows.cu
-// instead (ops/sw_stream.py carry_form).  The scratch IS the carried state, updated in place (for
-// a series' last chunk the caller passes a copy).  With CARRY the first
+// flow series, with block profiles.  Launches without them -- the giant
+// carry series, a chromosome lane each -- take K3's row form in
+// carry_rows.cu instead (ops/sw_stream.py carry_form).  The scratch IS
+// the carried state, updated in place (for a series' last chunk the
+// caller passes a copy).  With CARRY the first
 // block reads the carried H/E from the scratch and S from s_io, and a
 // lane starts fresh there only where its start bit is set -- not at
 // block 0 as in K2.  K3 writes S back to s_io (WRITE_S).  Whether S is
@@ -48,8 +49,8 @@
 // negative PAD row and column) take a wide instantiation of K3, the
 // matrix element type a template parameter: matrix lookup only, no
 // profiles and no clamp.  The row state has no cap, so it takes any query
-// length; the segment route's giants, wide or not, are few-pair launches
-// and take the row form.
+// length; the segment route's giants, wide or not, take no profiles and
+// so the row form.
 //
 // Running exactly qlen rows is enough: the TPU kernel's round-up to 4
 // rows only added PAD rows, which decay and never raise S.  Rows at and

@@ -11,9 +11,9 @@ ctypes:
   NQ queries against every lane of a chunk, dumped per block;
 * ``sw_scores_stream_carry`` — the same over one chunk of a flow or
   carry series, with each lane's DP state carried in and out, in one of
-  two forms picked by the launch's shape (``carry_form``): the lane form
-  ``sw_scores_stream_carry_lanes`` (``csrc/stream.cu``, the carry
-  instantiation; the flow series) and the row form
+  two forms (``carry_form``: by whether the launch takes profiles): the
+  lane form ``sw_scores_stream_carry_lanes`` (``csrc/stream.cu``, the
+  carry instantiation; the flow series) and the row form
   ``sw_scores_stream_carry_rows`` (``csrc/carry_rows.cu``, a warp a
   (query, lane); the giant carry series);
 * ``sw_hint_stream`` (``csrc/hint.cu``) — alignment-endpoint hints with
@@ -152,7 +152,6 @@ _SIGNATURES = {
     "swipe_stream_tile": ("stream_tile", [_P] * 10 + [_I] * 10 + [_P]),
     "swipe_stream_tile_carry": ("carry_rows", [_P] * 12 + [_I] * 10 + [_P]),
     "swipe_carry_rows": ("carry_rows", [_P] * 11 + [_I] * 10 + [_P]),
-    "swipe_carry_rows_strip": ("carry_rows", [_I]),
     "swipe_wavefront": ("wavefront", [_P] * 5 + [_I] * 5 + [_P]),
     "swipe_segment": ("segment", [_P, _I] + [_P] * 5 + [_I] * 7 + [_P]),
     "swipe_segment_tiled": ("segment", [_P] * 6 + [_I] * 7 + [_P]),
@@ -466,21 +465,21 @@ def sw_scores_stream_carry_plain(qcodes, qlens, matrix8, db, start, h, e, s,
     return out, h, e, s
 
 
-# The lane form gives each (query, lane) pair one thread, 128 to a block;
-# below one warp an SM of an H100 (132 SMs x 32 pairs) its launches leave
-# SMs idle, and the row form gives each pair a warp instead.
-ROW_FORM_PAIRS = 132 * 32
+# the row form's band height (32 threads x rows a thread), by whether the
+# matrix is int32; csrc/carry_rows.cu Rows<M>::RS
+ROW_BANDS = {False: 32 * 16, True: 32 * 8}
 
 
-def carry_form(nq: int, nseqs: int, profiles: bool) -> str:
-    """Which kernel scores a carry launch of NQ queries x NSEQS lanes on
-    the card: "rows" (csrc/carry_rows.cu: a warp a (query, lane) pair,
-    the query's rows spread over it) when the launch takes no block
-    profiles and has fewer than ROW_FORM_PAIRS pairs (the giant carry
-    series), else "lanes" (csrc/stream.cu: a thread a pair; the flow
-    series).  Both compute the same function."""
-    return "rows" if not profiles and nq * nseqs < ROW_FORM_PAIRS \
-        else "lanes"
+def carry_form(profiles: bool) -> str:
+    """Which kernel scores a carry launch on the card: "lanes"
+    (csrc/stream.cu: a thread a (query, lane) pair, reading the block
+    profiles) when the launch takes profiles (the flow series), else
+    "rows" (csrc/carry_rows.cu: a warp a pair, the query's rows spread
+    over it; the giant carry series).  Both compute the same function.
+    Without profiles the row form was as fast or faster at every shape
+    timed from 16 x 32 to 16 x 2,048 pairs but one (16 x 1,024 pairs of
+    200 rows, 14% slower), so the launch's shape does not enter."""
+    return "lanes" if profiles else "rows"
 
 
 def _check_carry(qcodes, qlens, matrix8, db, start, h, e, s, clamp, dprof):
@@ -562,15 +561,13 @@ def sw_scores_stream_carry(qcodes: torch.Tensor, qlens: torch.Tensor,
     lane starts fresh at block 0 and h/e/s are not read (a series' first
     chunk).  Returns (dump [NQ, L // KSEG, NSEQS], h, e, s).
 
-    The call takes one of two forms by its shape (carry_form):
-    sw_scores_stream_carry_rows or sw_scores_stream_carry_lanes, which
+    The call takes one of two forms (carry_form): with profiles
+    sw_scores_stream_carry_lanes, else sw_scores_stream_carry_rows, which
     validate it and, on the CPU, both run the plain version.  Scores and
-    state are the JAX package's
-    sw_scores_stream_carry (``minter`` and ``ru`` are TPU-only and change
-    no result)."""
-    form = carry_form(qcodes.shape[0], h.shape[2], dprof is not None)
-    fn = sw_scores_stream_carry_rows if form == "rows" \
-        else sw_scores_stream_carry_lanes
+    state are the JAX package's sw_scores_stream_carry (``minter`` and
+    ``ru`` are TPU-only and change no result)."""
+    fn = sw_scores_stream_carry_rows if carry_form(dprof is not None) \
+        == "rows" else sw_scores_stream_carry_lanes
     return fn(qcodes, qlens, matrix8, db, start, h, e, s,
               gapopenextend=gapopenextend, gapextend=gapextend, clamp=clamp,
               dprof=dprof, carry_in=carry_in, carry_out=carry_out)
@@ -637,9 +634,8 @@ def sw_scores_stream_carry_rows(qcodes, qlens, matrix8, db, start, h, e, s,
     out = torch.zeros((nq, L // KSEG, nseqs), dtype=torch.int32, device=dev)
     hst, est, sio = _carry_state(h, e, s, carry_in, carry_out)
     # the planes between a query's bands, when it has more than one
-    band = 32 * _kernel("swipe_carry_rows_strip")(int(wide))
     bh = bf = None
-    if qlen_pad > band:
+    if qlen_pad > ROW_BANDS[wide]:
         bh = torch.empty((nq, L, nseqs), dtype=torch.int32, device=dev)
         bf = torch.empty_like(bh)
     _launch("swipe_carry_rows", dev, _ptr(qcodes), _ptr(qlens),

@@ -6,6 +6,9 @@ scores a carry series exactly as the whole query does; and the rule that
 picks K3's form from a launch's shape.  Integer DP: every comparison is
 exact."""
 
+import importlib.util
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -98,20 +101,84 @@ def test_bands_compose_to_the_whole_query(series, band):
                               d1[k:k + 1, :, :ch.nseqs].numpy())
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir,
+                                   "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# (query index, row x) planted across a cut: x is the first row of a
+# band's second strip, bands laid from the query's end (512 rows of 16 a
+# strip, 256 of 8)
+CUT_PLANTS = {512: [(4, 604), (3, 16)], 256: [(4, 340), (3, 264)]}
+
+
+@pytest.mark.parametrize("band", [256, 512])
+def test_planted_cut_needs_the_carried_diagonal(series, band):
+    # chip_smoke.plant_cuts copies lane symbols around chunk cuts into the
+    # queries, so that a planted chunk's dump depends on the carried H of
+    # row x - 1 (the diagonal into row x at the chunk's first column, which
+    # a row-form kernel hands from one thread to the next before its first
+    # shuffle); the whole query and the band composition still agree
+    chunks, _, _, m8 = series
+    cs = _chip_smoke()
+    rng = np.random.default_rng(62)
+    qs, where = cs.plant_cuts(chunks, [
+        rng.integers(1, 26, size=n, dtype=np.int8) for n in QUERY_LENS],
+        CUT_PLANTS[band])
+    assert len(where) == 2 and all(c > 0 for c, _, _ in where)
+    for k, x in CUT_PLANTS[band]:
+        assert (QUERY_LENS[k] - x) % band == band - band // 32
+    qc, ql = (torch.from_numpy(a) for a in tsw.build_qcodes(qs, QLEN_PAD))
+    width = -(-chunks[0].nseqs // 32) * 32
+    state = tsw.make_stream_state(len(qs), QLEN_PAD, width)
+    bands = tsw.make_stream_state_long(len(qs), QLEN_PAD, width, band)
+    matters = set()
+    for i, ch in enumerate(chunks):
+        data, start, _, _ = tsw.chunk_tensors(ch.data_t, ch.start,
+                                              ch.end_block, ch.lane, "cpu")
+        kw = dict(gapopenextend=12, gapextend=1, carry_in=i > 0,
+                  carry_out=i < len(chunks) - 1)
+        args = (qc, ql, m8, data, start)
+        if cs.cut_matters(tsw.sw_scores_stream_carry_plain, where, i, args,
+                          state, kw):
+            matters.add(i)
+        d1, *state = tsw.sw_scores_stream_carry_plain(*args, *state, **kw)
+        d2, *bands = tsw.sw_scores_stream_carry_long(*args, *bands,
+                                                     tile_rows=band, **kw)
+        assert torch.equal(d1, d2), f"chunk {i}: dumps differ"
+    assert matters == {c for c, _, _ in where}
+
+
 @pytest.mark.parametrize("nq,nseqs,profiles,form", [
     (16, 32, False, "rows"),        # wide-genome: the chromosome lane
     (16, 32, False, "rows"),        # the tblastn carry series
     (16, 32, False, "rows"),        # segment-proteome's titin
     (4, 64, False, "rows"),         # chip_smoke's compact check series
-    (132, 31, False, "rows"),       # just under a warp an SM
-    (132, 32, False, "lanes"),      # a warp an SM
+    (132, 32, False, "rows"),       # a warp an SM
+    (16, 1024, False, "rows"),      # many giants
+    (16, 2048, False, "rows"),
     (16, 2048, True, "lanes"),      # the flow chunk
-    (16, 1024, False, "lanes"),     # a flow drain
-    (16, 1024, True, "lanes"),
+    (16, 1024, True, "lanes"),      # a flow drain
     (1, 32, True, "lanes"),         # any launch with profiles
 ])
-def test_carry_form(nq, nseqs, profiles, form):
-    assert tsw.carry_form(nq, nseqs, profiles) == form
+def test_carry_form(monkeypatch, nq, nseqs, profiles, form):
+    # the rule, and sw_scores_stream_carry's dispatch by it whatever the
+    # launch's shape
+    assert tsw.carry_form(profiles) == form
+    took = []
+    for name in ("rows", "lanes"):
+        monkeypatch.setattr(tsw, f"sw_scores_stream_carry_{name}",
+                            lambda *a, name=name, **k: took.append(name))
+    h = torch.zeros((nq, 16, nseqs), dtype=torch.int32)
+    tsw.sw_scores_stream_carry(
+        torch.zeros((nq, 16), dtype=torch.int32), None, None, None, None,
+        h, h, h[:, 0], gapopenextend=12, gapextend=1,
+        dprof=torch.zeros(1) if profiles else None)
+    assert took == [form]
 
 
 def test_cpu_takes_the_plain_version_of_both_forms(series):

@@ -6,7 +6,10 @@ import neither jax nor swipe_tpu, so they run where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import importlib.util
 import io
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -307,6 +310,79 @@ def test_tile_kernel_matches_plain(dev, chunk, clamp):
     kw2 = {k: v for k, v in kw.items() if k != "tile_rows"}
     assert torch.equal(got[2], sw.sw_scores_stream(qc, ql, m8, data, start,
                                                    **kw2))
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its plant_cuts, cut_matters and
+    plain_tiles)."""
+    if "chip_smoke" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir,
+                                       "chip_smoke.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules["chip_smoke"] = mod
+    return sys.modules["chip_smoke"]
+
+
+# (query index in LONG_CARRY_QUERIES, row x): x is a band's first row plus
+# its strip height.  K3's row form lays its bands from the query's end
+# (512 rows int8, 256 int32), K6 from each tile's top.
+CUT_PLANTS = {("rows", False): [(5, 604), (4, 16)],
+              ("rows", True): [(5, 340), (4, 264)],
+              (512, False): [(5, 528), (4, 16), (2, 16)],
+              (256, False): [(5, 272), (4, 528), (1, 272)]}
+
+
+@pytest.mark.parametrize("kernel,wide", list(CUT_PLANTS))
+def test_carry_cut_into_a_band_matches_plain(dev, chunk, kernel, wide):
+    # lanes planted across chunk cuts, so that a best alignment runs from
+    # the last row of a band's first strip at one chunk's last column
+    # into the first row of its second strip at the next chunk's first
+    # column: the diagonal that thread 1 takes from thread 0's carried H
+    # before the first shuffle.  The planted chunks' dumps depend on it
+    # (checked on the plain version); every chunk's dump and state.
+    cs = _chip_smoke()
+    m8 = chunk[0]
+    scale = 100 if wide else 1
+    if wide:
+        m = ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix * scale
+        m8 = torch.from_numpy(sw.build_matrix_wide(m)).to(dev)
+    chunks, _, _ = _carry_series(dev, False)
+    rng = np.random.default_rng(14)
+    qs, where = cs.plant_cuts(chunks, [
+        rng.integers(1, 26, size=n, dtype=np.int8)
+        for n in LONG_CARRY_QUERIES], CUT_PLANTS[kernel, wide])
+    qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 1536))
+    if kernel == "rows":
+        fn, plain = sw.sw_scores_stream_carry, sw.sw_scores_stream_carry_plain
+        counted, tiles = sw.sw_scores_stream_carry_rows, {}
+        got = sw.make_stream_state(len(qs), 1536, 64, dev)
+    else:
+        fn = sw.sw_scores_stream_carry_long
+        counted, tiles = sw.stream_tile_carry_pass, dict(tile_rows=kernel)
+
+        def plain(*a, **k):
+            return cs.plain_tiles(sw.sw_scores_stream_carry_long, *a, **k)
+
+        got = sw.make_stream_state_long(len(qs), 1536, 64, kernel, dev)
+    want = tuple(x.clone() for x in got)
+    n, planted = counted.launches, 0
+    for i, ch in enumerate(chunks):
+        data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
+                                             ch.end_block, ch.lane, dev)
+        kw = dict(gapopenextend=12 * scale, gapextend=scale, carry_in=i > 0,
+                  carry_out=i < len(chunks) - 1, **tiles)
+        args = (qc, ql, m8, data, start)
+        if any(c == i for c, _, _ in where):
+            assert cs.cut_matters(plain, where, i, args, want, kw)
+            planted += 1
+        d1, *got = fn(*args, *got, **kw)
+        d2, *want = plain(*args, *want, **kw)
+        assert torch.equal(d1, d2), f"chunk {i}: dumps differ"
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), f"chunk {i}: state differs"
+    assert planted >= 1 and counted.launches > n
 
 
 @pytest.mark.parametrize("tile_rows,clamp", [(256, None), (256, 50),
