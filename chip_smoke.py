@@ -13,7 +13,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               of 32-512 rows (with and without profiles, with a clamp), the
               hint kernel on 1024-lane bins with forced ties and first
               tracked columns (also with BLOSUM62 scaled by 100: the wide
-              instantiation), the carry kernel's lane form over a
+              instantiation) and on tests/torch_row_cases.py's bins
+              (queries at strip and band edges, over one band and over
+              1,100 rows, ties across the edges; wide at 255-300 rows),
+              directly and through both routes that launch it against
+              the host pass, the carry kernel's lane form over a
               2048-lane flow series (lane permutes, a narrowing drain, no
               carry-in at its head, no carry-out at its tail) and a compact
               carry series (lanes refilled mid-chunk; also wide), its row
@@ -25,7 +29,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               across the segment cuts, the tile pass over four 512-row
               tiles of a 1024-lane, 64-block chunk (queries ending inside
               tile 1, inside tile 3, at a tile edge, and an empty slot;
-              without and with a clamp), the tile carry pass over a
+              and torch_row_cases' tile queries, one row into tile 3, at
+              and inside a strip of tile 2, with query windows planted
+              across those edges; without and with a clamp), the tile
+              carry pass over a
               compact carry series (the same kinds of query ends, with and
               without a clamp), the
               segmented kernel (int8 and int32 profiles) and the tiled one
@@ -150,6 +157,9 @@ from swipe_tpu_torch.pipeline import SearchEngine, SearchParams, SearchTimings
 from swipe_tpu_torch.report import Reporter
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# the row-form kernels' hard inputs, shared with the tests (numpy only)
+sys.path.insert(0, os.path.join(REPO, "tests"))
+import torch_row_cases as rc  # noqa: E402
 
 # UniProtKB/Swiss-Prot amino-acid composition (release statistics, %) and
 # a log-normal length model fitted to its median (292) and mean (361),
@@ -210,7 +220,7 @@ KERNELS = {   # wrapper -> (its module, source, TPU kernel it replaces)
                        "swipe_tpu/ops/sw_stream.py:990"),
     "sw_wavefront": (wf, "swipe_tpu_torch/csrc/wavefront.cu",
                      "swipe_tpu/ops/sw_wavefront.py:227"),
-    "stream_tile_pass": (sw, "swipe_tpu_torch/csrc/stream_tile.cu",
+    "stream_tile_pass": (sw, "swipe_tpu_torch/csrc/carry_rows.cu",
                          "swipe_tpu/ops/sw_stream.py:1263"),
     "stream_tile_carry_pass": (sw, "swipe_tpu_torch/csrc/carry_rows.cu",
                                "swipe_tpu/ops/sw_stream.py:1419"),
@@ -232,6 +242,10 @@ STATE_ARGS = {"sw_scores_stream_carry_lanes": (5, 6, 7),
               "sw_scores_stream_carry_rows": (5, 6, 7), "sw_wavefront": (2, 3, 4),
               "stream_tile_pass": (6, 7, 8),
               "stream_tile_carry_pass": (6, 7, 8, 9, 10)}
+# the kernels' times at their largest calls before their redesign (ms,
+# chip_smoke.py of PR 6 on an NVIDIA H100 80GB HBM3, 700.00 W), printed
+# in brackets beside this run's
+REDESIGNED_FROM_MS = {"stream_tile_pass": 247.789, "sw_hint_stream": 115.292}
 # the align phase's steps, timed on the host in every search: step ->
 # (owner, attribute); the hint kernel's seconds are part of the hint pass
 ALIGN_STEPS = {"finalize": (HitList, "finalize"),
@@ -389,12 +403,59 @@ def check_kernels(dev, report, nseqs=2048, nblocks=64, seed=1):
         hargs = [*args[:2], mat, *args[2:]]
         _compare("sw_hint_stream", sw.sw_hint_stream(*hargs, **kw),
                  sw.sw_hint_stream_plain(*hargs, **kw), report)
+    check_hint_bands(dev, m62, rng, report)
     check_carry(dev, m8, mw, qc, ql, rng, report)
     check_wavefront(dev, m8, rng, report)
     check_tiles(dev, m8, rng, report)
     check_segments(dev, m62, rng, report)
     check_peak(dev, rng, report)
     sync(dev)
+
+
+def _hint_tensor(results):
+    """Hint route results [[(S, bestq, bestpos)]] as one int64 tensor."""
+    return torch.tensor([x for r in results for x in r], dtype=torch.int64)
+
+
+def check_hint_bands(dev, m62, rng, report):
+    """K4 on torch_row_cases' hint bins, against its plain version:
+    queries one row either side of a strip edge and of a band edge,
+    inside a strip, over one band (the grid's 513-1024 rows) and over
+    1,100 rows (hint_endpoints_many's), ties across strip and band edges,
+    tails before a first tracked column, empty subjects and lanes; the
+    int8 matrix at gaps 11/1 and 150/2 and BLOSUM62 scaled by 100 at 255-
+    300 rows (the wide instantiation's 256-row bands).  Then both routes
+    that launch it, against the host pass: the grid on the bins up to
+    1,024 rows, and the per-bin route (hint_endpoints_many, its cell
+    threshold lifted) on those over 1,100 rows and the wide ones."""
+    mat = m62.matrix.astype(np.int64)
+    for lengths, go, ge, scale in rc.HINT_CASES.values():
+        bins, tails = rc.hint_bins(rng, lengths, nsub=60, maxlen=600)
+        starts = rc.hint_starts(rng, bins, tails, 64)
+        cols = -(-max(len(x) for _, ss in bins for x in ss) // 16) * 16
+        m = (sw.build_matrix_wide if scale > 1 else sw.build_matrix8)(
+            mat * scale)
+        hargs = [torch.from_numpy(a).to(dev) for a in (
+            *sw.build_qcodes([q for q, _ in bins], max(lengths)), m,
+            rc.hint_dense(bins, cols, 64), starts)]
+        kw = dict(gapopenextend=go + ge, gapextend=ge)
+        _compare("sw_hint_stream", sw.sw_hint_stream(*hargs, **kw),
+                 sw.sw_hint_stream_plain(*hargs, **kw), report)
+        host = [align_hint.hint_endpoints_many(q, ss, mat * scale, go, ge)
+                for q, ss in bins]
+        if max(lengths) <= 1024 and scale == 1:
+            got = align_hint.hint_endpoints_grid(bins, mat, go, ge,
+                                                 device=dev)
+        else:
+            cells, align_hint.DEVICE_CELLS = align_hint.DEVICE_CELLS, 0
+            try:
+                got = [align_hint.hint_endpoints_many(
+                    q, ss, mat * scale, go, ge, device=dev)
+                    for q, ss in bins]
+            finally:
+                align_hint.DEVICE_CELLS = cells
+        _compare("sw_hint_stream", _hint_tensor(got), _hint_tensor(host),
+                 report)
 
 
 def check_segments(dev, m62, rng, report):
@@ -603,8 +664,10 @@ def plain_tiles(fn, *a, **k):
 def check_tiles(dev, m8, rng, report):
     """K5 over the four 512-row passes of a 1024-lane, 64-block chunk:
     queries ending inside tile 1, inside tile 3 and at the edge of tile
-    1, and an empty slot; without and with a clamp: every pass's dump
-    and planes.  K6 over a compact carry series of two giants
+    1, and an empty slot; then torch_row_cases' tile queries (1,537,
+    1,040, 1,047, 511, 512 and 0 rows) on the chunk with query windows
+    planted across their edges; without and with a clamp: every pass's
+    dump and planes.  K6 over a compact carry series of two giants
     cut across 1024-column chunks, no carry-in at its head, no carry-out
     at its tail, without and with a clamp, queries that end inside a
     strip, at a strip edge (528), at a tile edge (1,024), in the third
@@ -620,15 +683,28 @@ def check_tiles(dev, m8, rng, report):
     qs = [rng.integers(1, 26, size=n, dtype=np.int8)
           for n in (700, 1800, 1024, 0)]
     qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 2048))
+    # and torch_row_cases' tile queries (one row into tile 3, one strip
+    # into tile 2 and inside its second strip, a row short of a tile, a
+    # whole tile, an empty slot) with query windows planted across those
+    # edges
+    edged = [rng.integers(1, 26, size=n, dtype=np.int8)
+             for n in rc.tile_lengths(512)]
+    host = data.cpu().numpy()
+    if len(rc.plant_windows(rng, host, start.cpu().numpy(), edged, (
+            16, 511, 512, 1024, 1040, 1047, 1536))) < 50:
+        raise RuntimeError("check: too few K5 edge windows planted")
+    edge_args = [torch.from_numpy(host).to(dev), *(
+        torch.from_numpy(a).to(dev) for a in sw.build_qcodes(edged, 2048))]
     for clamp in (None, 80):
         kw = dict(gapopenextend=12, gapextend=1, tile_rows=512, clamp=clamp)
-        got = sw._tile_planes(4, data.shape[0], 1024, dev)
-        want = tuple(x.clone() for x in got)
-        for t in range(4):
-            sw.stream_tile_pass(qc, ql, t, m8, data, start, *got, **kw)
-            sw.stream_tile_pass_plain(qc, ql, t, m8, data, start, *want,
-                                      **kw)
-            _compare("stream_tile_pass", got, want, report)
+        for d, qc_, ql_ in ((data, qc, ql), edge_args):
+            got = sw._tile_planes(qc_.shape[0], d.shape[0], 1024, dev)
+            want = tuple(x.clone() for x in got)
+            for t in range(4):
+                sw.stream_tile_pass(qc_, ql_, t, m8, d, start, *got, **kw)
+                sw.stream_tile_pass_plain(qc_, ql_, t, m8, d, start, *want,
+                                          **kw)
+                _compare("stream_tile_pass", got, want, report)
     giants = [rng.integers(1, 26, size=int(n), dtype=np.int8)
               for n in [5000, 4000] + list(rng.integers(1, 900, 40))]
     carry = pack_stream_carry(giants, nseqs=16, max_cols=1024)
@@ -1686,7 +1762,9 @@ def time_kernels(calls, plain_ms, report):
                           bound_by="bytes" if term == "bytes"
                           else "operations", bound_term=term)
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-        log(f"time: {name} at {shapes} ({label}): {ms:.3f} ms, plain "
+        was = f" [{REDESIGNED_FROM_MS[name]:.3f} ms in PR 6]" \
+            if name in REDESIGNED_FROM_MS else ""
+        log(f"time: {name} at {shapes} ({label}): {ms:.3f} ms{was}, plain "
             f"{rows[name]['plain_ms']:.1f} ms, bound "
             f"{rows[name]['bound_ms']:.4f} ms ({term}; bytes "
             f"{bytes_ms:.4f} ms, {alu} least ALU instructions "
@@ -1701,11 +1779,12 @@ def time_kernels(calls, plain_ms, report):
 
 
 def time_by_search(calls):
-    """The warp-a-pair kernels (K3's row form, K6) at each search's
-    largest call of them: ms a launch by search."""
+    """The warp-a-pair kernels (K3's row form, K4, K5, K6) at each
+    search's largest call of them: ms a launch by search."""
     out = {}
     for (label, name), (_, args, kw) in calls.items():
-        if name in ("sw_scores_stream_carry_rows", "stream_tile_carry_pass"):
+        if name in ("sw_scores_stream_carry_rows", "stream_tile_carry_pass",
+                    "stream_tile_pass", "sw_hint_stream"):
             fn = getattr(KERNELS[name][0], name)
             out[f"{label}/{name}"] = ms = _time(lambda: fn(*args, **kw), 3)
             log(f"time: {name} at {label}'s largest call: {ms:.3f} ms")

@@ -1,7 +1,9 @@
-// Carry-series scoring with a query's rows spread over a warp: the tile
-// carry pass (K6) and the row form of the carry kernel (K3).
+// Stream scoring with a query's rows spread over a warp: the tile pass
+// (K5), the tile carry pass (K6) and the row form of the carry kernel
+// (K3), all on the band walker of rows.cuh.
 //
-// Replaces the TPU kernels swipe_tpu/ops/sw_stream.py
+// Replaces the TPU kernels swipe_tpu/ops/sw_stream.py _stream_tile_pass
+// (:1263, _stream_tile_kernel, driven by sw_scores_stream_long),
 // _stream_tile_carry_pass (:1419, _stream_tile_carry_kernel, driven by
 // sw_scores_stream_carry_long) and sw_scores_stream_carry (:733) in its
 // launches without block profiles: the giant carry series
@@ -11,78 +13,56 @@
 // profiles, keep the lane form (stream.cu); ops/sw_stream.py carry_form
 // picks the form.
 //
-// Why a warp per pair.  One thread per pair (stream.cu, the old K6) walks
-// a chromosome lane's whole chain: two to sixteen real pairs left 130 of
-// the 132 SMs idle and every cell paid its dependent chain and a global
-// round trip of the row state.  Here one warp takes one (query, lane) and
-// sweeps the chunk as a systolic pipeline over the query's rows:
-//   * a band is 32 * RS consecutive query rows; thread t owns a strip of
-//     RS rows, their H and pre-advanced E in registers for the whole walk
-//     (read once at the chunk's first column, written once at its last);
-//   * at step s thread t computes column s - t: F runs down its strip,
-//     and it hands its bottom row's H and F to thread t + 1 with
-//     __shfl_up_sync; H that arrived one step earlier is the diagonal
-//     into its top row;
-//   * row -1 of a band comes from two planes [L] of the pair (the row
-//     above's H and its F advanced into the band), staged through shared
-//     memory with the db symbols; thread 31 writes the band's bottom row
-//     back to the planes.  Threads whose strip lies past the query's last
-//     row only relay, so the planes hold the last real row;
-//   * K6 walks the bands of one 512-row tile (the planes are the pass's
-//     bh/bf, updated in place); K3's row form walks every band of the
-//     query in turn, band k + 1 reading band k's planes from a scratch.
-//     The diagonal into band k + 1's top row at column 0 is the carried H
-//     of band k's last row, which band k overwrites: thread 31 keeps the
-//     value it read and hands it on.
-// The cell, with the DPX instructions:
-//   hn = __viaddmax_s32_relu(diag, p, E)    max(diag + p, E, 0)
-//   H  = max(hn, F);  S = max(S, H)
-//   E  = __viaddmax_s32(E, -R, H - Q)
-//   F  = __viaddmax_s32(F, -R, hn - Q)      F into the row below
-// F from hn and not from H is exact because Q >= R (a gap open penalty of
-// at least 0, which the wrappers check): the term F - Q is dominated by
-// F - R.  So the chain down a strip is one instruction a row, and the
-// cell's other work (E, S, the next H) is off it.
-// Scores come from a per-band query profile in shared memory laid out
-// [sym][row of the strip][thread]: a warp's 32 lookups (32 columns, any
-// db symbols) hit 32 consecutive elements, so no bank conflicts.  int8
-// entries for the int8 matrix (RS KB a band), int32 for the wide matrix.
-// db symbols, start bits and the planes are staged 32 columns at a time,
-// one window ahead of the pipeline, through a 64-column ring.
+// Why a warp per pair.  One thread per pair (the old K5 and K6) walks a
+// pair's whole chain: a giant launch's two to sixteen real pairs left 130
+// of the 132 SMs idle, a long-query slot group's 4,096 pairs made one
+// warp an SM, and every cell paid its dependent chain and a global round
+// trip of the row state.  Here one warp takes one (query, lane) and
+// sweeps the chunk over the query's rows (rows.cuh), H and E of its rows
+// in registers for the whole chunk:
+//   * K5 walks the bands of one 512-row tile of a plain-pack chunk: the
+//     rows start fresh at column 0 (as at a start bit), the planes [L] of
+//     the pair are the pass's bh/bf (the tile above's bottom row, updated
+//     in place), and no row state leaves the chunk.  A long-query slot
+//     group holds 4 queries x 1024 lanes, so a block holds TILE_WARPS
+//     warps of one query over neighbouring lanes: they share the band's
+//     profile, which leaves room for more warps an SM than one-warp
+//     blocks, and read neighbouring lanes' db bytes and planes, the same
+//     sectors, through one L1;
+//   * K6 walks the bands of one 512-row tile of a carry chunk, the tile's
+//     rows' H/E read at the chunk's first column and written at its last;
+//   * K3's row form walks every band of the query in turn, band k + 1
+//     reading band k's planes from a scratch.
+//   The diagonal into band k + 1's top row at column 0 is the carried H of
+//   band k's last row, which band k overwrites: thread 31 keeps the value
+//   it read and hands it on.
 // The dump out[q, b, lane] is the maximum of every thread's S at the end
 // of block b; threads reach it at different steps, so each thread whose
-// strip has rows stores it with atomicMax into the dump (K6's dump is
-// max-merged already; the row form's wrapper zeroes its dump).
+// strip has rows stores it with atomicMax into the dump (K5's and K6's
+// dumps are max-merged already; the row form's wrapper zeroes its dump).
 // Start bits (lane refill at KSEG): at a block whose start bit is set, a
 // thread zeroes its rows' H, sets E to -inf, takes the diagonal from the
 // left as 0 and restarts S; what arrives from above is not reset (the
 // thread above applied the reset at the same column).
 //
-// Bound: the DP's critical path.  A giant launch holds few pairs, so
-// neither the bytes nor the ALU rate bind; each band takes L + 31 steps
-// of RS cells, and the card runs one to four warps an SM.
-#include "sw_common.cuh"
+// Bound: K5 by its operations (4,096 pairs of 512 rows over 16,384
+// columns), K3's row form and K6 by the DP's critical path (a giant
+// launch holds few pairs).  Each band takes L + 31 steps of RS cells; the
+// card runs a few warps an SM, so a step's latency, not the ALU rate,
+// sets the time.
+#include "rows.cuh"
 
 using namespace swipe;
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int WIN = 32;            // columns staged at a time
-constexpr int RING = 2 * WIN;      // staged columns
-constexpr int RESET = 32;          // ring code bit: a start bit at this column
-
-// rows a thread, by matrix element type (chosen by timing 8, 16 and 32;
-// ops/sw_stream.py ROW_BANDS mirrors the band heights, 32 * RS)
-template <typename M> struct Rows;
-template <> struct Rows<int8_t> { static constexpr int RS = 16; };
-template <> struct Rows<int32_t> { static constexpr int RS = 8; };
+// warps of a K5 block (1, 2, 4 and 8 timed at the long routes' shapes,
+// scripts/row_kernels.py: 8 was fastest at all three)
+constexpr int TILE_WARPS = 8;
 
 // One band of a pair: rows [r0, r1) of the query, at most 32 * RS.
 template <typename M>
 struct Band {
-  const int32_t* qc;          // the query's codes
-  const M* m;                 // [32, 32] matrix
   int r0, r1;
   const int8_t* db;           // column 0 of the lane; column stride n
   const int8_t* start;        // block 0 of the lane; block stride n
@@ -99,93 +79,32 @@ struct Band {
   int Q, R, clamp;
 };
 
-// The strip's RS cells of one column, every row computed: rows outside
-// the query score as PAD (past its end; virtual rows above its start, see
-// carry_rows_kernel), so they never raise S above a real cell and their
-// state is neither read nor written.  In three passes over the strip:
-// every row's H without F (the rows independent), then F down the strip
-// (the only chain: one instruction a row), then H, E and S off it.
-// (hout, fout) come in as
-// the row above's and go out as the bottom real row's: row RS - 1, or
-// with PARTIAL row nr - 1 (none: a relay passes them on), picked from a
-// shared-memory copy of every row's (H, F) -- the same pick made with a
-// predicated select in the unrolled loop gave wrong results at RS = 16
-// on the card unless ptxas ran at -O0 (not understood).  Predicating each
-// row on being the query's instead of computing it was slower.
-template <typename M, bool CLAMP, bool PARTIAL>
-__device__ __forceinline__ void strip_cells(
-    const M* __restrict__ pr, int2* cap, int (&H)[Rows<M>::RS],
-    int (&E)[Rows<M>::RS], int nr, int d, int& hout, int& fout, int& S,
-    int Q, int R, int clamp) {
-  constexpr int RS = Rows<M>::RS;
-  int hn[RS], fv[RS + 1];
-#pragma unroll
-  for (int i = 0; i < RS; ++i) {
-    hn[i] = __viaddmax_s32_relu(i == 0 ? d : H[i - 1], (int)pr[i * 32],
-                                E[i]);
-    if (CLAMP) hn[i] = min(hn[i], clamp);
-  }
-  fv[0] = fout;
-#pragma unroll
-  for (int i = 0; i < RS; ++i)
-    fv[i + 1] = __viaddmax_s32(fv[i], -R, hn[i] - Q);
-#pragma unroll
-  for (int i = 0; i < RS; ++i) {
-    int h = max(hn[i], fv[i]);
-    if (CLAMP) h = min(h, clamp);
-    H[i] = h;
-    E[i] = __viaddmax_s32(E[i], -R, h - Q);
-    hn[i] = h;
-    if (PARTIAL) cap[i * 32] = make_int2(h, fv[i + 1]);
-  }
-#pragma unroll
-  for (int w = 1; w < RS; w *= 2)     // S: a tree over the strip
-#pragma unroll
-    for (int i = 0; i + w < RS; i += 2 * w) hn[i] = max(hn[i], hn[i + w]);
-  S = max(S, hn[0]);
-  if (!PARTIAL) {
-    hout = H[RS - 1];
-    fout = fv[RS];
-  } else if (nr > 0) {
-    const int2 v = cap[(nr - 1) * 32];
-    hout = v.x;
-    fout = v.y;
-  }
-}
-
-// Walk one band over the chunk (all 32 threads).  diag0: H of row r0 - 1
-// at column -1; s_in: the running max thread 0 starts from.  Returns the
-// thread's S at the last column; `below` gets thread 31's carried H of
-// row r1 - 1 as read (the next band's diag0).  PARTIAL: the band has
-// fewer than 32 * RS rows (the query's last band, or a short tile).
-template <typename M, bool CLAMP, bool PARTIAL>
-__device__ int walk_band(const Band<M>& b, M* prof, uint8_t* ring,
+// Walk one band over the chunk (all 32 threads of the warp), on the
+// band's profile.  diag0: H of row r0 - 1 at column -1; s_in: the running
+// max thread 0 starts from.  Returns the thread's S at the last column;
+// `below` gets thread 31's carried H of row r1 - 1 as read (the next
+// band's diag0).  PARTIAL: the band has fewer than 32 * RS rows (the
+// query's last band, or a short tile).  CARRY: the rows' H/E come from
+// and go back to the state (K3, K6); without, they start fresh (K5).
+// WARPS: the warps of the block.
+template <typename M, bool CLAMP, bool PARTIAL, bool CARRY, int WARPS>
+__device__ int walk_band(const Band<M>& b, const M* prof, uint8_t* ring,
                          int2* tring, int2* cap, int diag0, int s_in,
                          int& below) {
   constexpr int RS = Rows<M>::RS;
-  const int t = threadIdx.x;
+  const int t = strip_of_thread<WARPS>();
   const long long n = b.n;
   const int row0 = b.r0 + t * RS;
   // the strip's rows of the query: [lo, nr)
   const int lo = max(0, min(RS, -row0));
   const int nr = max(0, min(RS, b.r1 - row0));
 
-  // the band's profile: prof[(sym * RS + i) * 32 + t], the PAD row's
-  // scores outside the query
-  __syncwarp();
-  for (int i = 0; i < RS; ++i) {
-    const bool real = i >= lo && i < nr;
-    const M* mrow =
-        b.m + (real ? b.qc[row0 + i] & (NSYM - 1) : PAD_SYMBOL) * NSYM;
-    for (int sym = 0; sym < NSYM; ++sym)
-      prof[(sym * RS + i) * 32 + t] = mrow[sym];
-  }
   int H[RS], E[RS];
 #pragma unroll
   for (int i = 0; i < RS; ++i) {
     H[i] = 0;
     E[i] = NEG_INF;
-    if (!b.fresh0 && i >= lo && i < nr) {
+    if (CARRY && !b.fresh0 && i >= lo && i < nr) {
       H[i] = b.hst[(long long)(row0 + i) * n];
       E[i] = b.est[(long long)(row0 + i) * n];
     }
@@ -261,33 +180,17 @@ __device__ int walk_band(const Band<M>& b, M* prof, uint8_t* ring,
     hin = __shfl_up_sync(FULL, hout, 1);
     fin = __shfl_up_sync(FULL, fout, 1);
   }
+  if (CARRY) {
 #pragma unroll
-  for (int i = 0; i < RS; ++i) {
-    if (i >= lo && i < nr) {
-      b.hst[(long long)(row0 + i) * n] = H[i];
-      b.est[(long long)(row0 + i) * n] = E[i];
+    for (int i = 0; i < RS; ++i) {
+      if (i >= lo && i < nr) {
+        b.hst[(long long)(row0 + i) * n] = H[i];
+        b.est[(long long)(row0 + i) * n] = E[i];
+      }
     }
   }
   __syncwarp();      // the planes and state, for the next band
   return S;
-}
-
-// shared memory of a block: the staged planes (int2 [RING]), the rows'
-// (H, F) of a partial band (int2 [RS][32]), the staged symbols (uint8
-// [RING]) and the profile (M [NSYM][RS][32])
-template <typename M>
-constexpr size_t smem_bytes() {
-  return sizeof(int2) * (RING + Rows<M>::RS * 32) + RING +
-         sizeof(M) * NSYM * Rows<M>::RS * 32;
-}
-
-template <typename M>
-__device__ void carve(M*& prof, int2*& tring, int2*& cap, uint8_t*& ring) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  tring = reinterpret_cast<int2*>(smem);
-  cap = tring + RING;
-  ring = reinterpret_cast<uint8_t*>(cap + Rows<M>::RS * 32);
-  prof = reinterpret_cast<M*>(ring + RING);
 }
 
 // S of a pair without rows: the carried value, restarted at start bits;
@@ -299,6 +202,63 @@ __device__ int no_rows(const int8_t* start, int32_t* dump, long long n,
     dump[k * n] = max(dump[k * n], S);
   }
   return S;
+}
+
+// The bands of query rows [r0, r1) of one tile, top down (K5, K6); the
+// last one partial where the tile is.  diag0 and s as walk_band's for the
+// first band.  A warp that is not `live` (a lane past the chunk's, in a
+// K5 block) only joins the profile's barriers.
+template <bool CLAMP, bool CARRY, int WARPS>
+__device__ void walk_tile(Band<int8_t>& b, const int32_t* qc,
+                          const int8_t* m8, int r0, int r1, int diag0, int s,
+                          bool live) {
+  int8_t* prof;
+  int2 *tring, *cap;
+  uint8_t* ring;
+  carve(prof, tring, cap, ring);
+  constexpr int BAND = 32 * Rows<int8_t>::RS;
+  for (int r = r0; r < r1; r += BAND) {
+    b.r0 = r;
+    b.r1 = min(r + BAND, r1);
+    build_profile<WARPS>(qc, m8, b.r0, b.r1, prof);
+    if (!live) continue;
+    int below;
+    if (b.r1 - b.r0 == BAND)
+      walk_band<int8_t, CLAMP, false, CARRY, WARPS>(b, prof, ring, tring,
+                                                    cap, diag0, s, below);
+    else
+      walk_band<int8_t, CLAMP, true, CARRY, WARPS>(b, prof, ring, tring, cap,
+                                                   diag0, s, below);
+    diag0 = __shfl_sync(FULL, below, 31);
+    s = 0;
+  }
+}
+
+// K5: the bands of query rows [tile * tile_rows, + tile_rows), TILE_WARPS
+// lanes of one query a block.
+template <bool CLAMP>
+__global__ void __launch_bounds__(32 * TILE_WARPS)
+tile_kernel(const int32_t* __restrict__ qcodes,
+            const int32_t* __restrict__ qlens,
+            const int8_t* __restrict__ m8, const int8_t* __restrict__ db,
+            const int8_t* __restrict__ start, int32_t* out, int32_t* bh,
+            int32_t* bf, int tile, int tile_rows, int qlen_pad, int nblocks,
+            int nseqs, int Q, int R, int clamp) {
+  const int lane = blockIdx.x * TILE_WARPS + (threadIdx.x >> 5);
+  const int q = blockIdx.y;
+  const long long n = nseqs;
+  const int L = nblocks * KSEG;
+  const int r0 = tile * tile_rows;
+  const int r1 = min(min(qlens[q], qlen_pad), r0 + tile_rows);
+  // no rows (the whole block: one query): the planes pass through and
+  // the dump keeps its value
+  if (r1 <= r0) return;
+  const long long plane = (long long)q * L * n + lane;
+  Band<int8_t> b{0, 0, db + lane, start + lane, n, L, bh + plane,
+                 bf + plane, bh + plane, bf + plane, nullptr, nullptr,
+                 out + (long long)q * nblocks * n + lane, true, Q, R, clamp};
+  walk_tile<CLAMP, false, TILE_WARPS>(b, qcodes + (long long)q * qlen_pad,
+                                      m8, r0, r1, 0, 0, lane < nseqs);
 }
 
 // K6: the bands of query rows [tile * tile_rows, + tile_rows).
@@ -314,17 +274,13 @@ tile_carry_kernel(const int32_t* __restrict__ qcodes,
                   const int32_t* __restrict__ bh0c, int tile, int tile_rows,
                   int qlen_pad, int nblocks, int nseqs, int Q, int R,
                   int clamp) {
-  int8_t* prof;
-  int2 *tring, *cap;
-  uint8_t* ring;
-  carve(prof, tring, cap, ring);
   const int lane = blockIdx.x, q = blockIdx.y;
   const long long n = nseqs;
   const int L = nblocks * KSEG;
   const int r0 = tile * tile_rows;
   const int r1 = min(min(qlens[q], qlen_pad), r0 + tile_rows);
   int32_t* dump = out + (long long)q * nblocks * n + lane;
-  int s = tile == 0 ? s_in[q * n + lane] : 0;
+  const int s = tile == 0 ? s_in[q * n + lane] : 0;
   if (r1 <= r0) {          // no rows: the planes pass through
     if (tile == 0 && threadIdx.x == 0) no_rows(start + lane, dump, n,
                                                nblocks, s);
@@ -332,26 +288,13 @@ tile_carry_kernel(const int32_t* __restrict__ qcodes,
   }
   const long long plane = (long long)q * L * n + lane;
   const long long srow = (long long)q * qlen_pad * n + lane;
-  Band<int8_t> b{qcodes + (long long)q * qlen_pad, m8, 0, 0, db + lane,
-                 start + lane, n, L, bh + plane, bf + plane, bh + plane,
-                 bf + plane, hst + srow, est + srow, dump,
-                 start[lane] != 0, Q, R, clamp};
-  int diag0 = bh0c[((long long)q * (qlen_pad / tile_rows + 1) + tile) * n
-                   + lane];
-  constexpr int BAND = 32 * Rows<int8_t>::RS;
-  for (int r = r0; r < r1; r += BAND) {
-    b.r0 = r;
-    b.r1 = min(r + BAND, r1);
-    int below;
-    if (b.r1 - b.r0 == BAND)
-      walk_band<int8_t, CLAMP, false>(b, prof, ring, tring, cap, diag0, s,
-                                      below);
-    else
-      walk_band<int8_t, CLAMP, true>(b, prof, ring, tring, cap, diag0, s,
-                                     below);
-    diag0 = __shfl_sync(FULL, below, 31);
-    s = 0;
-  }
+  Band<int8_t> b{0, 0, db + lane, start + lane, n, L, bh + plane,
+                 bf + plane, bh + plane, bf + plane, hst + srow, est + srow,
+                 dump, start[lane] != 0, Q, R, clamp};
+  const int diag0 =
+      bh0c[((long long)q * (qlen_pad / tile_rows + 1) + tile) * n + lane];
+  walk_tile<CLAMP, true, 1>(b, qcodes + (long long)q * qlen_pad, m8, r0, r1,
+                            diag0, s, true);
 }
 
 // K3's row form: every band of the query, in turn.  The bands are laid
@@ -384,12 +327,12 @@ carry_rows_kernel(const int32_t* __restrict__ qcodes,
       s_io[q * n + lane] = no_rows(start + lane, dump, n, nblocks, s);
     return;
   }
+  const int32_t* qc = qcodes + (long long)q * qlen_pad;
   const long long plane = (long long)q * L * n + lane;
   const long long srow = (long long)q * qlen_pad * n + lane;
-  Band<M> b{qcodes + (long long)q * qlen_pad, m, 0, 0, db + lane,
-            start + lane, n, L, nullptr, nullptr, nullptr, nullptr,
-            hst + srow, est + srow, dump, !carry_in || start[lane] != 0,
-            Q, R, clamp};
+  Band<M> b{0, 0, db + lane, start + lane, n, L, nullptr, nullptr, nullptr,
+            nullptr, hst + srow, est + srow, dump,
+            !carry_in || start[lane] != 0, Q, R, clamp};
   constexpr int BAND = 32 * Rows<M>::RS;
   int diag0 = 0, sfin = 0;
   for (int r1 = qlen - (qlen - 1) / BAND * BAND; r1 <= qlen; r1 += BAND) {
@@ -398,9 +341,10 @@ carry_rows_kernel(const int32_t* __restrict__ qcodes,
     const bool last = r1 == qlen;
     b.bot_h = last ? nullptr : bh + plane;
     b.bot_f = last ? nullptr : bf + plane;
+    build_profile<1>(qc, m, b.r0, b.r1, prof);
     int below;
-    sfin = max(sfin, walk_band<M, CLAMP, false>(b, prof, ring, tring, cap,
-                                                diag0, s, below));
+    sfin = max(sfin, walk_band<M, CLAMP, false, true, 1>(
+                         b, prof, ring, tring, cap, diag0, s, below));
     diag0 = __shfl_sync(FULL, below, 31);
     s = 0;
     b.top_h = bh + plane;
@@ -410,15 +354,6 @@ carry_rows_kernel(const int32_t* __restrict__ qcodes,
   if (threadIdx.x == 0) s_io[q * n + lane] = sfin;
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return bytes > 48 * 1024
-             ? cudaFuncSetAttribute(kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)bytes)
-             : cudaSuccess;
-}
-
 template <typename M, bool CLAMP>
 int launch_rows(dim3 grid, cudaStream_t st, const int32_t* qcodes,
                 const int32_t* qlens, const M* m, const int8_t* db,
@@ -426,7 +361,7 @@ int launch_rows(dim3 grid, cudaStream_t st, const int32_t* qcodes,
                 int32_t* est, int32_t* s_io, int32_t* bh, int32_t* bf,
                 int carry_in, int qlen_pad, int nblocks, int nseqs, int Q,
                 int R, int clamp) {
-  const size_t smem = smem_bytes<M>();
+  const size_t smem = smem_bytes<M>(1);
   const cudaError_t err = allow_smem(carry_rows_kernel<M, CLAMP>, smem);
   if (err != cudaSuccess) return (int)err;
   carry_rows_kernel<M, CLAMP><<<grid, 32, smem, st>>>(
@@ -435,7 +370,45 @@ int launch_rows(dim3 grid, cudaStream_t st, const int32_t* qcodes,
   return (int)cudaGetLastError();
 }
 
+template <bool CLAMP>
+int launch_tile(dim3 grid, cudaStream_t st, const int32_t* qcodes,
+                const int32_t* qlens, const int8_t* m8, const int8_t* db,
+                const int8_t* start, int32_t* out, int32_t* bh, int32_t* bf,
+                int tile, int tile_rows, int qlen_pad, int nblocks,
+                int nseqs, int Q, int R, int clamp) {
+  const size_t smem = smem_bytes<int8_t>(TILE_WARPS);
+  const cudaError_t err = allow_smem(tile_kernel<CLAMP>, smem);
+  if (err != cudaSuccess) return (int)err;
+  tile_kernel<CLAMP><<<grid, 32 * TILE_WARPS, smem, st>>>(
+      qcodes, qlens, m8, db, start, out, bh, bf, tile, tile_rows, qlen_pad,
+      nblocks, nseqs, Q, R, clamp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// K5: out/bh/bf updated in place (bh/bf [nq, L, nseqs], out [nq, nblocks,
+// nseqs] max-merged).  Needs Q >= R.
+extern "C" int swipe_stream_tile(const int32_t* qcodes, const int32_t* qlens,
+                                 const int8_t* m8, const int8_t* db,
+                                 const int8_t* start, int32_t* out,
+                                 int32_t* bh, int32_t* bf, int tile,
+                                 int tile_rows, int nq, int qlen_pad,
+                                 int nblocks, int nseqs, int Q, int R,
+                                 int use_clamp, int clamp, void* stream) {
+  if (Q < R) return (int)cudaErrorInvalidValue;
+  if (nq <= 0 || nseqs <= 0 || nblocks <= 0 || tile_rows <= 0)
+    return (int)cudaGetLastError();
+  const dim3 grid((nseqs + TILE_WARPS - 1) / TILE_WARPS, nq);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (use_clamp)
+    return launch_tile<true>(grid, st, qcodes, qlens, m8, db, start, out, bh,
+                             bf, tile, tile_rows, qlen_pad, nblocks, nseqs,
+                             Q, R, clamp);
+  return launch_tile<false>(grid, st, qcodes, qlens, m8, db, start, out, bh,
+                            bf, tile, tile_rows, qlen_pad, nblocks, nseqs, Q,
+                            R, clamp);
+}
 
 // K6: out/bh/bf updated in place (bh/bf [nq, L, nseqs], out [nq, nblocks,
 // nseqs] max-merged); hst/est the series' [nq, qlen_pad, nseqs] state,
@@ -452,7 +425,7 @@ extern "C" int swipe_stream_tile_carry(
   if (nq > 0 && nseqs > 0 && nblocks > 0 && tile_rows > 0) {
     const dim3 grid(nseqs, nq);
     const cudaStream_t st = (cudaStream_t)stream;
-    const size_t smem = smem_bytes<int8_t>();
+    const size_t smem = smem_bytes<int8_t>(1);
     if (use_clamp) {
       const cudaError_t err = allow_smem(tile_carry_kernel<true>, smem);
       if (err != cudaSuccess) return (int)err;

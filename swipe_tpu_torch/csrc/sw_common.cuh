@@ -31,7 +31,7 @@ __device__ __forceinline__ void load_matrix(int* m8s, const M* m8) {
   __syncthreads();
 }
 
-// One DP cell of the recurrence shared by the stream and hint kernels
+// One DP cell of the recurrence shared by the stream and segment kernels
 // (the TPU kernels' _make_row_body_multi): H from the diagonal plus the
 // score, E from the left and F from above, both stored pre-advanced;
 // then E and F advance into the next cell, so H - Q is formed once.

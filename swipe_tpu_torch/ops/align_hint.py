@@ -61,8 +61,7 @@ WARP = 32
 # footprint cap of one launch: bins x columns x lanes int8
 _LAUNCH_BYTES = 64 << 20
 # caps of one per-bin launch (_hint_batch): its subjects (bins x columns x
-# lanes int8) and the kernel's H/E row scratch (query rows x lanes int32,
-# twice)
+# lanes int8) and the kernel's scratch (_scratch_bytes)
 _BIN_LAUNCH_BYTES = 512 << 20
 _SCRATCH_BYTES = 1 << 30
 
@@ -195,6 +194,19 @@ def _launch_bytes(bins) -> int:
     return len(bins) * cols * lanes
 
 
+def _scratch_bytes(bins, mat) -> int:
+    """The hint kernel's scratch for one launch over ``bins``: the rows
+    between a query's bands (H, F, column max and its row: 4 int32 a
+    column and lane), when a query has more than one band.  The grid's
+    launches (at most two bands, _LAUNCH_BYTES of subjects) stay under
+    _SCRATCH_BYTES by their own cap."""
+    from .sw_stream import ROW_BANDS
+    cols, lanes = _launch_dims(bins)
+    m = max(len(q) for q, _ in bins)
+    return 16 * len(bins) * cols * lanes \
+        if m > ROW_BANDS[not _fits_int8(mat)] else 0
+
+
 def hint_endpoints_grid(jobs, matrix, gapopen: int, gapextend: int,
                         device=None, force_device: bool = False):
     """hint_endpoints_many for MANY (query, subject-list) bins at once.
@@ -313,11 +325,11 @@ def _hint_batch(q, dseqs, mat, Q, R, device=None, starts=None):
 
     # the kernel route, at any query length and for any matrix (the wide
     # instantiation outside int8): one launch holds the bin.  A
-    # chromosome-scale subject (over 512 MB of padded lanes) or a row
+    # chromosome-scale subject (over 512 MB of padded lanes) or a
     # scratch over its cap stays on the host instead
     if (n * maxlen * m > DEVICE_CELLS and _on_cuda(device) and m > 0
             and _launch_bytes([(q, dseqs)]) <= _BIN_LAUNCH_BYTES
-            and 8 * m * _launch_dims([(q, dseqs)])[1] <= _SCRATCH_BYTES):
+            and _scratch_bytes([(q, dseqs)], mat) <= _SCRATCH_BYTES):
         return _hint_launch([(q, dseqs)], mat, Q, R, device, starts)[0]
 
     QP = mat[q, :].T.astype(np.int32)                 # (32, m)

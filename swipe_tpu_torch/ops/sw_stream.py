@@ -16,10 +16,11 @@ ctypes:
   carry instantiation; the flow series) and the row form
   ``sw_scores_stream_carry_rows`` (``csrc/carry_rows.cu``, a warp a
   (query, lane); the giant carry series);
-* ``sw_hint_stream`` (``csrc/hint.cu``) — alignment-endpoint hints with
-  search16s tie rules;
-* ``stream_tile_pass`` (``csrc/stream_tile.cu``) — one query-tile pass of
-  ``sw_scores_stream_long``, the scores of queries over one tile;
+* ``sw_hint_stream`` (``csrc/hint.cu``, a warp a (bin, lane)) —
+  alignment-endpoint hints with search16s tie rules;
+* ``stream_tile_pass`` (``csrc/carry_rows.cu``, a warp a (query, lane)) —
+  one query-tile pass of ``sw_scores_stream_long``, the scores of queries
+  over one tile;
 * ``stream_tile_carry_pass`` (``csrc/carry_rows.cu``, a warp a (query,
   lane)) — the same over one chunk of a carry series
   (``sw_scores_stream_carry_long``).
@@ -148,8 +149,8 @@ _SIGNATURES = {
     "swipe_dprofile": ("dprofile", [_P, _P, _P, ctypes.c_longlong, _I, _P]),
     "swipe_stream": ("stream", [_P] * 9 + [_I] * 8 + [_P]),
     "swipe_stream_carry": ("stream", [_P] * 10 + [_I] * 10 + [_P]),
-    "swipe_hint": ("hint", [_P] * 3 + [_I] + [_P] * 7 + [_I] * 6 + [_P]),
-    "swipe_stream_tile": ("stream_tile", [_P] * 10 + [_I] * 10 + [_P]),
+    "swipe_hint": ("hint", [_P] * 3 + [_I] + [_P] * 6 + [_I] * 6 + [_P]),
+    "swipe_stream_tile": ("carry_rows", [_P] * 8 + [_I] * 10 + [_P]),
     "swipe_stream_tile_carry": ("carry_rows", [_P] * 12 + [_I] * 10 + [_P]),
     "swipe_carry_rows": ("carry_rows", [_P] * 11 + [_I] * 10 + [_P]),
     "swipe_wavefront": ("wavefront", [_P] * 5 + [_I] * 5 + [_P]),
@@ -465,8 +466,8 @@ def sw_scores_stream_carry_plain(qcodes, qlens, matrix8, db, start, h, e, s,
     return out, h, e, s
 
 
-# the row form's band height (32 threads x rows a thread), by whether the
-# matrix is int32; csrc/carry_rows.cu Rows<M>::RS
+# the row-form kernels' band height (32 threads x rows a thread), by
+# whether the matrix is int32; csrc/rows.cuh Rows<M>::RS
 ROW_BANDS = {False: 32 * 16, True: 32 * 8}
 
 
@@ -823,7 +824,8 @@ def stream_tile_pass(qcodes: torch.Tensor, qlens: torch.Tensor, tile: int,
     through and leaves the dump as it was.  Results are the JAX package's
     _stream_tile_pass (the TPU walks PAD rows up to a multiple of 4, so
     the planes of a query's last, partial tile may differ; nothing reads
-    them but passes without rows)."""
+    them but passes without rows).  On the card (csrc/carry_rows.cu: a
+    warp a (query, lane)) it needs gapopenextend >= gapextend."""
     dev = _check_tile(qcodes, qlens, tile, matrix8, db, start, bh, bf, sprev,
                       tile_rows)
     kw = dict(gapopenextend=gapopenextend, gapextend=gapextend,
@@ -831,13 +833,12 @@ def stream_tile_pass(qcodes: torch.Tensor, qlens: torch.Tensor, tile: int,
     if dev.type != "cuda":
         return stream_tile_pass_plain(qcodes, qlens, tile, matrix8, db, start,
                                       bh, bf, sprev, **kw)
+    _check_gaps(gapopenextend, gapextend)
     nq, qlen_pad = qcodes.shape
     L, nseqs = db.shape
-    hst = torch.empty((nq, tile_rows, nseqs), dtype=torch.int32, device=dev)
-    est = torch.empty_like(hst)
     _launch("swipe_stream_tile", dev, _ptr(qcodes), _ptr(qlens),
             _ptr(matrix8), _ptr(db), _ptr(start), _ptr(sprev),
-            _ptr(bh), _ptr(bf), _ptr(hst), _ptr(est), int(tile), tile_rows,
+            _ptr(bh), _ptr(bf), int(tile), tile_rows,
             nq, qlen_pad, L // KSEG, nseqs, int(gapopenextend),
             int(gapextend), int(clamp is not None),
             int(clamp) if clamp is not None else 0)
@@ -1048,7 +1049,8 @@ def sw_hint_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
     (S, bestq, bestpos), each [NQ, NSEQS] int32, with search16s tie
     rules: bestpos is the first column attaining the final maximum,
     bestq the smallest query row attaining it there, -1 when the lane
-    never scores above 0."""
+    never scores above 0.  On the card (csrc/hint.cu: a warp a (bin,
+    lane)) it needs gapopenextend >= gapextend."""
     dev = db.device
     _check("qcodes", qcodes, torch.int32, 2, dev)
     _check("qlens", qlens, torch.int32, 1, dev)
@@ -1068,14 +1070,17 @@ def sw_hint_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
         return sw_hint_stream_plain(qcodes, qlens, matrix8, db, starts,
                                     gapopenextend=gapopenextend,
                                     gapextend=gapextend)
+    _check_gaps(gapopenextend, gapextend)
     outs = [torch.empty((nq, nseqs), dtype=torch.int32, device=dev)
             for _ in range(3)]
-    hst = torch.empty((nq, qlen_pad, nseqs), dtype=torch.int32, device=dev)
-    est = torch.empty_like(hst)
+    # the rows between a query's bands (H, F, column max, its row), when
+    # it has more than one
+    planes = torch.empty((nq, L, nseqs, 4), dtype=torch.int32, device=dev) \
+        if qlen_pad > ROW_BANDS[wide] else None
     _launch("swipe_hint", dev, _ptr(qcodes), _ptr(qlens), _ptr(matrix8),
-            int(wide), _ptr(db), _ptr(starts), *map(_ptr, outs), _ptr(hst),
-            _ptr(est), nq, qlen_pad, L // KSEG, nseqs, int(gapopenextend),
-            int(gapextend))
+            int(wide), _ptr(db), _ptr(starts), *map(_ptr, outs),
+            _ptr(planes), nq, qlen_pad, L // KSEG, nseqs,
+            int(gapopenextend), int(gapextend))
     return tuple(outs)
 
 

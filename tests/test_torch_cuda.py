@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_row_cases as rc
 from swipe_tpu_torch.batching import pack_stream
 from swipe_tpu_torch.io.db import FastaDatabase
 from swipe_tpu_torch.io.fasta import preprocess_query
@@ -310,6 +311,62 @@ def test_tile_kernel_matches_plain(dev, chunk, clamp):
     kw2 = {k: v for k, v in kw.items() if k != "tile_rows"}
     assert torch.equal(got[2], sw.sw_scores_stream(qc, ql, m8, data, start,
                                                    **kw2))
+
+
+@pytest.mark.parametrize("clamp", [None, 50])
+def test_tile_kernel_at_strip_and_tile_edges_matches_plain(dev, chunk,
+                                                           clamp):
+    # torch_row_cases' tile queries at 512-row tiles (one row into tile
+    # 3, one strip into tile 2 and inside its second strip, a row short
+    # of a tile, a whole tile, an empty slot), lanes holding copies of
+    # query windows across those edges: dump and planes each pass
+    m8, data, start = chunk
+    rng = np.random.default_rng(15)
+    qs = [rng.integers(1, 26, size=n, dtype=np.int8)
+          for n in rc.tile_lengths(512)]
+    host = data.cpu().numpy()
+    assert len(rc.plant_windows(rng, host, start.cpu().numpy(), qs,
+                                (16, 511, 512, 1024, 1040, 1047, 1536))) \
+        >= 50
+    data = torch.from_numpy(host).to(dev)
+    qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 2048))
+    kw = dict(gapopenextend=12, gapextend=1, tile_rows=512, clamp=clamp)
+    got = sw._tile_planes(len(qs), data.shape[0], data.shape[1], dev)
+    want = tuple(x.clone() for x in got)
+    n = sw.stream_tile_pass.launches
+    for t in range(4):
+        sw.stream_tile_pass(qc, ql, t, m8, data, start, *got, **kw)
+        sw.stream_tile_pass_plain(qc, ql, t, m8, data, start, *want, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert sw.stream_tile_pass.launches == n + 4
+    assert int(got[2].max()) == clamp if clamp else int(got[2].max()) > 150
+
+
+@pytest.mark.parametrize("case", list(rc.HINT_CASES))
+def test_hint_kernel_on_hard_bins_matches_plain(dev, case):
+    # torch_row_cases' hint bins: queries at and around strip and band
+    # edges, over one band and over 1,100 rows, ties across strip edges,
+    # tails before a first tracked column, empty subjects and lanes
+    lengths, go, ge, scale = rc.HINT_CASES[case]
+    mat = ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix.astype(np.int64) \
+        * scale
+    rng = np.random.default_rng(80 + len(case))
+    bins, tails = rc.hint_bins(rng, lengths, nsub=60, maxlen=600)
+    starts = rc.hint_starts(rng, bins, tails, 64)
+    cols = -(-max(len(s) for _, subs in bins for s in subs) // 16) * 16
+    m = (sw.build_matrix_wide if scale > 1 else sw.build_matrix8)(mat)
+    args = [torch.from_numpy(a).to(dev) for a in (
+        *sw.build_qcodes([q for q, _ in bins], max(lengths)), m,
+        rc.hint_dense(bins, cols, 64), starts)]
+    kw = dict(gapopenextend=go + ge, gapextend=ge)
+    n = sw.sw_hint_stream.launches
+    got = sw.sw_hint_stream(*args, **kw)
+    assert sw.sw_hint_stream.launches == n + 1
+    for g, w in zip(got, sw.sw_hint_stream_plain(*args, **kw)):
+        assert torch.equal(g, w)
+    assert (got[1] == -1).any() and (got[1] >= 512).any() == (
+        max(lengths) > 512)
 
 
 def _chip_smoke():

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_row_cases as rc
 from swipe_tpu.matrices import ScoreMatrix
 from swipe_tpu.ops import align_hint as jah
 from swipe_tpu.ops import sw_stream as jsw
@@ -86,6 +87,31 @@ def test_hint_plain_matches_jax_kernel():
         assert np.array_equal(g.numpy(), w)
     assert (starts[0] > 0).any() and (got[1].numpy() == -1).any()
     assert tsw.sw_hint_stream.launches == 0
+
+
+@pytest.mark.parametrize("lengths", [(15, 40), (16, 17)])
+def test_hint_plain_matches_jax_kernel_at_strip_edges(lengths):
+    # the hard bins of torch_row_cases at the shapes of the test above:
+    # queries one row either side of a strip edge and inside a strip,
+    # motif subjects tying at several rows, the query's tail before a
+    # first tracked column, empty subjects and lanes
+    gapopen, gapextend = 150, 2
+    m = ScoreMatrix.builtin("BLOSUM62", gapopen=gapopen, gapextend=gapextend)
+    rng = np.random.default_rng(sum(lengths))
+    bins, tails = rc.hint_bins(rng, lengths, nsub=1000, maxlen=48)
+    starts = rc.hint_starts(rng, bins, tails, 1024)
+    qc, ql = jsw.build_qcodes([q for q, _ in bins], 48)
+    db = rc.hint_dense(bins, 48, 1024)
+    m8 = jsw.build_matrix8(m.matrix)
+    Q, R = gapopen + gapextend, gapextend
+    want = [np.asarray(x) for x in jsw.sw_hint_stream(
+        qc, ql, m8, db, starts, gapopenextend=Q, gapextend=R,
+        interpret=True)]
+    got = tsw.sw_hint_stream(_t(qc), _t(ql), _t(m8), _t(db), _t(starts),
+                             gapopenextend=Q, gapextend=R)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), w)
+    assert (got[1].numpy() == -1).any() and (got[1].numpy() > 0).any()
 
 
 @pytest.mark.parametrize("gapopen,gapextend", [(11, 1), (150, 2)])

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_row_cases as rc
 from swipe_tpu.batching import pack_stream, pack_stream_carry
 from swipe_tpu.matrices import ScoreMatrix
 from swipe_tpu.ops import align_hint as jah
@@ -90,6 +91,45 @@ def test_tile_pass_matches_jax_pass_by_pass(tiled, clamp):
         for g, w in zip(got[1:], want[1:]):
             assert torch.equal(g[full], w[full])
     assert tsw.stream_tile_pass.launches == 0       # CPU: plain version
+
+
+def test_tile_pass_matches_jax_at_strip_and_tile_edges(tiled):
+    # queries one row into the fourth tile, one strip into the third and
+    # inside its second strip (torch_row_cases.tile_lengths at the
+    # fixture's 64-row tiles and shapes), lanes holding mutated copies of
+    # query windows across those edges: every pass's dump, and the
+    # planes where the query fills the tile
+    _, _, chunks, _, _, m8 = tiled
+    rng = np.random.default_rng(41)
+    queries = [rng.integers(1, 26, size=n, dtype=np.int8)
+               for n in rc.tile_lengths(64)[:3]]
+    qc, ql = jsw.build_qcodes(queries, 256)
+    ch = chunks[0]
+    data = ch.data.copy()
+    assert len(rc.plant_windows(rng, data, ch.start, queries,
+                                (16, 64, 128, 144, 151, 192))) >= 40
+    L, nseqs = data.shape
+    nb, T = L // KSEG, 64
+    db8 = jnp.asarray(data).reshape(L * 8, nseqs // 8)
+    start32 = jnp.asarray(ch.start, jnp.int32).reshape(nb, 8, nseqs // 8)
+    bh = jnp.zeros((3, nb, KSEG, 8, nseqs // 8), jnp.int32)
+    bf = jnp.full_like(bh, tsw.NEG_INF)
+    out = jnp.zeros((3, nb, 8, nseqs // 8), jnp.int32)
+    for t in range(4):
+        tb, tf, to = tsw.tile_planes_from_jax(bh, bf, out)
+        got = tsw.stream_tile_pass(
+            _t(qc), _t(ql), t, _t(m8), _t(data), _t(ch.start), tb, tf, to,
+            gapopenextend=12, gapextend=1, tile_rows=T)
+        out, bh, bf = jsw._stream_tile_pass(
+            jnp.asarray(qc), jnp.asarray(ql), jnp.asarray([t], jnp.int32),
+            jnp.asarray(m8), db8, start32, bh, bf, out, gapopenextend=12,
+            gapextend=1, tile_rows=T, clamp=None, interpret=True)
+        want = tsw.tile_planes_from_jax(out, bh, bf)
+        assert torch.equal(got[0], want[0])
+        full = torch.from_numpy(ql >= (t + 1) * T)
+        for g, w in zip(got[1:], want[1:]):
+            assert torch.equal(g[full], w[full])
+    assert int(got[0].max()) > 150       # the planted windows score
 
 
 def test_stream_long_matches_jax_and_oracle(tiled, m62):
@@ -245,8 +285,11 @@ def test_hint_over_1024_rows_on_kernel_route(monkeypatch, giant):
     assert launches == [(1, 1100)] * (1 + giant)
     if giant:
         assert got[2][0] > 100 and got[2][2] >= 6000
-    # over the row-scratch cap the bin stays on the host pass
-    monkeypatch.setattr(tah, "_SCRATCH_BYTES", 8 * 1100 * 32 - 1)
+    # over the scratch cap (the planes between its query's bands) the bin
+    # stays on the host pass
+    cap = tah._scratch_bytes([(q, subs[:2])], m.matrix)
+    assert cap == 16 * -(-max(map(len, subs[:2])) // KSEG) * KSEG * 32
+    monkeypatch.setattr(tah, "_SCRATCH_BYTES", cap - 1)
     assert tah.hint_endpoints_many(q, subs[:2], m.matrix, 5, 2,
                                    device="cpu") == want[:2]
     assert len(launches) == 1 + giant
