@@ -231,9 +231,10 @@ int launch(const int32_t* qcodes, const int32_t* qlens, const M* m,
            int32_t* bq_out, int32_t* bp_out, int32_t* planes, int nq,
            int qlen_pad, int nblocks, int nseqs, int Q, int R,
            void* stream) {
-  if (qlen_pad > 32 * Rows<M>::RS && planes == nullptr)
+  if (qlen_pad > 32 * Rows<M>::RS && planes == nullptr && nblocks > 0)
     return (int)cudaErrorInvalidValue;
-  if (nq <= 0 || nseqs <= 0 || nblocks <= 0) return (int)cudaGetLastError();
+  // no columns still launches: every lane's result is (0, -1, 0)
+  if (nq <= 0 || nseqs <= 0) return (int)cudaGetLastError();
   const size_t smem = hint_smem_bytes<M>();
   const cudaError_t err = allow_smem(hint_kernel<M>, smem);
   if (err != cudaSuccess) return (int)err;

@@ -367,6 +367,11 @@ def test_hint_kernel_on_hard_bins_matches_plain(dev, case):
         assert torch.equal(g, w)
     assert (got[1] == -1).any() and (got[1] >= 512).any() == (
         max(lengths) > 512)
+    # no columns at all: every lane (0, -1, 0), as the plain version
+    args[3] = args[3][:, :0].contiguous()
+    for g, w in zip(sw.sw_hint_stream(*args, **kw),
+                    sw.sw_hint_stream_plain(*args, **kw)):
+        assert torch.equal(g, w)
 
 
 def _chip_smoke():
