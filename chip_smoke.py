@@ -242,9 +242,9 @@ STATE_ARGS = {"sw_scores_stream_carry_lanes": (5, 6, 7),
               "sw_scores_stream_carry_rows": (5, 6, 7), "sw_wavefront": (2, 3, 4),
               "stream_tile_pass": (6, 7, 8),
               "stream_tile_carry_pass": (6, 7, 8, 9, 10)}
-# the kernels' times at their largest calls before their redesign (ms,
-# chip_smoke.py of PR 6 on an NVIDIA H100 80GB HBM3, 700.00 W), printed
-# in brackets beside this run's
+# the kernels' times at their largest calls before their redesign as a
+# warp a (query, lane) (ms, this script on an NVIDIA H100 80GB HBM3,
+# 700.00 W), printed in brackets beside this run's
 REDESIGNED_FROM_MS = {"stream_tile_pass": 247.789, "sw_hint_stream": 115.292}
 # the align phase's steps, timed on the host in every search: step ->
 # (owner, attribute); the hint kernel's seconds are part of the hint pass
@@ -1762,7 +1762,7 @@ def time_kernels(calls, plain_ms, report):
                           bound_by="bytes" if term == "bytes"
                           else "operations", bound_term=term)
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-        was = f" [{REDESIGNED_FROM_MS[name]:.3f} ms in PR 6]" \
+        was = f" [{REDESIGNED_FROM_MS[name]:.3f} ms before the redesign]" \
             if name in REDESIGNED_FROM_MS else ""
         log(f"time: {name} at {shapes} ({label}): {ms:.3f} ms{was}, plain "
             f"{rows[name]['plain_ms']:.1f} ms, bound "
