@@ -1,7 +1,6 @@
-"""Time the row-form tile pass (K5) and hint kernel (K4) at the shapes of
-their largest calls on the main path.
+"""Time the row-form kernels (K3's row form, K4, K5, K6) on one CUDA card.
 
-    python3 scripts/row_kernels.py [--root DIR] [--warps 1,2,4,8] [--tag T]
+    python3 scripts/row_kernels.py [--root DIR] [--tag T]
 
 Inputs come from fixed seeds, built as the engine builds them:
 
@@ -21,28 +20,32 @@ Inputs come from fixed seeds, built as the engine builds them:
   wide          one 500-nt query against 1,007 pieces of 5,358 columns
                 with blastn scores scaled by 100 (the int32 matrix, two
                 256-row bands);
-* the other kernels on the band walker (csrc/rows.cuh), at the shapes of
-  scripts/carry_forms.py: K6, a pass of long-genome's tile 0 (2 queries
-  of 1,542 nt, 32 lanes x 8,192 columns, one chromosome lane), and K3's
-  row form at wide-genome's chunk (16 x 500 nt, the int32 matrix) and
-  tblastn-carry's (16 x 400 aa, six frame lanes).
+* K6, a pass of long-genome's tile 0 (2 queries of 1,542 nt, 32 lanes x
+  8,192 columns, one chromosome lane), and K3's row form at wide-genome's
+  chunk (16 x 500 nt, the int32 matrix) and tblastn-carry's (16 x 400 aa,
+  six frame lanes);
+* where K3's two forms cross: 16 queries of 200 and of 500 residues
+  (BLOSUM62, gaps 11/1) against one chunk of 2,048 columns whose 32 to
+  2,048 lanes all hold random records (a start bit every 19 blocks on
+  average): the row form, the lane form without block profiles and the
+  lane form with them (build_dprofile_series and the launch, as the flow
+  route runs it), their dumps and states held equal.
 
 ``--root`` imports the package from another checkout, for instance a
 parent commit's unpacked into a directory that .gitignore lists, to time
 its kernels on the same inputs (the wrappers' contracts are the same).
-``--warps`` also times K5 built with each number of warps a block
-(TILE_WARPS, replaced in copies of csrc/carry_rows.cu compiled beside the
-package's build).  Each result is one JSON line: ms a launch (CUDA events
-over 5 launches after a warm-up), the card and its power limit, and a
-digest of the outputs of one fresh launch, equal across trees and
-variants when their results are.  ``--sass`` also prints each kernel
-function's registers and SASS instruction count (cuobjdump), by tree.
+Each result is one JSON line with the card and its power limit: ms a
+launch (CUDA events over 5 launches after a warm-up, 3 for the
+crossover) and a digest of the outputs of one fresh launch, equal across
+trees when their results are.  Last, for each kernel function of the
+tree's built carry_rows and hint libraries (cuobjdump), its registers,
+SASS instructions and the count of each opcode class that the walker's
+cost turns on.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import hashlib
 import json
 import os
@@ -215,61 +218,79 @@ def carry_shapes(sw, dev):
          dict(gapopenextend=12, gapextend=1))]
 
 
-def sass_stats(build):
-    """{kernel function: (registers, SASS instructions)} of the built
-    carry_rows and hint libraries."""
-    out = {}
-    for lib in ("carry_rows", "hint"):
-        path = build.kernel_library(lib)
-        res = subprocess.run([build.cuda_tool("cuobjdump"), "-res-usage",
-                              path], capture_output=True, text=True).stdout
-        regs = dict(re.findall(r"Function (\S+):\s*REG:(\d+)", res))
-        sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", path],
-                              capture_output=True, text=True).stdout
-        for part in sass.split("Function : ")[1:]:
-            name = part.split()[0]
-            n = len(re.findall(r"/\*[0-9a-f]{4}\*/", part))
-            out[name] = (int(regs.get(name, -1)), n)
+def crossover(sw, dev):
+    """(pairs, rows, {form: ms}) of K3's two forms at each shape, their
+    outputs held equal."""
+    import torch
+    from swipe_tpu_torch.matrices import ScoreMatrix
+    rng = np.random.default_rng(1)
+    m8 = torch.from_numpy(sw.build_matrix8(
+        ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix)).to(dev)
+    kw = dict(gapopenextend=12, gapextend=1)
+    out = []
+    for qlen, qlen_pad in ((200, 256), (500, 512)):
+        qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
+            seqs_of(rng, [qlen] * 16, 20), qlen_pad))
+        for nseqs in (32, 128, 256, 512, 1024, 2048):
+            db = torch.from_numpy(rng.integers(
+                1, 21, size=(2048, nseqs)).astype(np.int8)).to(dev)
+            start = torch.from_numpy((rng.random((2048 // sw.KSEG, nseqs))
+                                      < 1 / 19).astype(np.int8)).to(dev)
+            got, ms = [], {}
+            for name, fn, prof in (
+                    ("rows", sw.sw_scores_stream_carry_rows, False),
+                    ("lanes", sw.sw_scores_stream_carry_lanes, False),
+                    ("lanes_profiles", sw.sw_scores_stream_carry_lanes,
+                     True)):
+                st = sw.make_stream_state(16, qlen_pad, nseqs, dev)
+
+                def call(fn=fn, prof=prof, st=st):
+                    dp = sw.build_dprofile_series(m8, db) if prof else None
+                    return fn(qc, ql, m8, db, start, *st, dprof=dp, **kw)
+
+                got.append([x.clone() for x in call()])
+                ms[name] = timed(call, reps=3)
+            if not all(torch.equal(a, b) for r in got[1:]
+                       for a, b in zip(got[0], r)):
+                raise RuntimeError(f"K3's forms differ at 16 x {nseqs}, "
+                                   f"{qlen} rows")
+            ms["dprofile"] = timed(lambda: sw.build_dprofile_series(m8, db),
+                                   reps=3)
+            out.append((16 * nseqs, qlen, ms))
     return out
 
 
-def warp_variants(sw, build, warps):
-    """{W: swipe_stream_tile of csrc/carry_rows.cu built with TILE_WARPS
-    = W}, compiled in parallel."""
-    src = open(os.path.join(build.CSRC, "carry_rows.cu")).read()
-    pat = re.compile(r"constexpr int TILE_WARPS = \d+;")
-    if not pat.search(src):
-        raise SystemExit("csrc/carry_rows.cu has no TILE_WARPS constant")
-    outdir = os.path.join(build.BUILD_DIR, "warps")
-    os.makedirs(outdir, exist_ok=True)
-    procs = {}
-    for w in warps:
-        cu = os.path.join(outdir, f"carry_rows_w{w}.cu")
-        with open(cu, "w") as f:
-            f.write(pat.sub(f"constexpr int TILE_WARPS = {w};", src))
-        so = cu[:-3] + ".so"
-        procs[w] = (so, subprocess.Popen(
-            [build.cuda_tool("nvcc"), *build.NVCC_FLAGS, "-I", build.CSRC,
-             "-o", so, cu], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT))
-    fns = {}
-    for w, (so, p) in procs.items():
-        log = p.communicate()[0].decode(errors="replace")
-        if p.returncode != 0:
-            raise SystemExit(f"TILE_WARPS = {w}: build failed\n{log}")
-        f = ctypes.CDLL(so).swipe_stream_tile
-        f.argtypes = sw._SIGNATURES["swipe_stream_tile"][1]
-        f.restype = ctypes.c_int
-        fns[w] = f
-    return fns
+# opcode classes counted in each kernel function's SASS
+OPCODES = ("VIADDMNMX", "VIMNMX3", "SHFL.UP", "BAR", "LDS", "STS", "LDG",
+           "STG", "ATOMG", "REDG")
+
+
+def sass_stats(build):
+    """{kernel function: (registers, SASS instructions, {opcode class:
+    count})} of the built carry_rows and hint libraries."""
+    tool = build.cuda_tool("cuobjdump")
+    out = {}
+    for lib in ("carry_rows", "hint"):
+        path = build.kernel_library(lib)
+        res = subprocess.run([tool, "-res-usage", path], capture_output=True,
+                             text=True).stdout
+        regs = dict(re.findall(r"Function (\S+):\s*REG:(\d+)", res))
+        sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                              text=True).stdout
+        for part in sass.split("Function : ")[1:]:
+            name = part.split()[0]
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                             r"([A-Z][A-Z0-9_.]*)", part)
+            out[name] = (int(regs.get(name, -1)), len(ops),
+                         {k: sum(o.startswith(k) for o in ops)
+                          for k in OPCODES})
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=REPO)
-    ap.add_argument("--warps", default="")
     ap.add_argument("--tag", default="")
-    ap.add_argument("--sass", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -282,35 +303,28 @@ def main() -> int:
     dev = torch.device("cuda")
     info = dict(tag=args.tag, root=args.root, card=card())
     build.build_kernels()
-    variants = {None: None}
-    if args.warps:
-        variants.update(warp_variants(sw, build,
-                                      [int(w) for w in args.warps.split(",")]))
+
+    def emit(**kw):
+        print(json.dumps(dict(info, **kw)), flush=True)
 
     for name, qc, ql, mat, data, start, (Q, R) in tile_shapes(sw, batching,
                                                                dev):
         kw = dict(gapopenextend=Q, gapextend=R, tile_rows=512)
         nq, L, n = qc.shape[0], data.shape[0], data.shape[1]
-        default = sw._kernel("swipe_stream_tile")
-        for w, fn in variants.items():
-            sw._FUNCS["swipe_stream_tile"] = fn or default
-            planes = sw._tile_planes(nq, L, n, dev)
-            sw.stream_tile_pass(qc, ql, 0, mat, data, start, *planes, **kw)
-            dig = digest(planes)
-            ms = timed(lambda: sw.stream_tile_pass(qc, ql, 0, mat, data,
-                                                   start, *planes, **kw))
-            print(json.dumps(dict(info, kernel="K5", shape=name,
-                                  warps=w or "built", ms=ms, digest=dig,
-                                  dims=[nq, 512, L, n])), flush=True)
-        sw._FUNCS["swipe_stream_tile"] = default
+        planes = sw._tile_planes(nq, L, n, dev)
+        sw.stream_tile_pass(qc, ql, 0, mat, data, start, *planes, **kw)
+        dig = digest(planes)
+        ms = timed(lambda: sw.stream_tile_pass(qc, ql, 0, mat, data, start,
+                                               *planes, **kw))
+        emit(kernel="K5", shape=name, ms=ms, digest=dig,
+             dims=[nq, 512, L, n])
 
     for name, qc, ql, mat, db, starts, (Q, R) in hint_shapes(sw, dev):
         kw = dict(gapopenextend=Q, gapextend=R)
         dig = digest(sw.sw_hint_stream(qc, ql, mat, db, starts, **kw))
         ms = timed(lambda: sw.sw_hint_stream(qc, ql, mat, db, starts, **kw))
-        print(json.dumps(dict(info, kernel="K4", shape=name, ms=ms,
-                              digest=dig, dims=list(db.shape),
-                              rows=int(ql.max()))), flush=True)
+        emit(kernel="K4", shape=name, ms=ms, digest=dig, dims=list(db.shape),
+             rows=int(ql.max()))
 
     for kernel, name, fn, make, kw in carry_shapes(sw, dev):
         a = make()
@@ -318,12 +332,13 @@ def main() -> int:
         dig = digest([x for x in out if torch.is_tensor(x)])
         a = make()
         ms = timed(lambda: fn(*a, **kw))
-        print(json.dumps(dict(info, kernel=kernel, shape=name, ms=ms,
-                              digest=dig)), flush=True)
-    if args.sass:
-        for name, (regs, n) in sorted(sass_stats(build).items()):
-            print(json.dumps(dict(info, function=name, registers=regs,
-                                  sass_instructions=n)), flush=True)
+        emit(kernel=kernel, shape=name, ms=ms, digest=dig)
+
+    for pairs, qlen, ms in crossover(sw, dev):
+        emit(kernel="K3 forms", pairs=pairs, qlen=qlen, **ms)
+
+    for name, (regs, n, ops) in sorted(sass_stats(build).items()):
+        emit(function=name, registers=regs, sass_instructions=n, **ops)
     return 0
 
 

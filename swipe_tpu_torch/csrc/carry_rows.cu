@@ -56,13 +56,15 @@ using namespace swipe;
 
 namespace {
 
-// warps of a K5 block (1, 2, 4 and 8 timed at the long routes' shapes,
-// scripts/row_kernels.py: 8 was fastest at all three)
+// warps of a K5 block (1, 2, 4 and 8 timed at the long routes' shapes:
+// 8 was fastest at all three, PERF.md)
 constexpr int TILE_WARPS = 8;
 
 // One band of a pair: rows [r0, r1) of the query, at most 32 * RS.
 template <typename M>
 struct Band {
+  const int32_t* qc;          // the query's codes
+  const M* m;                 // [32, 32] matrix
   int r0, r1;
   const int8_t* db;           // column 0 of the lane; column stride n
   const int8_t* start;        // block 0 of the lane; block stride n
@@ -79,16 +81,17 @@ struct Band {
   int Q, R, clamp;
 };
 
-// Walk one band over the chunk (all 32 threads of the warp), on the
-// band's profile.  diag0: H of row r0 - 1 at column -1; s_in: the running
-// max thread 0 starts from.  Returns the thread's S at the last column;
-// `below` gets thread 31's carried H of row r1 - 1 as read (the next
-// band's diag0).  PARTIAL: the band has fewer than 32 * RS rows (the
-// query's last band, or a short tile).  CARRY: the rows' H/E come from
-// and go back to the state (K3, K6); without, they start fresh (K5).
-// WARPS: the warps of the block.
+// Walk one band over the chunk (all 32 threads of the warp).  In a block
+// of one warp it fills the band's profile first; the warps of a larger
+// block share one that block_profile filled.  diag0: H of row r0 - 1 at
+// column -1; s_in: the running max thread 0 starts from.  Returns the
+// thread's S at the last column; `below` gets thread 31's carried H of
+// row r1 - 1 as read (the next band's diag0).  PARTIAL: the band has
+// fewer than 32 * RS rows (the query's last band, or a short tile).
+// CARRY: the rows' H/E come from and go back to the state (K3, K6);
+// without, they start fresh (K5).  WARPS: the warps of the block.
 template <typename M, bool CLAMP, bool PARTIAL, bool CARRY, int WARPS>
-__device__ int walk_band(const Band<M>& b, const M* prof, uint8_t* ring,
+__device__ int walk_band(const Band<M>& b, M* prof, uint8_t* ring,
                          int2* tring, int2* cap, int diag0, int s_in,
                          int& below) {
   constexpr int RS = Rows<M>::RS;
@@ -98,6 +101,7 @@ __device__ int walk_band(const Band<M>& b, const M* prof, uint8_t* ring,
   // the strip's rows of the query: [lo, nr)
   const int lo = max(0, min(RS, -row0));
   const int nr = max(0, min(RS, b.r1 - row0));
+  if (WARPS == 1) strip_profile(b.qc, b.m, row0, lo, nr, t, prof);
 
   int H[RS], E[RS];
 #pragma unroll
@@ -206,22 +210,22 @@ __device__ int no_rows(const int8_t* start, int32_t* dump, long long n,
 
 // The bands of query rows [r0, r1) of one tile, top down (K5, K6); the
 // last one partial where the tile is.  diag0 and s as walk_band's for the
-// first band.  A warp that is not `live` (a lane past the chunk's, in a
-// K5 block) only joins the profile's barriers.
+// first band.  In a block of several warps (K5) they share the band's
+// profile, and a warp that is not `live` (a lane past the chunk's) only
+// joins its barriers.
 template <bool CLAMP, bool CARRY, int WARPS>
-__device__ void walk_tile(Band<int8_t>& b, const int32_t* qc,
-                          const int8_t* m8, int r0, int r1, int diag0, int s,
-                          bool live) {
-  int8_t* prof;
-  int2 *tring, *cap;
-  uint8_t* ring;
-  carve(prof, tring, cap, ring);
+__device__ __forceinline__ void walk_tile(Band<int8_t>& b, int8_t* prof,
+                                          uint8_t* ring, int2* tring,
+                                          int2* cap, int r0, int r1,
+                                          int diag0, int s, bool live) {
   constexpr int BAND = 32 * Rows<int8_t>::RS;
   for (int r = r0; r < r1; r += BAND) {
     b.r0 = r;
     b.r1 = min(r + BAND, r1);
-    build_profile<WARPS>(qc, m8, b.r0, b.r1, prof);
-    if (!live) continue;
+    if (WARPS > 1) {
+      block_profile<WARPS>(b.qc, b.m, b.r0, b.r1, prof);
+      if (!live) continue;
+    }
     int below;
     if (b.r1 - b.r0 == BAND)
       walk_band<int8_t, CLAMP, false, CARRY, WARPS>(b, prof, ring, tring,
@@ -244,6 +248,10 @@ tile_kernel(const int32_t* __restrict__ qcodes,
             const int8_t* __restrict__ start, int32_t* out, int32_t* bh,
             int32_t* bf, int tile, int tile_rows, int qlen_pad, int nblocks,
             int nseqs, int Q, int R, int clamp) {
+  int8_t* prof;
+  int2 *tring, *cap;
+  uint8_t* ring;
+  carve<TILE_WARPS>(prof, tring, cap, ring);
   const int lane = blockIdx.x * TILE_WARPS + (threadIdx.x >> 5);
   const int q = blockIdx.y;
   const long long n = nseqs;
@@ -254,11 +262,12 @@ tile_kernel(const int32_t* __restrict__ qcodes,
   // the dump keeps its value
   if (r1 <= r0) return;
   const long long plane = (long long)q * L * n + lane;
-  Band<int8_t> b{0, 0, db + lane, start + lane, n, L, bh + plane,
-                 bf + plane, bh + plane, bf + plane, nullptr, nullptr,
+  Band<int8_t> b{qcodes + (long long)q * qlen_pad, m8, 0, 0, db + lane,
+                 start + lane, n, L, bh + plane, bf + plane, bh + plane,
+                 bf + plane, nullptr, nullptr,
                  out + (long long)q * nblocks * n + lane, true, Q, R, clamp};
-  walk_tile<CLAMP, false, TILE_WARPS>(b, qcodes + (long long)q * qlen_pad,
-                                      m8, r0, r1, 0, 0, lane < nseqs);
+  walk_tile<CLAMP, false, TILE_WARPS>(b, prof, ring, tring, cap, r0, r1, 0,
+                                      0, lane < nseqs);
 }
 
 // K6: the bands of query rows [tile * tile_rows, + tile_rows).
@@ -274,6 +283,10 @@ tile_carry_kernel(const int32_t* __restrict__ qcodes,
                   const int32_t* __restrict__ bh0c, int tile, int tile_rows,
                   int qlen_pad, int nblocks, int nseqs, int Q, int R,
                   int clamp) {
+  int8_t* prof;
+  int2 *tring, *cap;
+  uint8_t* ring;
+  carve<1>(prof, tring, cap, ring);
   const int lane = blockIdx.x, q = blockIdx.y;
   const long long n = nseqs;
   const int L = nblocks * KSEG;
@@ -288,13 +301,14 @@ tile_carry_kernel(const int32_t* __restrict__ qcodes,
   }
   const long long plane = (long long)q * L * n + lane;
   const long long srow = (long long)q * qlen_pad * n + lane;
-  Band<int8_t> b{0, 0, db + lane, start + lane, n, L, bh + plane,
-                 bf + plane, bh + plane, bf + plane, hst + srow, est + srow,
-                 dump, start[lane] != 0, Q, R, clamp};
+  Band<int8_t> b{qcodes + (long long)q * qlen_pad, m8, 0, 0, db + lane,
+                 start + lane, n, L, bh + plane, bf + plane, bh + plane,
+                 bf + plane, hst + srow, est + srow, dump, start[lane] != 0,
+                 Q, R, clamp};
   const int diag0 =
       bh0c[((long long)q * (qlen_pad / tile_rows + 1) + tile) * n + lane];
-  walk_tile<CLAMP, true, 1>(b, qcodes + (long long)q * qlen_pad, m8, r0, r1,
-                            diag0, s, true);
+  walk_tile<CLAMP, true, 1>(b, prof, ring, tring, cap, r0, r1, diag0, s,
+                            true);
 }
 
 // K3's row form: every band of the query, in turn.  The bands are laid
@@ -315,7 +329,7 @@ carry_rows_kernel(const int32_t* __restrict__ qcodes,
   M* prof;
   int2 *tring, *cap;
   uint8_t* ring;
-  carve(prof, tring, cap, ring);
+  carve<1>(prof, tring, cap, ring);
   const int lane = blockIdx.x, q = blockIdx.y;
   const long long n = nseqs;
   const int L = nblocks * KSEG;
@@ -330,8 +344,8 @@ carry_rows_kernel(const int32_t* __restrict__ qcodes,
   const int32_t* qc = qcodes + (long long)q * qlen_pad;
   const long long plane = (long long)q * L * n + lane;
   const long long srow = (long long)q * qlen_pad * n + lane;
-  Band<M> b{0, 0, db + lane, start + lane, n, L, nullptr, nullptr, nullptr,
-            nullptr, hst + srow, est + srow, dump,
+  Band<M> b{qc, m, 0, 0, db + lane, start + lane, n, L, nullptr, nullptr,
+            nullptr, nullptr, hst + srow, est + srow, dump,
             !carry_in || start[lane] != 0, Q, R, clamp};
   constexpr int BAND = 32 * Rows<M>::RS;
   int diag0 = 0, sfin = 0;
@@ -341,7 +355,6 @@ carry_rows_kernel(const int32_t* __restrict__ qcodes,
     const bool last = r1 == qlen;
     b.bot_h = last ? nullptr : bh + plane;
     b.bot_f = last ? nullptr : bf + plane;
-    build_profile<1>(qc, m, b.r0, b.r1, prof);
     int below;
     sfin = max(sfin, walk_band<M, CLAMP, false, true, 1>(
                          b, prof, ring, tring, cap, diag0, s, below));

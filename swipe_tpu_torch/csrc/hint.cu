@@ -208,7 +208,9 @@ hint_kernel(const int32_t* __restrict__ qcodes,
     constexpr int BAND = 32 * Rows<M>::RS;
     for (int r1 = qlen - (qlen - 1) / BAND * BAND; r1 <= qlen; r1 += BAND) {
       b.r0 = r1 - BAND;
-      build_profile<1>(qc, m, b.r0, r1, prof);
+      const int row0 = b.r0 + t * Rows<M>::RS;
+      strip_profile(qc, m, row0, max(0, min(Rows<M>::RS, -row0)),
+                    Rows<M>::RS, t, prof);
       if (r1 == qlen) {
         walk_hint_band<M, true>(b, prof, ring, tring, first, best);
       } else {

@@ -26,10 +26,11 @@
 // [sym][row of the strip][thread]: a warp's 32 lookups (32 columns, any
 // db symbols) hit 32 consecutive elements, so no bank conflicts.  int8
 // entries for the int8 matrix (RS KB a band), int32 for the wide matrix.
-// Every warp of a block walks the same band of the same query, so the
-// warps share one profile.  db symbols, start bits and the planes are
-// staged 32 columns at a time, one window ahead of the pipeline, through
-// a 64-column ring per warp.
+// In a block of one warp each thread fills its own column of it
+// (strip_profile); in a block of several (K5) every warp walks the same
+// band of the same query, so the warps share one (block_profile).  db
+// symbols, start bits and the planes are staged 32 columns at a time,
+// one window ahead of the pipeline, through a 64-column ring per warp.
 #pragma once
 
 #include "sw_common.cuh"
@@ -55,16 +56,35 @@ __device__ __forceinline__ int strip_of_thread() {
   return WARPS == 1 ? (int)threadIdx.x : (int)(threadIdx.x & 31);
 }
 
-// The band's profile, built by every warp of the block (warp w fills rows
-// w, w + WARPS, ... of each strip): prof[(sym * RS + i) * 32 + t] for
-// query row r0 + t * RS + i, the PAD row's scores outside [0, r1).
-// Barriers on both sides: no warp still reads the previous band's, and
-// every warp sees the whole of this one.
+// The strip's rows of the band's profile, in a block of one warp:
+// thread t fills prof[(sym * RS + i) * 32 + t] for query row row0 + i,
+// the PAD row's scores outside [lo, nr), and reads only what it fills.
+// No block barrier: block_profile in the one-warp kernels cost K6 6%
+// (PERF.md §6, PR 7).
+template <typename M>
+__device__ __forceinline__ void strip_profile(const int32_t* qc, const M* m,
+                                              int row0, int lo, int nr,
+                                              int t, M* prof) {
+  constexpr int RS = Rows<M>::RS;
+  __syncwarp();
+  for (int i = 0; i < RS; ++i) {
+    const bool real = i >= lo && i < nr;
+    const M* mrow =
+        m + (real ? qc[row0 + i] & (NSYM - 1) : PAD_SYMBOL) * NSYM;
+    for (int sym = 0; sym < NSYM; ++sym)
+      prof[(sym * RS + i) * 32 + t] = mrow[sym];
+  }
+}
+
+// The band's profile in a block of WARPS > 1 warps sharing it: warp w
+// fills rows w, w + WARPS, ... of every strip, the layout of
+// strip_profile for rows [r0, r1).  Barriers on both sides: no warp still
+// reads the previous band's, and every warp sees the whole of this one.
 template <int WARPS, typename M>
-__device__ __forceinline__ void build_profile(const int32_t* qc, const M* m,
+__device__ __forceinline__ void block_profile(const int32_t* qc, const M* m,
                                               int r0, int r1, M* prof) {
   constexpr int RS = Rows<M>::RS;
-  const int t = strip_of_thread<WARPS>();
+  const int t = threadIdx.x & 31;
   const int row0 = r0 + t * RS;
   __syncthreads();
   for (int i = threadIdx.x >> 5; i < RS; i += WARPS) {
@@ -131,9 +151,9 @@ __device__ __forceinline__ void strip_cells(
   }
 }
 
-// shared memory of a block of W warps: the profile (M [NSYM][RS][32]),
-// then each warp's staged planes (int2 [RING]), rows' (H, F) of a partial
-// band (int2 [RS][32]) and staged symbols (uint8 [RING])
+// shared memory of a block of W warps: each warp's staged planes (int2
+// [RING]), rows' (H, F) of a partial band (int2 [RS][32]) and staged
+// symbols (uint8 [RING]), then the profile (M [NSYM][RS][32])
 template <typename M>
 __host__ __device__ constexpr size_t profile_bytes() {
   return sizeof(M) * NSYM * Rows<M>::RS * 32;
@@ -146,18 +166,17 @@ __host__ __device__ constexpr size_t warp_smem_bytes() {
 
 template <typename M>
 __host__ __device__ constexpr size_t smem_bytes(int warps) {
-  return profile_bytes<M>() + warps * warp_smem_bytes<M>();
+  return warps * warp_smem_bytes<M>() + profile_bytes<M>();
 }
 
-template <typename M>
+template <int WARPS, typename M>
 __device__ void carve(M*& prof, int2*& tring, int2*& cap, uint8_t*& ring) {
   extern __shared__ __align__(16) unsigned char smem[];
-  prof = reinterpret_cast<M*>(smem);
-  unsigned char* mine =
-      smem + profile_bytes<M>() + (threadIdx.x >> 5) * warp_smem_bytes<M>();
-  tring = reinterpret_cast<int2*>(mine);
+  tring = reinterpret_cast<int2*>(
+      smem + (WARPS == 1 ? 0 : threadIdx.x >> 5) * warp_smem_bytes<M>());
   cap = tring + RING;
   ring = reinterpret_cast<uint8_t*>(cap + Rows<M>::RS * 32);
+  prof = reinterpret_cast<M*>(smem + WARPS * warp_smem_bytes<M>());
 }
 
 template <typename K>

@@ -60,8 +60,9 @@ MAX_BIN_SUBJECTS = 1024
 WARP = 32
 # footprint cap of one launch: bins x columns x lanes int8
 _LAUNCH_BYTES = 64 << 20
-# caps of one per-bin launch (_hint_batch): its subjects (bins x columns x
-# lanes int8) and the kernel's scratch (_scratch_bytes)
+# caps of a per-bin batch (_hint_batch): its subjects (bins x columns x
+# lanes int8), and the kernel's scratch of one launch (_scratch_bytes;
+# a batch over it splits its lanes over several launches)
 _BIN_LAUNCH_BYTES = 512 << 20
 _SCRATCH_BYTES = 1 << 30
 
@@ -207,6 +208,26 @@ def _scratch_bytes(bins, mat) -> int:
         if m > ROW_BANDS[not _fits_int8(mat)] else 0
 
 
+def _lane_groups(q, dseqs, mat):
+    """The subjects of one per-bin batch in groups whose launches each
+    keep the hint kernel's scratch under _SCRATCH_BYTES: one group when
+    the batch does, else whole warps of the longest subjects left at a
+    time; None when a warp of one subject alone is over the cap.  Lanes
+    are independent, so a split changes no result."""
+    if _scratch_bytes([(q, dseqs)], mat) <= _SCRATCH_BYTES:
+        return [list(range(len(dseqs)))]
+    order = sorted(range(len(dseqs)), key=lambda i: -len(dseqs[i]))
+    groups = []
+    while order:
+        warp = _scratch_bytes([(q, [dseqs[order[0]]])], mat)
+        fit = len(order) if warp == 0 else _SCRATCH_BYTES // warp * WARP
+        if fit == 0:
+            return None
+        groups.append(order[:fit])
+        order = order[fit:]
+    return groups
+
+
 def hint_endpoints_grid(jobs, matrix, gapopen: int, gapextend: int,
                         device=None, force_device: bool = False):
     """hint_endpoints_many for MANY (query, subject-list) bins at once.
@@ -324,13 +345,22 @@ def _hint_batch(q, dseqs, mat, Q, R, device=None, starts=None):
         starts = np.zeros(n, dtype=np.int64)
 
     # the kernel route, at any query length and for any matrix (the wide
-    # instantiation outside int8): one launch holds the bin.  A
-    # chromosome-scale subject (over 512 MB of padded lanes) or a
-    # scratch over its cap stays on the host instead
+    # instantiation outside int8): one launch holds the bin, or several
+    # its lanes where the scratch between a long query's bands would pass
+    # its cap.  A chromosome-scale subject (over 512 MB of padded lanes,
+    # or over the scratch cap in a warp alone) stays on the host instead
+    groups = None
     if (n * maxlen * m > DEVICE_CELLS and _on_cuda(device) and m > 0
-            and _launch_bytes([(q, dseqs)]) <= _BIN_LAUNCH_BYTES
-            and _scratch_bytes([(q, dseqs)], mat) <= _SCRATCH_BYTES):
-        return _hint_launch([(q, dseqs)], mat, Q, R, device, starts)[0]
+            and _launch_bytes([(q, dseqs)]) <= _BIN_LAUNCH_BYTES):
+        groups = _lane_groups(q, dseqs, mat)
+    if groups is not None:
+        out = [None] * n
+        for g in groups:
+            res = _hint_launch([(q, [dseqs[i] for i in g])], mat, Q, R,
+                               device, starts[g])[0]
+            for i, r in zip(g, res):
+                out[i] = r
+        return out
 
     QP = mat[q, :].T.astype(np.int32)                 # (32, m)
     dense = np.zeros((n, maxlen), dtype=np.int8)

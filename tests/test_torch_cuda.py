@@ -108,6 +108,29 @@ def test_hint_grid_route_on_card_matches_host_pass(dev):
                    for q, subs in jobs]
 
 
+def test_hint_bin_over_scratch_cap_on_card_matches_host_pass(
+        dev, monkeypatch):
+    # a 700-nt query (two int8 bands) whose scratch between bands is
+    # capped at one warp of its longest subject: the bin's 70 lanes run
+    # on several launches, equal to the host pass
+    from swipe_tpu_torch.ops import align_hint
+    rng = np.random.default_rng(5)
+    m = ScoreMatrix.nucleotide(1, -3, 5, 2).matrix
+    q = rng.integers(1, 5, size=700, dtype=np.int8)
+    subs = [rng.integers(1, 5, size=int(n), dtype=np.int8)
+            for n in rng.integers(1, 3000, size=70)]
+    for i in range(0, 70, 7):
+        a, b = sorted(rng.integers(0, 700, size=2))
+        subs[i] = np.concatenate([subs[i], q[a:b + 1]])
+    monkeypatch.setattr(align_hint, "DEVICE_CELLS", 0)
+    cap = align_hint._scratch_bytes([(q, [max(subs, key=len)])], m)
+    monkeypatch.setattr(align_hint, "_SCRATCH_BYTES", cap)
+    n = sw.sw_hint_stream.launches
+    got = align_hint.hint_endpoints_many(q, subs, m, 5, 2, device=dev)
+    assert sw.sw_hint_stream.launches - n > 1
+    assert got == align_hint.hint_endpoints_many(q, subs, m, 5, 2)
+
+
 def test_engine_on_card_matches_cpu(dev):
     rng = np.random.default_rng(3)
     aa = list("ARNDCQEGHILKMFPSTWYV")

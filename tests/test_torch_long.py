@@ -293,3 +293,34 @@ def test_hint_over_1024_rows_on_kernel_route(monkeypatch, giant):
     assert tah.hint_endpoints_many(q, subs[:2], m.matrix, 5, 2,
                                    device="cpu") == want[:2]
     assert len(launches) == 1 + giant
+
+
+@pytest.mark.parametrize("warps", [1, 2])
+def test_hint_bin_over_scratch_cap_splits_its_lanes(monkeypatch, warps):
+    # a bin of 70 subjects whose planes between the query's bands pass the
+    # scratch cap (set to ``warps`` warps of its longest subject) runs on
+    # several launches of whole warps under the cap, not on the host
+    # pass; equal to the JAX package's host pass
+    m = ScoreMatrix.nucleotide(1, -3, 5, 2)
+    rng = np.random.default_rng(44)
+    q, base = _nt_hint_jobs(rng, False)
+    subs = [s[:int(rng.integers(1, len(s) + 1))] for s in base * 10]
+    monkeypatch.setattr(tah, "_on_cuda", lambda device: True)
+    monkeypatch.setattr(tah, "DEVICE_CELLS", 0)
+    cap = warps * tah._scratch_bytes(
+        [(q, [max(subs, key=len)])], m.matrix)
+    monkeypatch.setattr(tah, "_SCRATCH_BYTES", cap)
+    assert tah._scratch_bytes([(q, subs)], m.matrix) > cap
+    launches = []
+    kernel = tsw.sw_hint_stream
+
+    def counted(*a, **k):
+        launches.append(tuple(a[3].shape))
+        return kernel(*a, **k)
+
+    monkeypatch.setattr(tsw, "sw_hint_stream", counted)
+    got = tah.hint_endpoints_many(q, subs, m.matrix, 5, 2, device="cpu")
+    assert got == jah.hint_endpoints_many(q, subs, m.matrix, 5, 2)
+    assert len(launches) > 1
+    assert sum(lanes for _, _, lanes in launches) >= len(subs)
+    assert all(16 * cols * lanes <= cap for _, cols, lanes in launches)
