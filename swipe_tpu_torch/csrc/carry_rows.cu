@@ -89,19 +89,23 @@ struct Band {
 // row r1 - 1 as read (the next band's diag0).  PARTIAL: the band has
 // fewer than 32 * RS rows (the query's last band, or a short tile).
 // CARRY: the rows' H/E come from and go back to the state (K3, K6);
-// without, they start fresh (K5).  WARPS: the warps of the block.
-template <typename M, bool CLAMP, bool PARTIAL, bool CARRY, int WARPS>
+// without, they start fresh (K2, K5).  WARPS: the warps of the block.
+// RS: rows a thread.  CHAIN: instead of every thread's atomicMax into the
+// dump, each thread hands the column's max over the strips above and its
+// own down the pipeline with H and F, and thread 31 alone stores it (the
+// band without a top plane) or max-merges it (K2).
+template <typename M, bool CLAMP, bool PARTIAL, bool CARRY, int WARPS,
+          int RS = Rows<M>::RS, bool CHAIN = false>
 __device__ int walk_band(const Band<M>& b, M* prof, uint8_t* ring,
                          int2* tring, int2* cap, int diag0, int s_in,
                          int& below) {
-  constexpr int RS = Rows<M>::RS;
   const int t = strip_of_thread<WARPS>();
   const long long n = b.n;
   const int row0 = b.r0 + t * RS;
   // the strip's rows of the query: [lo, nr)
   const int lo = max(0, min(RS, -row0));
   const int nr = max(0, min(RS, b.r1 - row0));
-  if (WARPS == 1) strip_profile(b.qc, b.m, row0, lo, nr, t, prof);
+  if (WARPS == 1) strip_profile<M, RS>(b.qc, b.m, row0, lo, nr, t, prof);
 
   int H[RS], E[RS];
 #pragma unroll
@@ -138,6 +142,7 @@ __device__ int walk_band(const Band<M>& b, M* prof, uint8_t* ring,
   int hin = __shfl_up_sync(FULL, H[RS - 1], 1), fin = NEG_INF;
   int hprev = diag0;                // from the row above, the column before
   int hout = H[RS - 1], fout = NEG_INF;
+  int mup = 0, mout = 0;            // CHAIN: the column's max from above
   const int steps = b.L + 31;
   for (int s = 0; s < steps; ++s) {
     if ((s & (WIN - 1)) == 0) {
@@ -170,11 +175,21 @@ __device__ int walk_band(const Band<M>& b, M* prof, uint8_t* ring,
       const M* pr = prof + (c & (NSYM - 1)) * RS * 32 + t;
       hout = hin;
       fout = fin;
-      strip_cells<M, CLAMP, PARTIAL>(pr, cap + t, H, E, nr, d, hout, fout,
-                                     S, b.Q, b.R, b.clamp);
-      // thread 0 also holds s_in, on the query's virtual rows too
-      if ((j & (KSEG - 1)) == KSEG - 1 && (lo < nr || t == 0))
+      strip_cells<M, CLAMP, PARTIAL, RS>(pr, cap + t, H, E, nr, d, hout,
+                                         fout, S, b.Q, b.R, b.clamp);
+      if constexpr (CHAIN) {
+        mout = max(mup, S);
+        if (t == 31 && (j & (KSEG - 1)) == KSEG - 1) {
+          int32_t* dump = b.dump + (j / KSEG) * n;
+          if (b.top_h == nullptr)
+            *dump = mout;
+          else
+            atomicMax(dump, mout);
+        }
+      } else if ((j & (KSEG - 1)) == KSEG - 1 && (lo < nr || t == 0)) {
+        // thread 0 also holds s_in, on the query's virtual rows too
         atomicMax(b.dump + (j / KSEG) * n, S);
+      }
       if (t == 31 && b.bot_h != nullptr) {
         b.bot_h[j * n] = hout;
         b.bot_f[j * n] = fout;
@@ -183,6 +198,10 @@ __device__ int walk_band(const Band<M>& b, M* prof, uint8_t* ring,
     hprev = hin;
     hin = __shfl_up_sync(FULL, hout, 1);
     fin = __shfl_up_sync(FULL, fout, 1);
+    if constexpr (CHAIN) {
+      mup = __shfl_up_sync(FULL, mout, 1);
+      if (t == 0) mup = 0;
+    }
   }
   if (CARRY) {
 #pragma unroll
@@ -367,6 +386,89 @@ carry_rows_kernel(const int32_t* __restrict__ qcodes,
   if (threadIdx.x == 0) s_io[q * n + lane] = sfin;
 }
 
+// K2: every band of the query, laid from its last row up as K3's row form
+// lays them (whole bands, virtual rows above row 0), TILE_WARPS lanes of
+// one query a block sharing the band's profile of 32 * RS rows; rows
+// fresh at column 0 and at start bits; no state.  bh/bf: the planes
+// between bands, [nq, L, nseqs] (null when no query has more than one
+// band).  The dump is zeroed by the caller.
+template <int RS, bool CLAMP, bool CHAIN>
+__global__ void __launch_bounds__(32 * TILE_WARPS)
+stream_rows_kernel(const int32_t* __restrict__ qcodes,
+                   const int32_t* __restrict__ qlens,
+                   const int8_t* __restrict__ m8,
+                   const int8_t* __restrict__ db,
+                   const int8_t* __restrict__ start, int32_t* out,
+                   int32_t* bh, int32_t* bf, int qlen_pad, int nblocks,
+                   int nseqs, int Q, int R, int clamp) {
+  int8_t* prof;
+  int2 *tring, *cap;
+  uint8_t* ring;
+  carve<TILE_WARPS, int8_t, RS>(prof, tring, cap, ring);
+  const int lane = blockIdx.x * TILE_WARPS + (threadIdx.x >> 5);
+  const int q = blockIdx.y;
+  const long long n = nseqs;
+  const int L = nblocks * KSEG;
+  const int qlen = min(qlens[q], qlen_pad);
+  // no rows (the whole block: one query): the dump stays 0
+  if (qlen == 0) return;
+  const int32_t* qc = qcodes + (long long)q * qlen_pad;
+  const long long plane = (long long)q * L * n + lane;
+  Band<int8_t> b{qc, m8, 0, 0, db + lane, start + lane, n, L, nullptr,
+                 nullptr, nullptr, nullptr, nullptr, nullptr,
+                 out + (long long)q * nblocks * n + lane, true, Q, R,
+                 clamp};
+  constexpr int BAND = 32 * RS;
+  for (int r1 = qlen - (qlen - 1) / BAND * BAND; r1 <= qlen; r1 += BAND) {
+    b.r0 = r1 - BAND;
+    b.r1 = r1;
+    const bool last = r1 == qlen;
+    b.bot_h = last ? nullptr : bh + plane;
+    b.bot_f = last ? nullptr : bf + plane;
+    block_profile<TILE_WARPS, int8_t, RS>(qc, m8, b.r0, b.r1, prof);
+    if (lane < nseqs) {
+      int below;
+      walk_band<int8_t, CLAMP, false, false, TILE_WARPS, RS, CHAIN>(
+          b, prof, ring, tring, cap, 0, 0, below);
+    }
+    b.top_h = bh + plane;
+    b.top_f = bf + plane;
+  }
+}
+
+template <int RS, bool CLAMP, bool CHAIN>
+int launch_stream(dim3 grid, cudaStream_t st, const int32_t* qcodes,
+                  const int32_t* qlens, const int8_t* m8, const int8_t* db,
+                  const int8_t* start, int32_t* out, int32_t* bh,
+                  int32_t* bf, int qlen_pad, int nblocks, int nseqs, int Q,
+                  int R, int clamp) {
+  const size_t smem = smem_bytes<int8_t, RS>(TILE_WARPS);
+  const auto kernel = stream_rows_kernel<RS, CLAMP, CHAIN>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, 32 * TILE_WARPS, smem, st>>>(qcodes, qlens, m8, db, start,
+                                              out, bh, bf, qlen_pad, nblocks,
+                                              nseqs, Q, R, clamp);
+  return (int)cudaGetLastError();
+}
+
+template <int RS>
+int launch_stream_rs(int use_clamp, int chain, dim3 grid, cudaStream_t st,
+                     const int32_t* qcodes, const int32_t* qlens,
+                     const int8_t* m8, const int8_t* db,
+                     const int8_t* start, int32_t* out, int32_t* bh,
+                     int32_t* bf, int qlen_pad, int nblocks, int nseqs,
+                     int Q, int R, int clamp) {
+#define STREAM_ARGS grid, st, qcodes, qlens, m8, db, start, out, bh, bf, \
+                    qlen_pad, nblocks, nseqs, Q, R, clamp
+  if (use_clamp)
+    return chain ? launch_stream<RS, true, true>(STREAM_ARGS)
+                 : launch_stream<RS, true, false>(STREAM_ARGS);
+  return chain ? launch_stream<RS, false, true>(STREAM_ARGS)
+               : launch_stream<RS, false, false>(STREAM_ARGS);
+#undef STREAM_ARGS
+}
+
 template <typename M, bool CLAMP>
 int launch_rows(dim3 grid, cudaStream_t st, const int32_t* qcodes,
                 const int32_t* qlens, const M* m, const int8_t* db,
@@ -485,4 +587,34 @@ extern "C" int swipe_carry_rows(
   return launch_rows<int8_t, false>(
       grid, st, qcodes, qlens, (const int8_t*)m, db, start, out, hst, est,
       s_io, bh, bf, carry_in, qlen_pad, nblocks, nseqs, Q, R, clamp);
+}
+
+// K2: out [nq, nblocks, nseqs] zeroed by the caller; rs the rows a
+// thread (4, 8 or 16: bands of 128, 256 or 512 rows); bh/bf [nq, L,
+// nseqs] a scratch for the planes between bands (null when qlen_pad fits
+// one band).  dump_chain: the dump handed down the pipeline and stored by
+// thread 31 instead of every thread's atomicMax.  Needs Q >= R.
+extern "C" int swipe_stream_rows(const int32_t* qcodes, const int32_t* qlens,
+                                 const int8_t* m8, const int8_t* db,
+                                 const int8_t* start, int32_t* out,
+                                 int32_t* bh, int32_t* bf, int nq,
+                                 int qlen_pad, int nblocks, int nseqs, int Q,
+                                 int R, int rs, int use_clamp, int clamp,
+                                 int dump_chain, void* stream) {
+  if (Q < R || (rs != 4 && rs != 8 && rs != 16))
+    return (int)cudaErrorInvalidValue;
+  if (qlen_pad > 32 * rs && bh == nullptr) return (int)cudaErrorInvalidValue;
+  if (nq <= 0 || nseqs <= 0 || nblocks <= 0) return (int)cudaGetLastError();
+  const dim3 grid((nseqs + TILE_WARPS - 1) / TILE_WARPS, nq);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define STREAM_RS(RS)                                                     \
+  if (rs == RS)                                                           \
+    return launch_stream_rs<RS>(use_clamp, dump_chain, grid, st, qcodes,  \
+                                qlens, m8, db, start, out, bh, bf,        \
+                                qlen_pad, nblocks, nseqs, Q, R, clamp);
+  STREAM_RS(4)
+  STREAM_RS(8)
+  STREAM_RS(16)
+#undef STREAM_RS
+  return (int)cudaErrorInvalidValue;
 }

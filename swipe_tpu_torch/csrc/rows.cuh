@@ -42,8 +42,12 @@ constexpr int WIN = 32;            // columns staged at a time
 constexpr int RING = 2 * WIN;      // staged columns
 constexpr int RESET = 32;          // ring code bit: a start bit at this column
 
-// rows a thread, by matrix element type (chosen by timing 8, 16 and 32;
-// ops/sw_stream.py ROW_BANDS mirrors the band heights, 32 * RS)
+// rows a thread of the carry and hint kernels (K3's row form, K4, K5,
+// K6), by matrix element type (chosen by timing 8, 16 and 32;
+// ops/sw_stream.py ROW_BANDS mirrors the band heights, 32 * RS).  Every
+// function below takes RS as a template parameter defaulting to these, so
+// K2 instantiates bands of 128, 256 and 512 rows (ops/sw_stream.py
+// STREAM_BANDS).
 template <typename M> struct Rows;
 template <> struct Rows<int8_t> { static constexpr int RS = 16; };
 template <> struct Rows<int32_t> { static constexpr int RS = 8; };
@@ -61,11 +65,10 @@ __device__ __forceinline__ int strip_of_thread() {
 // the PAD row's scores outside [lo, nr), and reads only what it fills.
 // No block barrier: block_profile in the one-warp kernels cost K6 6%
 // (PERF.md §6, PR 7).
-template <typename M>
+template <typename M, int RS = Rows<M>::RS>
 __device__ __forceinline__ void strip_profile(const int32_t* qc, const M* m,
                                               int row0, int lo, int nr,
                                               int t, M* prof) {
-  constexpr int RS = Rows<M>::RS;
   __syncwarp();
   for (int i = 0; i < RS; ++i) {
     const bool real = i >= lo && i < nr;
@@ -80,10 +83,9 @@ __device__ __forceinline__ void strip_profile(const int32_t* qc, const M* m,
 // fills rows w, w + WARPS, ... of every strip, the layout of
 // strip_profile for rows [r0, r1).  Barriers on both sides: no warp still
 // reads the previous band's, and every warp sees the whole of this one.
-template <int WARPS, typename M>
+template <int WARPS, typename M, int RS = Rows<M>::RS>
 __device__ __forceinline__ void block_profile(const int32_t* qc, const M* m,
                                               int r0, int r1, M* prof) {
-  constexpr int RS = Rows<M>::RS;
   const int t = threadIdx.x & 31;
   const int row0 = r0 + t * RS;
   __syncthreads();
@@ -110,12 +112,10 @@ __device__ __forceinline__ void block_profile(const int32_t* qc, const M* m,
 // results at RS = 16 on the card unless ptxas ran at -O0 (not
 // understood).  Predicating each row on being the query's instead of
 // computing it was slower.
-template <typename M, bool CLAMP, bool PARTIAL>
+template <typename M, bool CLAMP, bool PARTIAL, int RS = Rows<M>::RS>
 __device__ __forceinline__ void strip_cells(
-    const M* __restrict__ pr, int2* cap, int (&H)[Rows<M>::RS],
-    int (&E)[Rows<M>::RS], int nr, int d, int& hout, int& fout, int& S,
-    int Q, int R, int clamp) {
-  constexpr int RS = Rows<M>::RS;
+    const M* __restrict__ pr, int2* cap, int (&H)[RS], int (&E)[RS], int nr,
+    int d, int& hout, int& fout, int& S, int Q, int R, int clamp) {
   int hn[RS], fv[RS + 1];
 #pragma unroll
   for (int i = 0; i < RS; ++i) {
@@ -154,29 +154,29 @@ __device__ __forceinline__ void strip_cells(
 // shared memory of a block of W warps: each warp's staged planes (int2
 // [RING]), rows' (H, F) of a partial band (int2 [RS][32]) and staged
 // symbols (uint8 [RING]), then the profile (M [NSYM][RS][32])
-template <typename M>
+template <typename M, int RS = Rows<M>::RS>
 __host__ __device__ constexpr size_t profile_bytes() {
-  return sizeof(M) * NSYM * Rows<M>::RS * 32;
+  return sizeof(M) * NSYM * RS * 32;
 }
 
-template <typename M>
+template <typename M, int RS = Rows<M>::RS>
 __host__ __device__ constexpr size_t warp_smem_bytes() {
-  return sizeof(int2) * (RING + Rows<M>::RS * 32) + RING;
+  return sizeof(int2) * (RING + RS * 32) + RING;
 }
 
-template <typename M>
+template <typename M, int RS = Rows<M>::RS>
 __host__ __device__ constexpr size_t smem_bytes(int warps) {
-  return warps * warp_smem_bytes<M>() + profile_bytes<M>();
+  return warps * warp_smem_bytes<M, RS>() + profile_bytes<M, RS>();
 }
 
-template <int WARPS, typename M>
+template <int WARPS, typename M, int RS = Rows<M>::RS>
 __device__ void carve(M*& prof, int2*& tring, int2*& cap, uint8_t*& ring) {
   extern __shared__ __align__(16) unsigned char smem[];
   tring = reinterpret_cast<int2*>(
-      smem + (WARPS == 1 ? 0 : threadIdx.x >> 5) * warp_smem_bytes<M>());
+      smem + (WARPS == 1 ? 0 : threadIdx.x >> 5) * warp_smem_bytes<M, RS>());
   cap = tring + RING;
-  ring = reinterpret_cast<uint8_t*>(cap + Rows<M>::RS * 32);
-  prof = reinterpret_cast<M*>(smem + WARPS * warp_smem_bytes<M>());
+  ring = reinterpret_cast<uint8_t*>(cap + RS * 32);
+  prof = reinterpret_cast<M*>(smem + WARPS * warp_smem_bytes<M, RS>());
 }
 
 template <typename K>

@@ -1,4 +1,5 @@
-// Anti-diagonal wavefront scoring of one giant db segment (K7).
+// Wavefront scoring of one giant db segment (K7): the segment's columns
+// cut into slabs that run at once across the card.
 //
 // Replaces the TPU kernel swipe_tpu/ops/sw_wavefront.py sw_wavefront
 // (_wavefront_kernel).  NQ queries against ONE db sequence, streamed
@@ -7,159 +8,312 @@
 // query's running max S.  Used for the few chromosome-scale units whose
 // positive-score span is too large to cut them into overlapped pieces.
 //
-// The TPU kernel parallelises inside the pair with 8 x 128 column strips,
-// a lazy-E prefix max along each strip and an edge ring between strips.
-// Here the parallel axis is the query row instead:
-//   * one thread block per query, one thread per query row (QLEN <= 1024;
-//     rows past qlen_pad, up to a whole warp, only relay values);
-//   * the block sweeps anti-diagonals: at step t, thread i computes column
-//     t - i of the segment;
-//   * E runs along the row, so it stays in the thread's registers with
-//     the row's H of the previous column;
-//   * H and F come down from row i - 1, computed one step earlier: inside
-//     a warp by __shfl_up_sync, across warps through a shared-memory
-//     double buffer written by each warp's last lane, behind one
-//     __syncthreads per step; the H that arrived one step earlier is the
-//     diagonal;
-//   * the row's scores for the 32 db symbols sit in shared memory as
-//     [32][rows] int32, so a warp's lookups (one row each, any symbols)
-//     hit 32 different banks;
-//   * the segment's symbols are staged through a shared-memory ring of
-//     four 1024-column tiles, one tile ahead of the wavefront;
-//   * S is reduced over the block at the end.
-// The recurrence is the exact E/F/H of stream.cu with E kept as the
-// cell's own value (not pre-advanced), which is what the TPU kernel's
-// edge ring holds: E(i, j) = max(E(i, j-1) - R, H(i, j-1) - Q),
-// F(i, j) = max(F(i-1, j) - R, H(i-1, j) - Q),
-// H(i, j) = max(H(i-1, j-1) + score, E, F, 0).
+// The TPU kernel walks a segment in 1024-column strips one after another,
+// the query's rows its time axis.  Here the strips become slabs that run
+// at the same time, pipelined across the SMs:
+//   * the band walker of rows.cuh transposed: thread t of a warp owns C
+//     consecutive db columns, their H of the row above and F in registers
+//     for the whole slab, and at step s computes row s - t of them;
+//   * E runs along the row through the thread's C columns, one
+//     instruction a column: it is taken from the cell before its max with
+//     E (hn = max(diag + p, F, 0)), exact because Q >= R, as rows.cuh
+//     takes F.  E and F are kept as E + Q and F + Q, so that H = max(E +
+//     Q - Q, hn) and the next E + Q = max(E + Q - R, hn) are one DPX
+//     instruction each;
+//   * the thread hands its last column's H and E + Q for that row to
+//     thread t + 1 with __shfl_up_sync; the H that arrived one step
+//     earlier is the diagonal into its first column;
+//   * the query profile sits in shared memory as int16 [sym][row]: the 32
+//     threads of a warp are on 32 consecutive rows, so their lookups hit
+//     at most two rows a bank, one word when the symbols agree.
+// A warp covers a slab of 32 * C columns; a block of W warps covers W
+// slabs in a row.  A warp's left edge (H and E + Q of every row at the
+// column before its slab) comes in a row at a time, each row's 16 bytes
+// {H, 1, E + Q, 1} written with one store and read with one load, so a
+// reader that sees both 1s holds the row (the 8-byte halves are single
+// copies: the handoff of NCCL's LL protocol) and no fence is needed:
+//   * inside a block, thread 31 of warp w writes each row into warp w + 1's
+//     staging array in shared memory;
+//   * a block's last warp writes its right edge into global memory, which
+//     the wrapper zeroes before the launch; the next block slab's first
+//     warp loads it G rows at a time, one group ahead, and polls a row
+//     again until its 1s are there.
+// Slab 0 stages the carried state (column -1); the segment's last slab
+// writes the new one.  Each warp folds its S into s[q] with atomicMax.
 //
-// Bound: latency.  A step does one cell per row, about ten dependent
-// instructions, then waits at the block barrier; L + QLEN - 1 steps per
-// segment, NQ blocks on the card's 132 SMs.  The barrier per step is what
-// a warp-strip pipeline would remove (later work).
+// No deadlock: blocks take (query, block slab) tickets from a counter in
+// the order they start (slab-major, so the queries advance together), and
+// a ticket waits only on a smaller one, held by a block that is running.
+// The grid is no larger than the blocks the card holds at once.  The
+// wrapper zeroes the counter and the edges on the launch's stream before
+// each launch.
+//
+// Bound: the DP's critical path at tblastn's shape (16 queries of 512
+// rows, 262,144 columns; the throughput term is half of it).  A slab
+// starts about 2G + 31 steps after the one to its left, so C and G set
+// how fast the wavefront crosses the segment.
 #include "sw_common.cuh"
 
 using namespace swipe;
 
 namespace {
 
-constexpr int TILE = 1024;          // db columns staged per tile
-constexpr int RING = 4 * TILE;      // staged columns (bytes), power of two
 constexpr int MAX_ROWS = 1024;
 constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(MAX_ROWS)
-wavefront_kernel(const int8_t* __restrict__ mq, const int8_t* __restrict__ db,
-                 int32_t* h, int32_t* e, int32_t* s, int qlen_pad, int L,
-                 int Q, int R) {
-  extern __shared__ int smem[];
-  const int rows = blockDim.x;                  // qlen_pad rounded to a warp
-  const int nwarps = rows / 32;
-  int* prof = smem;                             // [NSYM][rows]
-  int2* xfer = reinterpret_cast<int2*>(prof + NSYM * rows);   // [2][nwarps]
-  int* red = reinterpret_cast<int*>(xfer + 2 * nwarps);       // [nwarps]
-  int8_t* ring = reinterpret_cast<int8_t*>(red + nwarps);     // [RING]
+// the profile's row stride: rows rounded to 64, so stride / 2 words is a
+// multiple of 32 and a lookup's bank is its row's
+__host__ __device__ constexpr int row_stride(int qlen_pad) {
+  return (qlen_pad + 63) / 64 * 64;
+}
 
-  const int q = blockIdx.x;
-  const int i = threadIdx.x;
-  const int lane = i & 31, warp = i >> 5;
-  const bool live = i < qlen_pad;
-  const int8_t* mqq = mq + (long long)q * qlen_pad * NSYM;
-  for (int k = i; k < NSYM * rows; k += rows) {
-    const int sym = k / rows, r = k - sym * rows;
-    prof[k] = r < qlen_pad ? mqq[r * NSYM + sym] : 0;
+// shared memory: the profile (int16 [NSYM][stride]), each warp's staged
+// left edge (int4 [W][stride]) and the block's ticket
+__host__ __device__ constexpr size_t wave_smem(int W, int stride) {
+  return sizeof(int16_t) * NSYM * stride + sizeof(int4) * W * stride +
+         sizeof(int);
+}
+
+// A row of an edge, {H, 1, E + Q, 1}, as one 16-byte store and load
+// (generic addresses: shared or global memory).
+__device__ __forceinline__ void put_row(int4* p, int h, int e) {
+  asm volatile("st.volatile.v4.s32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+               "r"(h), "r"(1), "r"(e), "r"(1)
+               : "memory");
+}
+
+__device__ __forceinline__ int4 get_row(const int4* p) {
+  int4 v;
+  asm volatile("ld.volatile.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ bool whole(int4 v) { return v.y == 1 && v.w == 1; }
+
+// The query's profile, int16 [sym][stride] from int8 mq [qlen_pad][32]:
+// a thread takes rows 2p and 2p + 1 (64 bytes) and writes word p of every
+// symbol, so a warp's stores hit 32 consecutive words.
+__device__ __forceinline__ void load_profile(const int8_t* mqq, int qlen_pad,
+                                             int stride, int16_t* prof) {
+  uint32_t* words = reinterpret_cast<uint32_t*>(prof);
+  for (int p = threadIdx.x; p < stride / 2; p += blockDim.x) {
+    int4 a[2] = {}, b[2] = {};
+    const int4* src = reinterpret_cast<const int4*>(mqq);
+    if (2 * p < qlen_pad) {
+      a[0] = src[4 * p];
+      a[1] = src[4 * p + 1];
+    }
+    if (2 * p + 1 < qlen_pad) {
+      b[0] = src[4 * p + 2];
+      b[1] = src[4 * p + 3];
+    }
+    const int* ra = reinterpret_cast<const int*>(a);
+    const int* rb = reinterpret_cast<const int*>(b);
+#pragma unroll
+    for (int sym = 0; sym < NSYM; ++sym) {
+      const int sh = 8 * (sym & 3);
+      const int lo = (int)(int8_t)(ra[sym >> 2] >> sh);
+      const int hi = (int)(int8_t)(rb[sym >> 2] >> sh);
+      words[sym * (stride / 2) + p] =
+          (uint32_t)(lo & 0xffff) | ((uint32_t)hi << 16);
+    }
   }
-  for (int k = i; k < TILE && k < L; k += rows) ring[k] = db[k];
+}
 
-  int32_t* hq = h + (long long)q * qlen_pad;
-  int32_t* eq = e + (long long)q * qlen_pad;
-  // the row's H/E at column -1 (the previous segment's last column)
-  int hleft = live ? hq[i] : 0;
-  int eleft = live ? eq[i] : NEG_INF;
-  int fout = NEG_INF;
-  // from row i - 1: H and F of the column this row computes next, and H
-  // of the one before (the diagonal); row -1 is H = 0, F = -inf
-  int hup = i > 0 && i <= qlen_pad ? hq[i - 1] : 0;
-  int fup = NEG_INF;
-  int diag = 0;
-  int S = 0;
-  __syncthreads();
+template <int C, int W, int G>
+__global__ void __launch_bounds__(32 * W)
+wavefront_kernel(const int8_t* __restrict__ mq,
+                 const int8_t* __restrict__ db, int32_t* h, int32_t* e,
+                 int32_t* s, int4* edge, int* ticket_counter, int nq,
+                 int qlen_pad, int L, int Q, int R) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int stride = row_stride(qlen_pad);
+  int16_t* prof = reinterpret_cast<int16_t*>(smem);
+  int4* stages = reinterpret_cast<int4*>(prof + NSYM * stride);
+  int* ticket = reinterpret_cast<int*>(stages + W * stride);
+  const int w = threadIdx.x >> 5, t = threadIdx.x & 31;
+  const int nws = L / (32 * C);           // warp slabs of the segment
+  const int nbs = (nws + W - 1) / W;      // block slabs
+  int4* stage = stages + w * stride;
 
-  const int steps = L + qlen_pad - 1;
-  for (int t = 0; t < steps; ++t) {
-    if ((t & (TILE - 1)) == 0) {
-      // stage the tile after the current one: it is first read TILE
-      // steps (and as many barriers) from now, and its ring slot last
-      // held columns no row still needs
-      const int c0 = t + TILE;
-      for (int k = i; k < TILE && c0 + k < L; k += rows)
-        ring[(c0 + k) & (RING - 1)] = db[c0 + k];
-    }
-    const int j = t - i;
-    if (live && j >= 0 && j < L) {
-      const int p = prof[(ring[j & (RING - 1)] & (NSYM - 1)) * rows + i];
-      const int ecur = max(eleft - R, hleft - Q);
-      const int f = max(fup - R, hup - Q);
-      const int hh = max(max(diag + p, 0), max(ecur, f));
-      S = max(S, hh);
-      hleft = hh;
-      eleft = ecur;
-      fout = f;
-    }
-    // hand H and F down one row; a row not yet started hands down its
-    // column -1 H, which the next row needs as its first diagonal
-    int hn = __shfl_up_sync(FULL, hleft, 1);
-    int fn = __shfl_up_sync(FULL, fout, 1);
-    if (lane == 31) xfer[(t & 1) * nwarps + warp] = make_int2(hleft, fout);
+  for (;;) {
+    // every warp is past the previous ticket's walk
     __syncthreads();
-    if (lane == 0) {
-      if (warp > 0) {
-        const int2 v = xfer[(t & 1) * nwarps + warp - 1];
-        hn = v.x;
-        fn = v.y;
-      } else {
-        hn = 0;
-        fn = NEG_INF;
+    if (threadIdx.x == 0) *ticket = atomicAdd(ticket_counter, 1);
+    for (int i = threadIdx.x; i < W * stride; i += blockDim.x)
+      stages[i] = make_int4(0, 0, 0, 0);
+    __syncthreads();
+    const int k = *ticket;
+    if (k >= nq * nbs) return;
+    const int q = k % nq, bs = k / nq;
+    load_profile(mq + (long long)q * qlen_pad * NSYM, qlen_pad, stride,
+                 prof);
+    __syncthreads();
+    const int gs = bs * W + w;             // this warp's slab
+    if (gs >= nws) continue;               // past a partial block's end
+    const bool last = gs == nws - 1;       // writes the carried state
+    int32_t* hq = h + (long long)q * qlen_pad;
+    int32_t* eq = e + (long long)q * qlen_pad;
+    const int4* left = edge + ((long long)q * nbs + bs - 1) * stride;
+    int4* right = edge + ((long long)q * nbs + bs) * stride;
+
+    // the thread's C columns: profile offsets of their symbols
+    int off[C];
+    {
+      const int* col = reinterpret_cast<const int*>(db + (gs * 32 + t) * C);
+#pragma unroll
+      for (int i = 0; i < C / 4; ++i) {
+        const int v = col[i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          off[4 * i + j] = ((v >> (8 * j)) & (NSYM - 1)) * stride;
       }
     }
-    diag = hup;
-    hup = hn;
-    fup = fn;
-  }
 
-  if (live) {
-    hq[i] = hleft;
-    eq[i] = eleft;
+    // warp 0 stages its left edge G rows at a time, loaded one group
+    // ahead: the carried state for slab 0, else the block slab to its
+    // left's edge.  Thread t < G holds row r0 + t until it is stored.
+    int4 fv = make_int4(0, 1, NEG_INF, 1);
+    auto fetch = [&](int r0) {
+      const int r = r0 + t;
+      if (w != 0 || t >= G || r >= qlen_pad) return;
+      if (gs == 0) {
+        const int hh = hq[r];
+        fv = make_int4(hh, 1, __viaddmax_s32(eq[r], Q - R, hh), 1);
+      } else {
+        fv = get_row(left + r);
+      }
+    };
+    fetch(0);
+
+    int Hc[C], Fp[C];            // H of the row above, F + Q into this row
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      Hc[i] = 0;
+      Fp[i] = NEG_INF;
+    }
+    int S = 0;
+    int hl = 0, el = NEG_INF;    // left H and E + Q of the row this step
+    int hprev = 0;               // left H of the row above: the diagonal
+    int hout = 0, eout = NEG_INF;
+    const int steps = qlen_pad + 31;
+    for (int st = 0; st < steps; ++st) {
+      if (w == 0 && st % G == 0) {
+        // store group st / G (loaded one group ago, polled again until
+        // whole), load the next
+        if (t < G && st + t < qlen_pad) {
+          while (!whole(fv)) fv = get_row(left + st + t);
+          stage[st + t] = fv;
+        }
+        __syncwarp();
+        fetch(st + G);
+      }
+      const int r = st - t;
+      if (t == 0 && r < qlen_pad) {
+        int4 v = get_row(stage + r);
+        while (!whole(v)) v = get_row(stage + r);
+        hl = v.x;
+        el = v.z;
+      }
+      if (r >= 0 && r < qlen_pad) {
+        const int16_t* pr = prof + r;
+        int hn[C];
+        int d = hprev;
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          hn[i] = __viaddmax_s32_relu(Fp[i], -Q, d + (int)pr[off[i]]);
+          d = Hc[i];
+        }
+        int E = el, eown = el;
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          eown = E;
+          const int hh = __viaddmax_s32(E, -Q, hn[i]);
+          E = __viaddmax_s32(E, -R, hn[i]);
+          Hc[i] = hh;
+          Fp[i] = __viaddmax_s32(Fp[i], -R, hh);
+        }
+#pragma unroll
+        for (int i = 0; i + 1 < C; i += 2) S = __vimax3_s32(S, Hc[i], Hc[i + 1]);
+        hout = Hc[C - 1];
+        eout = E;
+        if (t == 31) {
+          if (last) {
+            hq[r] = hout;
+            eq[r] = eown - Q;
+          } else {
+            put_row(w == W - 1 ? right + r : stages + (w + 1) * stride + r,
+                    hout, eout);
+          }
+        }
+      }
+      hprev = hl;
+      hl = __shfl_up_sync(FULL, hout, 1);
+      el = __shfl_up_sync(FULL, eout, 1);
+    }
+    S = __reduce_max_sync(FULL, S);
+    if (t == 0) atomicMax(s + q, S);
   }
-  S = __reduce_max_sync(FULL, S);
-  if (lane == 0) red[warp] = S;
-  __syncthreads();
-  if (i == 0) {
-    int m = s[q];
-    for (int w = 0; w < nwarps; ++w) m = max(m, red[w]);
-    s[q] = m;
-  }
+}
+
+template <int C, int W, int G>
+int launch(const int8_t* mq, const int8_t* db, int32_t* h, int32_t* e,
+           int32_t* s, int4* edge, int* ticket, int nq, int qlen_pad, int L,
+           int Q, int R, cudaStream_t st) {
+  if (L % (32 * C)) return (int)cudaErrorInvalidValue;
+  const int stride = row_stride(qlen_pad);
+  const size_t smem = wave_smem(W, stride);
+  const auto kernel = wavefront_kernel<C, W, G>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, 32 * W, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int nws = L / (32 * C);
+  const int tickets = nq * ((nws + W - 1) / W);
+  const int grid = min(tickets, per_sm * sms);
+  kernel<<<grid, 32 * W, smem, st>>>(mq, db, h, e, s, edge, ticket, nq,
+                                     qlen_pad, L, Q, R);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // mq [nq, qlen_pad, 32] int8 per-row scores, db [L] int8 symbols; h/e
 // [nq, qlen_pad] and s [nq] int32, the carried state, updated in place.
-extern "C" int swipe_wavefront(const int8_t* mq, const int8_t* db, int32_t* h,
-                               int32_t* e, int32_t* s, int nq, int qlen_pad,
-                               int L, int Q, int R, void* stream) {
-  if (nq > 0 && L > 0 && qlen_pad > 0) {
-    if (qlen_pad > MAX_ROWS) return (int)cudaErrorInvalidValue;
-    const int rows = (qlen_pad + 31) / 32 * 32;
-    const size_t smem = sizeof(int) * NSYM * rows +
-                        sizeof(int2) * 2 * (rows / 32) +
-                        sizeof(int) * (rows / 32) + RING;
-    const cudaError_t err = cudaFuncSetAttribute(
-        wavefront_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    wavefront_kernel<<<nq, rows, smem, (cudaStream_t)stream>>>(
-        mq, db, h, e, s, qlen_pad, L, Q, R);
-  }
-  return (int)cudaGetLastError();
+// (c, w, g): columns a thread, warps a block, rows a handoff group, one
+// of the instantiations below; edge the block slabs' right edges (int4
+// [nq, block slabs, row_stride(qlen_pad)]) and ticket the ticket counter
+// (int32 [1]), both zeroed before each launch.  L a multiple of 32 * c;
+// needs Q >= R.
+extern "C" int swipe_wavefront(const int8_t* mq, const int8_t* db,
+                               int32_t* h, int32_t* e, int32_t* s,
+                               int4* edge, int* ticket, int nq, int qlen_pad,
+                               int L, int Q, int R, int c, int w, int g,
+                               void* stream) {
+  if (nq <= 0 || L <= 0 || qlen_pad <= 0) return (int)cudaGetLastError();
+  if (qlen_pad > MAX_ROWS || Q < R) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define WAVE_CONFIG(C, W, G)                                              \
+  if (c == C && w == W && g == G)                                         \
+    return launch<C, W, G>(mq, db, h, e, s, edge, ticket, nq, qlen_pad, \
+                           L, Q, R, st);
+  WAVE_CONFIG(16, 1, 8)
+  WAVE_CONFIG(16, 1, 4)
+  WAVE_CONFIG(32, 1, 8)
+  WAVE_CONFIG(32, 1, 4)
+  WAVE_CONFIG(32, 1, 16)
+  WAVE_CONFIG(16, 4, 8)
+  WAVE_CONFIG(32, 4, 8)
+#undef WAVE_CONFIG
+  return (int)cudaErrorInvalidValue;
 }

@@ -148,12 +148,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "swipe_dprofile": ("dprofile", [_P, _P, _P, ctypes.c_longlong, _I, _P]),
     "swipe_stream": ("stream", [_P] * 9 + [_I] * 8 + [_P]),
+    "swipe_stream_rows": ("carry_rows", [_P] * 8 + [_I] * 10 + [_P]),
     "swipe_stream_carry": ("stream", [_P] * 10 + [_I] * 10 + [_P]),
     "swipe_hint": ("hint", [_P] * 3 + [_I] + [_P] * 6 + [_I] * 6 + [_P]),
     "swipe_stream_tile": ("carry_rows", [_P] * 8 + [_I] * 10 + [_P]),
     "swipe_stream_tile_carry": ("carry_rows", [_P] * 12 + [_I] * 10 + [_P]),
     "swipe_carry_rows": ("carry_rows", [_P] * 11 + [_I] * 10 + [_P]),
-    "swipe_wavefront": ("wavefront", [_P] * 5 + [_I] * 5 + [_P]),
+    "swipe_wavefront": ("wavefront", [_P] * 7 + [_I] * 8 + [_P]),
     "swipe_segment": ("segment", [_P, _I] + [_P] * 5 + [_I] * 7 + [_P]),
     "swipe_segment_tiled": ("segment", [_P] * 6 + [_I] * 7 + [_P]),
     "swipe_peak": ("peak", [_P] * 2 + [_I] * 6 + [_P]),
@@ -247,6 +248,27 @@ def build_dprofile_series(matrix8: torch.Tensor, db: torch.Tensor
 
 
 # ---- K2: grouped stream scoring -------------------------------------------
+
+# K2's band heights on the card (32 threads x 4, 8 or 16 rows a thread,
+# csrc/carry_rows.cu stream_rows_kernel): a launch takes the lowest that
+# holds qlen_pad, or the highest in several bands
+STREAM_BANDS = (128, 256, 512)
+# the planes between K2's bands, at most this many bytes a launch
+_STREAM_PLANE_BYTES = 1 << 30
+# K2's dump: handed down the pipeline and stored by thread 31 (True) or
+# every thread's atomicMax (False)
+STREAM_DUMP_CHAIN = True
+
+
+def stream_band(qlen_pad: int) -> int:
+    """K2's band height for a launch of qlen_pad rows."""
+    return next((b for b in STREAM_BANDS if qlen_pad <= b), STREAM_BANDS[-1])
+
+
+def stream_form(qlen_pad: int) -> str:
+    """Which kernel scores sw_scores_stream on the card: "rows"."""
+    return "rows"
+
 
 def _row_shift(h: torch.Tensor, fill: int) -> torch.Tensor:
     """h moved down one query row (dim 1), ``fill`` entering at row 0."""
@@ -351,7 +373,8 @@ def sw_scores_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
                      matrix8: torch.Tensor, db: torch.Tensor,
                      start: torch.Tensor, *, gapopenextend: int,
                      gapextend: int, clamp: int | None = None,
-                     dprof: torch.Tensor | None = None) -> torch.Tensor:
+                     dprof: torch.Tensor | None = None,
+                     form: str | None = None) -> torch.Tensor:
     """Score queries against a lane-packed chunk.
 
     qcodes:  [NQ, QLEN] int32 query codes, PAD_SYMBOL padded (build_qcodes)
@@ -389,16 +412,44 @@ def sw_scores_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
         return sw_scores_stream_plain(
             qcodes, qlens, matrix8, db, start, gapopenextend=gapopenextend,
             gapextend=gapextend, clamp=clamp, dprof=dprof)
+    if (form or stream_form(qlen_pad)) == "lanes":
+        return _stream_lanes(qcodes, qlens, matrix8, db, start, gapopenextend,
+                             gapextend, clamp, dprof)
+    _check_gaps(gapopenextend, gapextend)
+    out = torch.zeros((nq, nblocks, nseqs), dtype=torch.int32, device=dev)
+    band = stream_band(qlen_pad)
+    # the planes between a query's bands, when it has more than one; a
+    # launch takes as many queries as fit _STREAM_PLANE_BYTES
+    step, bh = nq, None
+    if qlen_pad > band:
+        step = max(1, min(nq, _STREAM_PLANE_BYTES // (8 * L * nseqs)))
+        bh = torch.empty((2, step, L, nseqs), dtype=torch.int32, device=dev)
+    for q0 in range(0, nq, step):
+        q1 = min(nq, q0 + step)
+        _launch("swipe_stream_rows", dev, _ptr(qcodes[q0:q1]),
+                _ptr(qlens[q0:q1]), _ptr(matrix8), _ptr(db), _ptr(start),
+                _ptr(out[q0:q1]), _ptr(None if bh is None else bh[0]),
+                _ptr(None if bh is None else bh[1]), q1 - q0, qlen_pad,
+                nblocks, nseqs, int(gapopenextend), int(gapextend),
+                band // 32, *_clampv(clamp), int(STREAM_DUMP_CHAIN))
+    return out
+
+
+def _stream_lanes(qcodes, qlens, matrix8, db, start, Q, R, clamp, dprof):
+    """sw_scores_stream on the lane form (csrc/stream.cu mode 0): one
+    thread a (query, lane), 128 lanes a block, H/E in a global scratch."""
+    dev = db.device
+    nq, qlen_pad = qcodes.shape
+    L, nseqs = db.shape
+    nblocks = L // KSEG
     out = torch.empty((nq, nblocks, nseqs), dtype=torch.int32, device=dev)
     hst = torch.empty((nq, qlen_pad, nseqs), dtype=torch.int32, device=dev)
     est = torch.empty_like(hst)
     _launch("swipe_stream", dev, _ptr(qcodes), _ptr(qlens), _ptr(matrix8),
             _ptr(db), _ptr(start), _ptr(dprof), _ptr(out), _ptr(hst),
-            _ptr(est), nq, qlen_pad, nblocks, nseqs, int(gapopenextend),
-            int(gapextend), int(clamp is not None),
-            int(clamp) if clamp is not None else 0)
+            _ptr(est), nq, qlen_pad, nblocks, nseqs, int(Q), int(R),
+            *_clampv(clamp))
     return out
-
 
 
 # ---- K3: one chunk of a flow or carry series ------------------------------
@@ -1089,6 +1140,7 @@ def sw_hint_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
 # counts on the original; ops.sw_wavefront adds its own)
 _COUNTED = {"swipe_dprofile": build_dprofile_series,
             "swipe_stream": sw_scores_stream,
+            "swipe_stream_rows": sw_scores_stream,
             "swipe_stream_carry": sw_scores_stream_carry_lanes,
             "swipe_carry_rows": sw_scores_stream_carry_rows,
             "swipe_hint": sw_hint_stream,

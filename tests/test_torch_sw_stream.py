@@ -5,6 +5,7 @@ oracle, on the same packs.  Integer DP: every comparison is exact."""
 import numpy as np
 import pytest
 import torch
+import torch_row_cases as rc
 
 from swipe_tpu.batching import pack_stream as jax_pack_stream
 from swipe_tpu.matrices import ScoreMatrix
@@ -114,6 +115,49 @@ def test_stream_plain_matches_jax(m62, case):
         assert (got == clamp).any()
     assert np.array_equal(got, oracle)
     assert tsw.sw_scores_stream.launches == 0
+
+
+@pytest.mark.parametrize("clamp", [None, 60])
+@pytest.mark.parametrize("lengths", rc.STREAM_LENGTHS,
+                         ids=lambda t: "-".join(map(str, t)))
+def test_stream_plain_at_band_edges(m62, lengths, clamp):
+    # K2's launches at the card kernel's band edges (bands of 128, 256
+    # and 512 rows laid from each query's end, two over 512 rows): query
+    # windows planted across strip and band edges, lanes refilled inside
+    # the first 32 columns; the plain version against the lax twin
+    rng = np.random.default_rng(sum(lengths))
+    seqs = _rand_seqs(rng, 80, 50, 120)
+    ch = jax_pack_stream(seqs, nseqs=64, max_cols=8 * KSEG)[0]
+    start = ch.start.copy()
+    start[1, ::5] = 1                   # refills at column 16
+    queries = [rng.integers(1, 26, size=n, dtype=np.int8) for n in lengths]
+    data_t = ch.data_t.copy()
+    assert rc.plant_windows(rng, data_t.T, start, queries, rc.STREAM_EDGES)
+    qlen_pad = -(-max(lengths) // 32) * 32
+    qc, ql = jsw.build_qcodes(queries, qlen_pad)
+    m8 = jsw.build_matrix8(m62.matrix)
+    kw = dict(gapopenextend=12, gapextend=1, clamp=clamp)
+    want = np.asarray(jsw.sw_scores_stream_lax(
+        qc, ql, m8, np.ascontiguousarray(data_t.T), start, **kw))
+    data, start, _, _ = tsw.chunk_tensors(data_t, start, ch.end_block,
+                                          ch.lane, "cpu")
+    got = tsw.sw_scores_stream(_t(qc), _t(ql), _t(m8), data, start, **kw)
+    assert np.array_equal(got.numpy(), want)
+    if clamp is not None:
+        assert (want == clamp).any()
+
+
+def test_stream_band_choice():
+    # the card kernel's band: the lowest of STREAM_BANDS that holds
+    # qlen_pad (a 200-aa query's 256 rows in a 256-row band), else several
+    # of the highest
+    for qlen_pad in range(32, 2049, 32):
+        band = tsw.stream_band(qlen_pad)
+        assert band in tsw.STREAM_BANDS
+        fits = [b for b in tsw.STREAM_BANDS if b >= qlen_pad]
+        assert band == (min(fits) if fits else max(tsw.STREAM_BANDS))
+    assert tsw.stream_band(256) == 256 and tsw.stream_band(257) == 512
+    assert tsw.stream_form(256) == "rows"
 
 
 def test_gather_scores_matches_jax():

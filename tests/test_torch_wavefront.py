@@ -4,12 +4,16 @@ segment runs in the port from the JAX state left by the one before, and
 the H/E of the last column, the running max and the scores must be
 equal.  The cases are those of tests/test_sw_wavefront.py: cuts of the
 TPU kernel's strips and blocks, a segment cut, a gap across a cut, zero
-and one-residue queries.  Exact."""
+and one-residue queries; and alignments with a long horizontal gap across
+the card kernel's slab edges and a segment cut.  Exact.  Then the card
+kernel's slab count for every segment width."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import torch_row_cases as rc
 
 import swipe_tpu.ops.sw_wavefront as JW
 from swipe_tpu.matrices import ScoreMatrix
@@ -96,6 +100,29 @@ def test_wavefront_segment_cuts(m62, monkeypatch):
                           _oracle(queries, seq, m62))
 
 
+def test_wavefront_gap_across_slab_edges(m62, monkeypatch):
+    # 2-strip segments (the shapes of test_wavefront_segment_cuts): two
+    # 64-row queries of the two best-scoring residues whose halves sit
+    # either side of a horizontal gap of 270 columns, over [1780, 2050)
+    # (the 256-column slab edge at 1792, the segment cut at 2048) and
+    # [3830, 4100) (3840, the cut at 4096): E carries the alignment across
+    # them
+    monkeypatch.setattr(TW, "SEG_STRIPS", 2)
+    rng = np.random.default_rng(9)
+    best = 1 + np.argsort(-np.diag(m62.matrix)[1:26], kind="stable")[:2]
+    queries = [rc.rich_query(rng, 64, best) for _ in range(2)]
+    seq = rng.integers(1, 26, size=7000, dtype=np.int8)
+    rc.plant_gapped(seq, queries[0], 32, 1780, 270)
+    rc.plant_gapped(seq, queries[1], 32, 3830, 270)
+    got = _check(queries, seq, m62, 64)
+    assert np.array_equal(got, _oracle(queries, seq, m62))
+    # the gapped alignment beats either half alone
+    for k, cut in enumerate((1900, 3950)):
+        halves = _oracle([queries[k]], seq[:cut], m62)[0], \
+            _oracle([queries[k]], seq[cut:], m62)[0]
+        assert got[k] > max(halves)
+
+
 def test_wavefront_zero_and_short(m62):
     # a score of 0 and one-residue queries
     q0 = np.array([4], dtype=np.int8)         # C (rare)
@@ -118,3 +145,18 @@ def test_wavefront_shapes():
     assert TW._segments(0) == []
     assert TW._segments(TW.STRIP * TW.SEG_STRIPS + 1) == \
         [(0, TW.STRIP * TW.SEG_STRIPS), (TW.STRIP * TW.SEG_STRIPS, TW.STRIP)]
+
+
+def test_wavefront_slab_counts():
+    # every segment width _segments yields, 1,024 to 262,144 columns,
+    # splits into whole slabs of the card kernel, more than one a query
+    c, w, _ = TW.WAVEFRONT_CONFIG
+    widths = {width for n in [1] + [1024 << k for k in range(9)] + [300_000]
+              for _, width in TW._segments(n)}
+    assert widths == {1024 << k for k in range(9)}
+    for L in sorted(widths):
+        nws, nbs = TW.wavefront_slabs(L)
+        assert nws * 32 * c == L and nbs == -(-nws // w)
+        assert nbs > 1
+    with pytest.raises(ValueError):
+        TW.wavefront_slabs(1000)

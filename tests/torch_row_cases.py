@@ -19,7 +19,13 @@ versions).  Imports numpy only: the card's machine has no JAX.
 * tile queries (``tile_lengths``) that end one row into a tile, at and
   inside a strip, at a tile edge and not at all, and ``plant_windows``,
   which writes mutated copies of query windows across those edges into a
-  packed chunk, so that alignments run through them.
+  packed chunk, so that alignments run through them;
+* the plain-pack stream kernel's (K2) launches at its band edges
+  (``STREAM_LENGTHS``: bands of 128, 256 and 512 rows laid from each
+  query's end, two bands over 512 rows);
+* the wavefront kernel's (K7) giants (``wavefront_case``): alignments
+  whose halves sit either side of a long horizontal gap (a gap in the
+  query) across slab edges and a segment cut, so that E crosses them.
 """
 
 from __future__ import annotations
@@ -187,3 +193,49 @@ def plant_windows(rng, data, start, queries, edges, width: int = 48,
                     done.append(lane)
                     break
     return done
+
+
+# K2 launches, one a tuple of query lengths (qlen_pad: the longest
+# rounded to 32): a band of 128 rows at 128, of 256 from 129 to 256, of
+# 512 from 257 to 512, two bands of 512 over 512 rows; empty slots
+STREAM_LENGTHS = ((128, 127, 1, 0), (129, 128, 64), (256, 255, 33),
+                  (257, 256, 200), (511, 512, 16), (513, 1024, 700, 0))
+# rows where K2's windows are planted: strip and band edges
+STREAM_EDGES = (4, 8, 16, 128, 256, 512, 700)
+
+# the wavefront cases' segment width (SEG_STRIPS = 4), and their giant
+WAVE_SEGMENT = 4096
+
+
+def rich_query(rng, n: int, symbols) -> np.ndarray:
+    """A query of ``n`` residues drawn from ``symbols`` (those with the
+    highest self-scores, so that each half of a gapped alignment
+    outscores a long gap)."""
+    return rng.choice(np.asarray(symbols, np.int8), size=n)
+
+
+def plant_gapped(seq, q, split: int, gap_from: int, gap: int):
+    """Write q[:split] into ``seq`` to end at column gap_from and
+    q[split:] from column gap_from + gap: an alignment with a horizontal
+    gap of ``gap`` columns over [gap_from, gap_from + gap)."""
+    seq[gap_from - split:gap_from] = q[:split]
+    seq[gap_from + gap:gap_from + gap + len(q) - split] = q[split:]
+
+
+def wavefront_case(rng, symbols=None):
+    """The card's K7 case: queries of 1,000, 600 and 40 rows (qlen_pad
+    1024) against a giant of three WAVE_SEGMENT segments.  The first
+    aligns with a gap of 1,100 columns over [3700, 4800) (the segment cut
+    at 4096, the slab edges at 3840, 4096 and 4608 of 256- and 512-column
+    slabs), the second with a gap of 700 over [8100, 8800) (the cut at
+    8192, the edge at 8704), the third whole across the cut at 4096.
+    ``symbols``: the query alphabet (default 1-25).  Returns (queries,
+    giant)."""
+    sym = np.arange(1, 26) if symbols is None else symbols
+    qs = [rich_query(rng, 1000, sym), rich_query(rng, 600, sym),
+          rich_query(rng, 40, sym)]
+    seq = rng.integers(1, 26, size=3 * WAVE_SEGMENT, dtype=np.int8)
+    plant_gapped(seq, qs[0], 500, 3700, 1100)
+    plant_gapped(seq, qs[1], 300, 8100, 700)
+    seq[4080:4120] = qs[2]
+    return qs, seq
