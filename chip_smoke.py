@@ -10,7 +10,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. check    — hold each kernel against its plain PyTorch version on the
               card, exact equality (integer DP): the profile build and the
               stream kernel on a 2048-lane, 64-block chunk with 4 queries
-              of 32-512 rows (with and without profiles, with a clamp), the
+              of 32-512 rows (without and with a clamp), the stream kernel
+              at every band height on tests/torch_row_cases.py's launches
+              (query lengths at the band edges, over one band, lanes
+              refilled at column 16, windows planted across strip and band
+              edges, with and without a clamp), the
               hint kernel on 1024-lane bins with forced ties and first
               tracked columns (also with BLOSUM62 scaled by 100: the wide
               instantiation) and on tests/torch_row_cases.py's bins
@@ -25,8 +29,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               strip, at a strip edge, at a band edge, take three bands, and
               an empty slot (int8, with a clamp, wide), every chunk's dump
               and carried state, the
-              wavefront kernel over a 3-segment giant with hits and a gap
-              across the segment cuts, the tile pass over four 512-row
+              wavefront kernel over torch_row_cases' 3-segment giant
+              (alignments with long horizontal gaps across slab edges and
+              the segment cuts) with 1, 3 and 16 queries and over a
+              1,024-column tail segment, the tile pass over four 512-row
               tiles of a 1024-lane, 64-block chunk (queries ending inside
               tile 1, inside tile 3, at a tile edge, and an empty slot;
               and torch_row_cases' tile queries, one row into tile 3, at
@@ -103,11 +109,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
               they came in, exact equality), so each path is checked at
               its own shapes; then each kernel's time and bound at its
               largest call over all the searches, its plain version's
-              time at that call, and the stream kernel there without
-              profiles too; the tile passes of the long-search chunk
-              summed, beside one stream-kernel pass over the same 2,048
-              rows; the warp-a-pair kernels (K3's row form, K6) at each
-              search's largest call.  The bound is the largest of three
+              time at that call, and the wavefront kernel there with one
+              query too; the tile passes of the long-search chunk summed,
+              beside one stream-kernel pass over the same 2,048 rows; the
+              warp-a-pair kernels (K3's row form, K6) at each search's
+              largest call; and each kernel's device time summed over
+              every launch of the searches (CUDA events around each
+              wrapper call), with the loss it implies against the bound.
+              The bound is the largest of three
               terms: the bytes at the data sheet's rate, the real cells'
               least sm_90a instructions (those of the ALU pipe at the rate
               phase 3 measured, all of them at the issue ceiling), and the
@@ -183,6 +192,8 @@ HBM_BYTES_PER_S = 3.35e12
 DATASHEET_ISSUE_PER_S = 67e12 / 2
 INT32_OPS_PER_S = 67e12 / 4
 PEAK: dict = {}       # the peak phase's measured rates (measure_peak)
+# CUDA events around every kernel wrapper call of the searches, by kernel
+DEVICE_EVENTS: dict = {}
 # Instructions per DP cell: (on the ALU pipe, all, as two-operand int32).
 # The least on sm_90a, with the DPX instructions: h = max(diag + p, E, 0)
 # (__viaddmax_s32_relu), h = max(h, F), S = max(S, h), t = h - Q,
@@ -210,7 +221,7 @@ CHAIN_OPS, PEAK_CHAIN_OPS = 3, 2
 KERNELS = {   # wrapper -> (its module, source, TPU kernel it replaces)
     "build_dprofile_series": (sw, "swipe_tpu_torch/csrc/dprofile.cu",
                               "swipe_tpu/ops/sw_stream.py:154"),
-    "sw_scores_stream": (sw, "swipe_tpu_torch/csrc/stream.cu",
+    "sw_scores_stream": (sw, "swipe_tpu_torch/csrc/carry_rows.cu",
                          "swipe_tpu/ops/sw_stream.py:568"),
     "sw_scores_stream_carry_lanes": (sw, "swipe_tpu_torch/csrc/stream.cu",
                                      "swipe_tpu/ops/sw_stream.py:733"),
@@ -245,7 +256,8 @@ STATE_ARGS = {"sw_scores_stream_carry_lanes": (5, 6, 7),
 # the kernels' times at their largest calls before their redesign as a
 # warp a (query, lane) (ms, this script on an NVIDIA H100 80GB HBM3,
 # 700.00 W), printed in brackets beside this run's
-REDESIGNED_FROM_MS = {"stream_tile_pass": 247.789, "sw_hint_stream": 115.292}
+REDESIGNED_FROM_MS = {"stream_tile_pass": 247.789, "sw_hint_stream": 115.292,
+                      "sw_scores_stream": 108.812, "sw_wavefront": 55.319}
 # the align phase's steps, timed on the host in every search: step ->
 # (owner, attribute); the hint kernel's seconds are part of the hint pass
 ALIGN_STEPS = {"finalize": (HitList, "finalize"),
@@ -367,12 +379,13 @@ def check_kernels(dev, report, nseqs=2048, nblocks=64, seed=1):
     qs = [rng.integers(1, 26, size=int(L), dtype=np.int8)
           for L in (32, 200, 377, 512)]
     qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 512))
-    for prof, clamp in ((dp, None), (None, None), (dp, 80)):
-        kw = dict(gapopenextend=12, gapextend=1, clamp=clamp, dprof=prof)
+    for clamp in (None, 80):
+        kw = dict(gapopenextend=12, gapextend=1, clamp=clamp)
         _compare("sw_scores_stream",
                  sw.sw_scores_stream(qc, ql, m8, data, start, **kw),
                  sw.sw_scores_stream_plain(qc, ql, m8, data, start, **kw),
                  report)
+    check_stream_bands(dev, m8, rng, report)
     # hint bins: the query repeated, low-complexity subjects and a start
     # mask give ties at several endpoints
     nb, L = 4, 512
@@ -410,6 +423,34 @@ def check_kernels(dev, report, nseqs=2048, nblocks=64, seed=1):
     check_segments(dev, m62, rng, report)
     check_peak(dev, rng, report)
     sync(dev)
+
+
+def check_stream_bands(dev, m8, rng, report):
+    """K2 at every band height on torch_row_cases' launches (STREAM_LENGTHS:
+    query lengths at the band edges, over one band, empty slots) against
+    a 1024-lane, 64-block chunk whose lanes are refilled at column 16
+    (every fifth lane's start bit at block 1) and query windows planted
+    across strip and band edges; without and with a clamp."""
+    seqs = [rng.integers(1, 26, size=int(L), dtype=np.int8)
+            for L in rng.integers(50, 300, size=1024 * 64 * 16 // 170)]
+    ch = pack_stream(seqs, nseqs=1024, max_cols=64 * 16)[0]
+    start = ch.start.copy()
+    start[1, ::5] = 1
+    st = torch.from_numpy(start).to(dev)
+    for lengths in rc.STREAM_LENGTHS:
+        qs = [rng.integers(1, 26, size=n, dtype=np.int8) for n in lengths]
+        data_t = ch.data_t.copy()
+        if not rc.plant_windows(rng, data_t.T, start, qs, rc.STREAM_EDGES):
+            raise RuntimeError("check: no K2 band-edge window planted")
+        data = torch.from_numpy(data_t).to(dev).t().contiguous()
+        qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
+            qs, -(-max(lengths) // 32) * 32))
+        for clamp in (None, 80):
+            kw = dict(gapopenextend=12, gapextend=1, clamp=clamp)
+            _compare("sw_scores_stream",
+                     sw.sw_scores_stream(qc, ql, m8, data, st, **kw),
+                     sw.sw_scores_stream_plain(qc, ql, m8, data, st, **kw),
+                     report)
 
 
 def _hint_tensor(results):
@@ -620,33 +661,46 @@ def check_carry(dev, m8, mw, qc, ql, rng, report):
 
 
 def check_wavefront(dev, m8, rng, report):
-    """K7 over a giant in three 4-strip segments (SEG_STRIPS cut down),
-    hits and a gap across the segment cuts, queries of 40, 300 and 1000
-    rows: the running max of the series and one segment's H/E rows."""
-    qs = [rng.integers(1, 26, size=n, dtype=np.int8) for n in (40, 300, 1000)]
-    seq = rng.integers(1, 26, size=10000, dtype=np.int8)
-    seq[4080:4120] = qs[0]
-    seq[8000:8150] = qs[1][:150]
-    seq[8160:8310] = qs[1][150:]                # after a 10-column gap
+    """K7 on torch_row_cases' giant in three 4-strip segments (SEG_STRIPS
+    cut down): alignments whose halves sit either side of horizontal gaps
+    of 1,100 and 700 columns across slab edges and the segment cuts, and
+    a hit across a cut; with its 3 queries (1,000, 600 and 40 rows), the
+    first alone, and 16 (13 random ones of 1-1,024 rows added): every
+    segment's H/E rows and running max, threaded segment by segment, and
+    the scores through sw_wavefront_scores; then a tail segment of 1,024
+    columns (a giant of 5,096)."""
+    qs, seq = rc.wavefront_case(rng)
+    qs = qs + [rng.integers(1, 26, size=int(n), dtype=np.int8)
+               for n in rng.integers(1, 1025, size=13)]
     mq = torch.from_numpy(wf.build_mq(sw.build_qcodes(qs, 1024)[0],
                                       m8.cpu().numpy())).to(dev)
     kw = dict(gapopenextend=12, gapextend=1)
+    dbd = torch.from_numpy(seq).to(dev)
     seg_strips, wf.SEG_STRIPS = wf.SEG_STRIPS, 4
     try:
-        if len(wf._segments(len(seq))) != 3:
+        segs = wf._segments(len(seq))
+        if len(segs) != 3:
             raise RuntimeError("check: the wavefront giant is not 3 segments")
-        got = wf.sw_wavefront_scores(mq, seq, **kw)
+        tail = wf._segments(len(seq[:5096]))
+        if [w for _, w in tail] != [4096, 1024]:
+            raise RuntimeError("check: no 1,024-column tail segment")
+        for nq in (1, 3, 16):
+            got = wf.make_wavefront_state(nq, 1024, dev)
+            want = tuple(x.clone() for x in got)
+            for pos, width in segs:
+                wf.sw_wavefront(mq[:nq], dbd[pos:pos + width], *got, **kw)
+                wf.sw_wavefront_plain(mq[:nq], dbd[pos:pos + width], *want,
+                                      **kw)
+                _compare("sw_wavefront", got, want, report)
+            _compare("sw_wavefront", wf.sw_wavefront_scores(mq[:nq], seq,
+                                                            **kw), want[2],
+                     report)
+        want = wf.sw_wavefront_plain(mq, dbd[:5096], *wf.make_wavefront_state(
+            16, 1024, dev), **kw)[2]
+        _compare("sw_wavefront", wf.sw_wavefront_scores(mq, seq[:5096],
+                                                        **kw), want, report)
     finally:
         wf.SEG_STRIPS = seg_strips
-    dbd = torch.from_numpy(seq).to(dev)
-    want = wf.sw_wavefront_plain(mq, dbd, *wf.make_wavefront_state(3, 1024,
-                                                                   dev), **kw)
-    _compare("sw_wavefront", got, want[2], report)
-    a = wf.make_wavefront_state(3, 1024, dev)
-    b = tuple(x.clone() for x in a)
-    wf.sw_wavefront(mq, dbd[:4096], *a, **kw)
-    wf.sw_wavefront_plain(mq, dbd[:4096], *b, **kw)
-    _compare("sw_wavefront", a, b, report)
 
 
 def plain_tiles(fn, *a, **k):
@@ -762,14 +816,24 @@ def record_calls(label, calls):
     """Wrap the kernel wrappers so each one's arguments at its largest
     call in the search ``label`` (_call_size) are kept in
     ``calls[label, name]`` for the timing phase, the state it updates in
-    place cloned as it came in.  The wrapped functions (and their launch
-    counts) are the originals.  Returns the originals."""
+    place cloned as it came in, and CUDA events around every call are
+    kept in DEVICE_EVENTS (its device time, the wrapper's allocations
+    included).  The wrapped functions (and their launch counts) are the
+    originals.  Returns the originals."""
     def wrap(name, fn):
         def recorded(*a, **k):
             size = _call_size(name, a, k)
             if size >= calls.get((label, name), (0,))[0]:
                 calls[label, name] = (size, _fresh(name, a), k)
-            return fn(*a, **k)
+            if not torch.cuda.is_available():
+                return fn(*a, **k)
+            ev = tuple(torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            DEVICE_EVENTS.setdefault(name, []).append(ev)
+            return out
         return recorded
 
     originals = {n: getattr(mod, n) for n, (mod, _, _) in KERNELS.items()}
@@ -973,9 +1037,9 @@ def search(dev, workdir, nseq, nq, card, calls, seed=2):
         f"200 aa; data {t1 - t0:.1f} s, pack {t2 - t1:.1f} s, "
         f"{len(engine.chunks)} chunks of {engine.chunks[0].nseqs} lanes")
     hitlists, timings, wall, launches, split = run_search(
-        "search", engine, queries,
-        ("build_dprofile_series", "sw_scores_stream", "sw_hint_stream"),
+        "search", engine, queries, ("sw_scores_stream", "sw_hint_stream"),
         calls)
+    no_profiles("search", launches)
     nbytes = check_protein_hits("search", db, engine, queries, hitlists,
                                 homologs)
     cells = residues * 200 * nq
@@ -1298,9 +1362,9 @@ def genome_searches(dev, workdir, card, calls, seed=5):
     log(f"genome: blastn engine {time.time() - t1:.1f} s, 1 giant unit, "
         f"overlap bound {V} columns")
     hitlists, tim, wall, launches["genome"], split = run_search(
-        "genome", engine, queries,
-        ("build_dprofile_series", "sw_scores_stream", "sw_hint_stream"),
+        "genome", engine, queries, ("sw_scores_stream", "sw_hint_stream"),
         calls)
+    no_profiles("genome", launches["genome"])
     chrom_nt = db.get_sequence(0, 0)[0]
     frames = {0: [chrom_nt], 1: [np.asarray(db.get_sequence(0, 0, 1)[0])]}
     n = check_genome_hits("genome", db, engine, queries, hitlists,
@@ -1338,7 +1402,7 @@ def genome_searches(dev, workdir, card, calls, seed=5):
     keys = []
     for route, expect in (
             ("wavefront", ("sw_wavefront", "sw_scores_stream",
-                           "build_dprofile_series", "sw_hint_stream")),
+                           "sw_hint_stream")),
             ("carry", ("sw_scores_stream_carry_rows", "sw_scores_stream",
                        "sw_hint_stream"))):
         label = f"tblastn-{route}"
@@ -1346,6 +1410,7 @@ def genome_searches(dev, workdir, card, calls, seed=5):
             engine.WAVEFRONT_MAX_GIANTS = 0
         hitlists, tim, wall, launches[label], split = run_search(
             label, engine, queries, expect, calls)
+        no_profiles(label, launches[label])
         if route == "carry":
             check_carry_forms(label, launches[label],
                               len(engine._carry_chunks(1024)))
@@ -1364,6 +1429,13 @@ def genome_searches(dev, workdir, card, calls, seed=5):
         raise RuntimeError("tblastn: the wavefront and carry hit lists differ")
     log("tblastn: the wavefront and carry series hit lists are equal")
     return launches, stats
+
+
+def no_profiles(label, launches):
+    """The plain pack's K2 takes no block profiles: a search off the flow
+    series builds none."""
+    if launches["build_dprofile_series"]:
+        raise RuntimeError(f"{label}: block profiles were built for K2")
 
 
 def check_carry_forms(label, launches, nchunks):
@@ -1664,41 +1736,25 @@ def _chain(name, args, kw):
     return (rows + cols - 1) * CHAIN_OPS if rows and cols else 0
 
 
-def time_without_profiles(args, kw, out, ms, report):
-    """K2 at the search's call with the scores looked up in the matrix in
-    shared memory, beside the profile path (K1 then K2)."""
-    kw0 = dict(kw, dprof=None)
-    _compare("sw_scores_stream", sw.sw_scores_stream(*args, **kw0), out,
-             report)
-    ms0 = _time(lambda: sw.sw_scores_stream(*args, **kw0), 5)
-    k1 = _time(lambda: sw.build_dprofile_series(args[2], args[3]), 5)
-    log(f"time: sw_scores_stream without profiles {ms0:.3f} ms; with "
-        f"profiles {ms:.3f} ms + build_dprofile_series {k1:.3f} ms = "
-        f"{ms + k1:.3f} ms")
-
-
 def time_tiles(calls, report):
     """The long-search chunk's four tile passes (K5) summed, beside one K2
-    pass over the same 2,048 rows (with its profiles, K1, timed apart),
-    whose dump must be the same."""
+    pass over the same 2,048 rows (four bands), whose dump must be the
+    same."""
     _, args, kw = calls["long-search", "stream_tile_pass"]
     qc, ql, _, m8, db, start = args[:6]
     kw = dict(gapopenextend=kw["gapopenextend"], gapextend=kw["gapextend"])
-    dp = sw.build_dprofile_series(m8, db)
     long = sw.sw_scores_stream_long(qc, ql, m8, db, start, **kw)
-    one = sw.sw_scores_stream(qc, ql, m8, db, start, dprof=dp, **kw)
+    one = sw.sw_scores_stream(qc, ql, m8, db, start, **kw)
     _compare("sw_scores_stream", one, long, report)
     del long, one
     out = {"k5_passes_ms": _time(lambda: sw.sw_scores_stream_long(
                qc, ql, m8, db, start, **kw), 2),
            "k2_one_pass_ms": _time(lambda: sw.sw_scores_stream(
-               qc, ql, m8, db, start, dprof=dp, **kw), 2),
-           "k1_ms": _time(lambda: sw.build_dprofile_series(m8, db), 5),
+               qc, ql, m8, db, start, **kw), 2),
            "shape": [list(qc.shape), list(db.shape)]}
     log(f"time: long-search chunk {out['shape']}: four tile passes (K5) "
         f"{out['k5_passes_ms']:.3f} ms; one K2 pass over the same rows "
-        f"{out['k2_one_pass_ms']:.3f} ms with profiles, K1 "
-        f"{out['k1_ms']:.3f} ms (same dump)")
+        f"{out['k2_one_pass_ms']:.3f} ms (same dump)")
     return out
 
 
@@ -1745,6 +1801,10 @@ def time_kernels(calls, plain_ms, report):
         _, args, kw = calls[label, name]
         fn = getattr(mod, name)
         out = fn(*_fresh(name, args), **kw)
+        # K7's first query alone, from the state as it came in
+        one = (args[0][:1].contiguous(), args[1],
+               *(x[:1].clone() for x in args[2:])) \
+            if name == "sw_wavefront" else None
         # replays update the recorded state in place: the same work
         reps = 2 if name == "sw_wavefront" else 5
         ms = _time(lambda: fn(*args, **kw), reps)
@@ -1773,9 +1833,31 @@ def time_kernels(calls, plain_ms, report):
             f"ceiling, {chain} dependent instructions on the critical path "
             f"{path_ms:.4f} ms; as two-operand int32 on the ALU pipe "
             f"{int32_ops / INT32_OPS_PER_S * 1e3:.4f} ms)")
-        if name == "sw_scores_stream" and kw.get("dprof") is not None:
-            time_without_profiles(args, kw, out, ms, report)
+        if one is not None:
+            rows[name]["one_query_ms"] = time_one_query(one, kw, out,
+                                                        report)
     return rows
+
+
+def time_one_query(one, kw, out, report):
+    """K7 at its largest call with the first query alone (the usual
+    tblastn search is one protein against a genome): its state must be
+    the first query's of the whole call (``out``)."""
+    got = wf.sw_wavefront(*(x.clone() for x in one), **kw)
+    _compare("sw_wavefront", got, tuple(x[:1] for x in out), report)
+    ms = _time(lambda: wf.sw_wavefront(*one, **kw), 2)
+    log(f"time: sw_wavefront at {[tuple(x.shape) for x in one[:2]]} "
+        f"(one query): {ms:.3f} ms, the same state as the first query of "
+        "the whole call")
+    return ms
+
+
+def summed_device_ms():
+    """Each kernel's device time summed over its launches in the searches
+    (the CUDA events record_calls put around each wrapper call)."""
+    torch.cuda.synchronize()
+    return {n: sum(a.elapsed_time(b) for a, b in ev)
+            for n, ev in DEVICE_EVENTS.items()}
 
 
 def time_by_search(calls):
@@ -1878,6 +1960,8 @@ def main() -> int:
         stats.update(st)
         log(f"searches: {time.time() - t:.1f} s; launches by search "
             f"{json.dumps(launches)}")
+        summed = summed_device_ms()
+        DEVICE_EVENTS.clear()
         t = time.time()
         plain_ms, errs = check_paths(calls, report)
         log(f"check: max_abs_err by search and kernel {json.dumps(errs)} "
@@ -1893,15 +1977,25 @@ def main() -> int:
         del calls
         log(f"time: {time.time() - t:.1f} s")
         if any(r["mismatches"] for r in report.values()):
-            raise RuntimeError("sw_scores_stream without profiles, or over "
-                               "2,048 rows, differs")
+            raise RuntimeError("sw_scores_stream over 2,048 rows, or "
+                               "sw_wavefront with one query, differs")
         cli(workdir)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(n[name] for n in launches.values()),
                     max_abs_err=report[name]["max_abs_err"],
-                    library_ms=None, **rows[name])
+                    library_ms=None, summed_ms=summed.get(name, 0.0),
+                    **rows[name])
                for name, (_, src, rep) in KERNELS.items()]
+    # the loss against the bound: the summed device time of the launches
+    # times the share of the largest call's time above its bound
+    for k in kernels:
+        k["loss_ms"] = k["summed_ms"] * max(0.0, 1 - k["bound_ms"] / k["ms"])
+    log("time: summed device ms and loss by kernel, largest loss first: "
+        + "; ".join(f"{k['name']} {k['summed_ms']:.1f} ms over "
+                    f"{k['launches']} launches (largest call {k['ms']:.3f} "
+                    f"ms), loss {k['loss_ms']:.1f} ms"
+                    for k in sorted(kernels, key=lambda k: -k["loss_ms"])))
     log(f"search: {json.dumps(stats)}")
     log(json.dumps({"kernels": kernels}))
     log(card)

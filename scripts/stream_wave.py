@@ -8,7 +8,7 @@ exactly: K7 in every (C, W, G) instantiation of csrc/wavefront.cu over a
 giant cut into segments (hits and a long horizontal gap across slab edges
 and a segment cut; 1 and 3 queries, 40-1,000 rows), K2's row form at every
 band height (query lengths at the band edges, a start bit inside the first
-32 columns, with and without a clamp, the dump chained and by atomics).
+32 columns, with and without a clamp).
 Then, inputs from fixed seeds:
 
 * K7 at tblastn's segment, 16 queries of 400 aa (qlen_pad 512) against
@@ -19,9 +19,7 @@ Then, inputs from fixed seeds:
   500 nt, qlen_pad 512, 2048 x 8,192 of gene-length records, +1/-3, gaps
   5/2), 513-1,024 rows (16 queries of 600-1,024 aa, qlen_pad 1024, 1024 x
   8,192) and the long-search chunk over 2,048 rows (4 queries of 1,537-
-  2,048 aa, 1024 x 16,384): the row form with the dump chained and by
-  atomics, the lane form without and with block profiles (K1 timed
-  apart), their dumps held equal.
+  2,048 aa, 1024 x 16,384).
 
 One JSON line a result, with the card and its power limit: ms a launch
 (CUDA events over a few launches after a warm-up).
@@ -45,8 +43,8 @@ from row_kernels import card, lengths, seqs_of, timed  # noqa: E402
 import torch_row_cases as rc  # noqa: E402
 
 # (C, W, G) instantiations of csrc/wavefront.cu
-WAVE_CONFIGS = ((16, 1, 8), (16, 1, 4), (32, 1, 8), (32, 1, 4),
-                (32, 1, 16), (16, 4, 8), (32, 4, 8))
+WAVE_CONFIGS = ((32, 1, 4), (32, 1, 8), (16, 1, 4), (32, 2, 4),
+                (32, 4, 4), (16, 4, 4))
 
 
 def equal(name, got, want):
@@ -105,13 +103,9 @@ def check_stream(sw, batching, m8, dev, emit):
                   for a in sw.build_qcodes(qs, qpad))
         for clamp in (None, 80):
             kw = dict(gapopenextend=12, gapextend=1, clamp=clamp)
-            want = sw.sw_scores_stream_plain(qc, ql, m8, d, start, **kw)
-            for chain in (True, False):
-                sw.STREAM_DUMP_CHAIN = chain
-                equal(f"sw_scores_stream {qlens} clamp {clamp} chain "
-                      f"{chain}", sw.sw_scores_stream(qc, ql, m8, d, start,
-                                                      **kw), want)
-            sw.STREAM_DUMP_CHAIN = True
+            equal(f"sw_scores_stream {qlens} clamp {clamp}",
+                  sw.sw_scores_stream(qc, ql, m8, d, start, **kw),
+                  sw.sw_scores_stream_plain(qc, ql, m8, d, start, **kw))
         emit(check="K2", qlens=list(qlens), band=sw.stream_band(qpad),
              ok=True)
 
@@ -161,24 +155,10 @@ def stream_times(sw, batching, dev, emit):
     for name, qc, ql, mat, data, start, (Q, R) in stream_shapes(
             sw, batching, dev):
         kw = dict(gapopenextend=Q, gapextend=R)
-        ms = {}
-        want = sw.sw_scores_stream(qc, ql, mat, data, start, form="lanes",
-                                   **kw)
-        for chain in (True, False):
-            sw.STREAM_DUMP_CHAIN = chain
-            equal(f"{name} rows", sw.sw_scores_stream(
-                qc, ql, mat, data, start, form="rows", **kw), want)
-            ms[f"rows_chain_{chain}"] = timed(lambda: sw.sw_scores_stream(
-                qc, ql, mat, data, start, form="rows", **kw), 3)
-        sw.STREAM_DUMP_CHAIN = True
-        ms["lanes"] = timed(lambda: sw.sw_scores_stream(
-            qc, ql, mat, data, start, form="lanes", **kw), 3)
-        dp = sw.build_dprofile_series(mat, data)
-        ms["lanes_profiles"] = timed(lambda: sw.sw_scores_stream(
-            qc, ql, mat, data, start, form="lanes", dprof=dp, **kw), 3)
-        ms["k1"] = timed(lambda: sw.build_dprofile_series(mat, data), 3)
-        del dp
-        emit(kernel="K2", shape=name, dims=[*qc.shape, *data.shape], **ms)
+        ms = timed(lambda: sw.sw_scores_stream(qc, ql, mat, data, start,
+                                               **kw), 3)
+        emit(kernel="K2", shape=name, dims=[*qc.shape, *data.shape],
+             band=sw.stream_band(qc.shape[1]), ms=ms)
 
 
 def main() -> int:

@@ -1,9 +1,11 @@
-// Stream scoring with a query's rows spread over a warp: the tile pass
-// (K5), the tile carry pass (K6) and the row form of the carry kernel
-// (K3), all on the band walker of rows.cuh.
+// Stream scoring with a query's rows spread over a warp: the plain-pack
+// kernel (K2), the tile pass (K5), the tile carry pass (K6) and the row
+// form of the carry kernel (K3), all on the band walker of rows.cuh.
 //
-// Replaces the TPU kernels swipe_tpu/ops/sw_stream.py _stream_tile_pass
-// (:1263, _stream_tile_kernel, driven by sw_scores_stream_long),
+// Replaces the TPU kernels swipe_tpu/ops/sw_stream.py sw_scores_stream
+// (:568, _stream_kernel_grouped: every plain pack of a blastp/blastn
+// search, and the segmented giants' pieces), _stream_tile_pass (:1263,
+// _stream_tile_kernel, driven by sw_scores_stream_long),
 // _stream_tile_carry_pass (:1419, _stream_tile_carry_kernel, driven by
 // sw_scores_stream_carry_long) and sw_scores_stream_carry (:733) in its
 // launches without block profiles: the giant carry series
@@ -13,13 +15,22 @@
 // profiles, keep the lane form (stream.cu); ops/sw_stream.py carry_form
 // picks the form.
 //
-// Why a warp per pair.  One thread per pair (the old K5 and K6) walks a
-// pair's whole chain: a giant launch's two to sixteen real pairs left 130
-// of the 132 SMs idle, a long-query slot group's 4,096 pairs made one
-// warp an SM, and every cell paid its dependent chain and a global round
-// trip of the row state.  Here one warp takes one (query, lane) and
+// Why a warp per pair.  One thread per pair (the old K2, K5 and K6) walks
+// a pair's whole chain: a giant launch's two to sixteen real pairs left
+// 130 of the 132 SMs idle, a long-query slot group's 4,096 pairs made one
+// warp an SM, a Swiss-Prot chunk's 32,768 pairs in blocks of 128 about 8
+// warps an SM, and every cell paid its dependent chain and a global
+// round trip of the row state.  Here one warp takes one (query, lane) and
 // sweeps the chunk over the query's rows (rows.cuh), H and E of its rows
 // in registers for the whole chunk:
+//   * K2 walks every band of the query, laid from its last row up as K3's
+//     row form lays them; the rows start fresh at column 0, band k + 1
+//     reads band k's planes from a scratch (only queries over 512 rows
+//     have two), and no state leaves the chunk.  The band's height is
+//     chosen from qlen_pad by the wrapper: 32 threads x 4, 8 or 16 rows,
+//     so a 200-row query (qlen_pad 256) walks a 256-row band, not a
+//     512-row one of which 61% would be PAD.  TILE_WARPS warps of one
+//     query a block share the band's profile, as K5's do;
 //   * K5 walks the bands of one 512-row tile of a plain-pack chunk: the
 //     rows start fresh at column 0 (as at a start bit), the planes [L] of
 //     the pair are the pass's bh/bf (the tile above's bottom row, updated
@@ -37,19 +48,23 @@
 //   band k's last row, which band k overwrites: thread 31 keeps the value
 //   it read and hands it on.
 // The dump out[q, b, lane] is the maximum of every thread's S at the end
-// of block b; threads reach it at different steps, so each thread whose
-// strip has rows stores it with atomicMax into the dump (K5's and K6's
-// dumps are max-merged already; the row form's wrapper zeroes its dump).
+// of block b.  In K3's row form, K5 and K6 threads reach it at different
+// steps, so each thread whose strip has rows stores it with atomicMax
+// into the dump (K5's and K6's dumps are max-merged already; the row
+// form's wrapper zeroes its dump).  K2 hands the column's running max down
+// the pipeline with H and F instead, and thread 31 alone stores it (the
+// first band) or max-merges it (the bands below): timed 11% faster at
+// Swiss-Prot's chunk than every thread's atomicMax (PERF.md).
 // Start bits (lane refill at KSEG): at a block whose start bit is set, a
 // thread zeroes its rows' H, sets E to -inf, takes the diagonal from the
 // left as 0 and restarts S; what arrives from above is not reset (the
 // thread above applied the reset at the same column).
 //
-// Bound: K5 by its operations (4,096 pairs of 512 rows over 16,384
-// columns), K3's row form and K6 by the DP's critical path (a giant
-// launch holds few pairs).  Each band takes L + 31 steps of RS cells; the
-// card runs a few warps an SM, so a step's latency, not the ALU rate,
-// sets the time.
+// Bound: K2 and K5 by their operations (32,768 pairs of 200 rows over
+// 8,192 columns; 4,096 pairs of 512 rows over 16,384), K3's row form and
+// K6 by the DP's critical path (a giant launch holds few pairs).  Each
+// band takes L + 31 steps of RS cells; the card runs a few warps an SM,
+// so a step's latency, not the ALU rate, sets the time.
 #include "rows.cuh"
 
 using namespace swipe;
@@ -392,7 +407,7 @@ carry_rows_kernel(const int32_t* __restrict__ qcodes,
 // fresh at column 0 and at start bits; no state.  bh/bf: the planes
 // between bands, [nq, L, nseqs] (null when no query has more than one
 // band).  The dump is zeroed by the caller.
-template <int RS, bool CLAMP, bool CHAIN>
+template <int RS, bool CLAMP>
 __global__ void __launch_bounds__(32 * TILE_WARPS)
 stream_rows_kernel(const int32_t* __restrict__ qcodes,
                    const int32_t* __restrict__ qlens,
@@ -428,7 +443,7 @@ stream_rows_kernel(const int32_t* __restrict__ qcodes,
     block_profile<TILE_WARPS, int8_t, RS>(qc, m8, b.r0, b.r1, prof);
     if (lane < nseqs) {
       int below;
-      walk_band<int8_t, CLAMP, false, false, TILE_WARPS, RS, CHAIN>(
+      walk_band<int8_t, CLAMP, false, false, TILE_WARPS, RS, true>(
           b, prof, ring, tring, cap, 0, 0, below);
     }
     b.top_h = bh + plane;
@@ -436,37 +451,20 @@ stream_rows_kernel(const int32_t* __restrict__ qcodes,
   }
 }
 
-template <int RS, bool CLAMP, bool CHAIN>
+template <int RS, bool CLAMP>
 int launch_stream(dim3 grid, cudaStream_t st, const int32_t* qcodes,
                   const int32_t* qlens, const int8_t* m8, const int8_t* db,
                   const int8_t* start, int32_t* out, int32_t* bh,
                   int32_t* bf, int qlen_pad, int nblocks, int nseqs, int Q,
                   int R, int clamp) {
   const size_t smem = smem_bytes<int8_t, RS>(TILE_WARPS);
-  const auto kernel = stream_rows_kernel<RS, CLAMP, CHAIN>;
+  const auto kernel = stream_rows_kernel<RS, CLAMP>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, 32 * TILE_WARPS, smem, st>>>(qcodes, qlens, m8, db, start,
                                               out, bh, bf, qlen_pad, nblocks,
                                               nseqs, Q, R, clamp);
   return (int)cudaGetLastError();
-}
-
-template <int RS>
-int launch_stream_rs(int use_clamp, int chain, dim3 grid, cudaStream_t st,
-                     const int32_t* qcodes, const int32_t* qlens,
-                     const int8_t* m8, const int8_t* db,
-                     const int8_t* start, int32_t* out, int32_t* bh,
-                     int32_t* bf, int qlen_pad, int nblocks, int nseqs,
-                     int Q, int R, int clamp) {
-#define STREAM_ARGS grid, st, qcodes, qlens, m8, db, start, out, bh, bf, \
-                    qlen_pad, nblocks, nseqs, Q, R, clamp
-  if (use_clamp)
-    return chain ? launch_stream<RS, true, true>(STREAM_ARGS)
-                 : launch_stream<RS, true, false>(STREAM_ARGS);
-  return chain ? launch_stream<RS, false, true>(STREAM_ARGS)
-               : launch_stream<RS, false, false>(STREAM_ARGS);
-#undef STREAM_ARGS
 }
 
 template <typename M, bool CLAMP>
@@ -592,15 +590,14 @@ extern "C" int swipe_carry_rows(
 // K2: out [nq, nblocks, nseqs] zeroed by the caller; rs the rows a
 // thread (4, 8 or 16: bands of 128, 256 or 512 rows); bh/bf [nq, L,
 // nseqs] a scratch for the planes between bands (null when qlen_pad fits
-// one band).  dump_chain: the dump handed down the pipeline and stored by
-// thread 31 instead of every thread's atomicMax.  Needs Q >= R.
+// one band).  Needs Q >= R.
 extern "C" int swipe_stream_rows(const int32_t* qcodes, const int32_t* qlens,
                                  const int8_t* m8, const int8_t* db,
                                  const int8_t* start, int32_t* out,
                                  int32_t* bh, int32_t* bf, int nq,
                                  int qlen_pad, int nblocks, int nseqs, int Q,
                                  int R, int rs, int use_clamp, int clamp,
-                                 int dump_chain, void* stream) {
+                                 void* stream) {
   if (Q < R || (rs != 4 && rs != 8 && rs != 16))
     return (int)cudaErrorInvalidValue;
   if (qlen_pad > 32 * rs && bh == nullptr) return (int)cudaErrorInvalidValue;
@@ -609,9 +606,14 @@ extern "C" int swipe_stream_rows(const int32_t* qcodes, const int32_t* qlens,
   const cudaStream_t st = (cudaStream_t)stream;
 #define STREAM_RS(RS)                                                     \
   if (rs == RS)                                                           \
-    return launch_stream_rs<RS>(use_clamp, dump_chain, grid, st, qcodes,  \
-                                qlens, m8, db, start, out, bh, bf,        \
-                                qlen_pad, nblocks, nseqs, Q, R, clamp);
+    return use_clamp                                                      \
+               ? launch_stream<RS, true>(grid, st, qcodes, qlens, m8, db, \
+                                         start, out, bh, bf, qlen_pad,    \
+                                         nblocks, nseqs, Q, R, clamp)     \
+               : launch_stream<RS, false>(grid, st, qcodes, qlens, m8,    \
+                                          db, start, out, bh, bf,         \
+                                          qlen_pad, nblocks, nseqs, Q, R, \
+                                          clamp);
   STREAM_RS(4)
   STREAM_RS(8)
   STREAM_RS(16)

@@ -1,13 +1,16 @@
-// Grouped stream scoring of a lane-packed chunk (K2) and its carry form
-// (K3).
+// The lane form of K3, the carry kernel: stream scoring of one chunk of a
+// flow series, a thread a (query, lane).
 //
-// Replaces the TPU kernels swipe_tpu/ops/sw_stream.py sw_scores_stream
-// (_stream_kernel_grouped with the row recurrence _make_row_body_multi)
-// and sw_scores_stream_carry (_stream_kernel).  Exact affine-gap
-// Smith-Waterman of NQ queries against every lane of a chunk; a lane's
-// state resets where the start mask says a new sequence begins, and each
-// lane's running max is dumped after every block of 16 columns:
-// out[q, b, lane].
+// Replaces the TPU kernel swipe_tpu/ops/sw_stream.py sw_scores_stream_carry
+// (_stream_kernel) in its launches with block profiles: the flow series.
+// Exact affine-gap Smith-Waterman of NQ queries against every lane of a
+// chunk, with each lane's H/E/S carried in from the chunk before and out
+// to the next; a lane's state resets where the start mask says a new
+// sequence begins, and each lane's running max is dumped after every
+// block of 16 columns: out[q, b, lane].  Launches without profiles (the
+// giant carry series) take K3's row form in carry_rows.cu
+// (ops/sw_stream.py carry_form); K2, the plain-pack kernel, runs on the
+// band walker in carry_rows.cu too.
 //
 // Design.  One thread owns one (query, lane) and walks the db blocks in
 // order -- the TPU's sequential grid axis becomes a loop in the thread.
@@ -15,7 +18,7 @@
 // (db symbols, start mask, profiles, row state, dump) is coalesced.
 // Inside a block the thread walks the query rows; the 16 columns' H and
 // F of the previous row stay in registers.  The H/E of the block's last
-// column for every row live in a global scratch [NQ, QLEN, NSEQS] (the
+// column for every row live in the carried state [NQ, QLEN, NSEQS] (the
 // lane-flat layout of the JAX lax twin), read and written once per
 // (row, block): 16 bytes per 16 cells.  The cell is
 //   H = max(diag + p, E, F, 0), clamp, S = max(S, H)
@@ -24,33 +27,23 @@
 // given, else from the matrix in shared memory indexed by the query
 // symbol and the column's db symbol.
 //
-// The carry form (K3's lane form) is the same kernel over one chunk of a
-// flow series, with block profiles.  Launches without them -- the giant
-// carry series, a chromosome lane each -- take K3's row form in
-// carry_rows.cu instead (ops/sw_stream.py carry_form).  The scratch IS
-// the carried state, updated in place (for a series' last chunk the
-// caller passes a copy).  With CARRY the first
-// block reads the carried H/E from the scratch and S from s_io, and a
-// lane starts fresh there only where its start bit is set -- not at
-// block 0 as in K2.  K3 writes S back to s_io (WRITE_S).  Whether S is
-// written is a template parameter on purpose: a run-time test of s_io
-// made the compiler schedule K2's profile path 2x slower on the card.
+// The carried state is updated in place (for a series' last chunk the
+// caller passes a copy).  With CARRY the first block reads the carried
+// H/E and S from s_io, and a lane starts fresh there only where its start
+// bit is set; S goes back to s_io.
 //
 // Bound: operations.  As written a cell takes ten two-operand int32
 // add/max against one profile read (4 bytes, from L2) and one byte of row
 // state; with the DPX add-max instructions it would take six, and no SM
 // issues more than 128 thread instructions a clock, which sets the least
-// time (chip_smoke.py).  The simple design is far from it: a cell's
-// add/max form one dependent chain per thread, and NQ x NSEQS / 128
-// thread blocks leave few warps per SM to cover it (tuning, DPX and
-// 16-bit lanes are later work).
+// time (chip_smoke.py).  The design is far from it: a cell's add/max
+// form one dependent chain per thread, and NQ x NSEQS / 128 thread
+// blocks leave few warps per SM to cover it.
 //
 // Matrices outside int8 (build_matrix_wide: int32 scores, a strictly
-// negative PAD row and column) take a wide instantiation of K3, the
-// matrix element type a template parameter: matrix lookup only, no
-// profiles and no clamp.  The row state has no cap, so it takes any query
-// length; the segment route's giants, wide or not, take no profiles and
-// so the row form.
+// negative PAD row and column) take a wide instantiation, the matrix
+// element type a template parameter: matrix lookup only, no profiles and
+// no clamp.  The row state has no cap, so it takes any query length.
 //
 // Running exactly qlen rows is enough: the TPU kernel's round-up to 4
 // rows only added PAD rows, which decay and never raise S.  Rows at and
@@ -59,7 +52,7 @@
 
 using namespace swipe;
 
-template <typename M, bool DPROF, bool CLAMP, bool CARRY, bool WRITE_S>
+template <typename M, bool DPROF, bool CLAMP, bool CARRY>
 __global__ void __launch_bounds__(THREADS)
 stream_kernel(const int32_t* __restrict__ qcodes,
               const int32_t* __restrict__ qlens,
@@ -83,8 +76,8 @@ stream_kernel(const int32_t* __restrict__ qcodes,
 
   int S = CARRY ? s_io[q * n + lane] : 0;
   for (int b = 0; b < nblocks; ++b) {
-    // K2: block 0 starts from the fresh state, like a set start bit.
-    // K3: only the start bit resets; block 0 reads the carried state
+    // from a fresh state block 0 starts like a set start bit; carried,
+    // only the start bit resets and block 0 reads the carried state
     const bool fresh = (!CARRY && b == 0) || start[b * n + lane] != 0;
     if (fresh) S = 0;
     const int8_t* col = db + (long long)b * KSEG * n + lane;
@@ -121,7 +114,7 @@ stream_kernel(const int32_t* __restrict__ qcodes,
     }
     dump[b * n] = S;
   }
-  if (WRITE_S) s_io[q * n + lane] = S;
+  s_io[q * n + lane] = S;
 }
 
 #define STREAM_PARAMS                                                      \
@@ -133,19 +126,15 @@ stream_kernel(const int32_t* __restrict__ qcodes,
   qcodes, qlens, m8, db, start, dprof, out, hst, est, s_io, qlen_pad,      \
       nblocks, nseqs, Q, R, clamp
 
-// mode 0: K2; 1: K3 from a fresh state; 2: K3 reading the carried state.
-// The wide matrix (int32) serves K3 only.
+// mode 1: from a fresh state; 2: reading the carried state
 template <typename M, bool DPROF, bool CLAMP>
 static void launch_mode(dim3 grid, cudaStream_t s, int mode,
                         STREAM_PARAMS) {
   if (mode == 2)
-    stream_kernel<M, DPROF, CLAMP, true, true>
+    stream_kernel<M, DPROF, CLAMP, true>
         <<<grid, THREADS, 0, s>>>(STREAM_ARGS);
-  else if (mode == 1)
-    stream_kernel<M, DPROF, CLAMP, false, true>
-        <<<grid, THREADS, 0, s>>>(STREAM_ARGS);
-  else if constexpr (sizeof(M) == 1)
-    stream_kernel<M, DPROF, CLAMP, false, false>
+  else
+    stream_kernel<M, DPROF, CLAMP, false>
         <<<grid, THREADS, 0, s>>>(STREAM_ARGS);
 }
 
@@ -170,16 +159,6 @@ static int launch(int nq, int use_clamp, int mode, void* stream,
     }
   }
   return (int)cudaGetLastError();
-}
-
-extern "C" int swipe_stream(const int32_t* qcodes, const int32_t* qlens,
-                            const int8_t* m8, const int8_t* db,
-                            const int8_t* start, const int32_t* dprof,
-                            int32_t* out, int32_t* hst, int32_t* est, int nq,
-                            int qlen_pad, int nblocks, int nseqs, int Q,
-                            int R, int use_clamp, int clamp, void* stream) {
-  int32_t* s_io = nullptr;
-  return launch(nq, use_clamp, 0, stream, STREAM_ARGS);
 }
 
 // hst/est/s_io hold the carried state and are updated in place; with

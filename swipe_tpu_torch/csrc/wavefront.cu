@@ -174,18 +174,14 @@ wavefront_kernel(const int8_t* __restrict__ mq,
     }
 
     // warp 0 stages its left edge G rows at a time, loaded one group
-    // ahead: the carried state for slab 0, else the block slab to its
+    // ahead: the carried state for slab 0 (H and the cell's own E, made
+    // E + Q of the next column when stored), else the block slab to its
     // left's edge.  Thread t < G holds row r0 + t until it is stored.
     int4 fv = make_int4(0, 1, NEG_INF, 1);
     auto fetch = [&](int r0) {
       const int r = r0 + t;
       if (w != 0 || t >= G || r >= qlen_pad) return;
-      if (gs == 0) {
-        const int hh = hq[r];
-        fv = make_int4(hh, 1, __viaddmax_s32(eq[r], Q - R, hh), 1);
-      } else {
-        fv = get_row(left + r);
-      }
+      fv = gs == 0 ? make_int4(hq[r], 1, eq[r], 1) : get_row(left + r);
     };
     fetch(0);
 
@@ -205,7 +201,11 @@ wavefront_kernel(const int8_t* __restrict__ mq,
         // store group st / G (loaded one group ago, polled again until
         // whole), load the next
         if (t < G && st + t < qlen_pad) {
-          while (!whole(fv)) fv = get_row(left + st + t);
+          while (!whole(fv)) {
+            __nanosleep(20);
+            fv = get_row(left + st + t);
+          }
+          if (gs == 0) fv.z = __viaddmax_s32(fv.z, Q - R, fv.x);
           stage[st + t] = fv;
         }
         __syncwarp();
@@ -213,18 +213,24 @@ wavefront_kernel(const int8_t* __restrict__ mq,
       }
       const int r = st - t;
       if (t == 0 && r < qlen_pad) {
-        int4 v = get_row(stage + r);
-        while (!whole(v)) v = get_row(stage + r);
+        // warp 0 stored its own rows before the __syncwarp above
+        int4 v = w == 0 ? stage[r] : get_row(stage + r);
+        while (!whole(v)) {
+          __nanosleep(10);
+          v = get_row(stage + r);
+        }
         hl = v.x;
         el = v.z;
       }
       if (r >= 0 && r < qlen_pad) {
         const int16_t* pr = prof + r;
         int hn[C];
+#pragma unroll
+        for (int i = 0; i < C; ++i) hn[i] = pr[off[i]];
         int d = hprev;
 #pragma unroll
         for (int i = 0; i < C; ++i) {
-          hn[i] = __viaddmax_s32_relu(Fp[i], -Q, d + (int)pr[off[i]]);
+          hn[i] = __viaddmax_s32_relu(Fp[i], -Q, d + hn[i]);
           d = Hc[i];
         }
         int E = el, eown = el;
@@ -307,13 +313,12 @@ extern "C" int swipe_wavefront(const int8_t* mq, const int8_t* db,
   if (c == C && w == W && g == G)                                         \
     return launch<C, W, G>(mq, db, h, e, s, edge, ticket, nq, qlen_pad, \
                            L, Q, R, st);
-  WAVE_CONFIG(16, 1, 8)
-  WAVE_CONFIG(16, 1, 4)
-  WAVE_CONFIG(32, 1, 8)
   WAVE_CONFIG(32, 1, 4)
-  WAVE_CONFIG(32, 1, 16)
-  WAVE_CONFIG(16, 4, 8)
-  WAVE_CONFIG(32, 4, 8)
+  WAVE_CONFIG(32, 1, 8)
+  WAVE_CONFIG(16, 1, 4)
+  WAVE_CONFIG(32, 2, 4)
+  WAVE_CONFIG(32, 4, 4)
+  WAVE_CONFIG(16, 4, 4)
 #undef WAVE_CONFIG
   return (int)cudaErrorInvalidValue;
 }

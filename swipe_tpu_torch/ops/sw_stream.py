@@ -7,8 +7,9 @@ ctypes:
 
 * ``build_dprofile_series`` (``csrc/dprofile.cu``) — the block score
   profiles of a chunk;
-* ``sw_scores_stream`` (``csrc/stream.cu``) — exact affine-gap scores of
-  NQ queries against every lane of a chunk, dumped per block;
+* ``sw_scores_stream`` (``csrc/carry_rows.cu``, a warp a (query, lane),
+  bands sized to the query) — exact affine-gap scores of NQ queries
+  against every lane of a chunk, dumped per block;
 * ``sw_scores_stream_carry`` — the same over one chunk of a flow or
   carry series, with each lane's DP state carried in and out, in one of
   two forms (``carry_form``: by whether the launch takes profiles): the
@@ -147,8 +148,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "swipe_dprofile": ("dprofile", [_P, _P, _P, ctypes.c_longlong, _I, _P]),
-    "swipe_stream": ("stream", [_P] * 9 + [_I] * 8 + [_P]),
-    "swipe_stream_rows": ("carry_rows", [_P] * 8 + [_I] * 10 + [_P]),
+    "swipe_stream_rows": ("carry_rows", [_P] * 8 + [_I] * 9 + [_P]),
     "swipe_stream_carry": ("stream", [_P] * 10 + [_I] * 10 + [_P]),
     "swipe_hint": ("hint", [_P] * 3 + [_I] + [_P] * 6 + [_I] * 6 + [_P]),
     "swipe_stream_tile": ("carry_rows", [_P] * 8 + [_I] * 10 + [_P]),
@@ -255,19 +255,11 @@ def build_dprofile_series(matrix8: torch.Tensor, db: torch.Tensor
 STREAM_BANDS = (128, 256, 512)
 # the planes between K2's bands, at most this many bytes a launch
 _STREAM_PLANE_BYTES = 1 << 30
-# K2's dump: handed down the pipeline and stored by thread 31 (True) or
-# every thread's atomicMax (False)
-STREAM_DUMP_CHAIN = True
 
 
 def stream_band(qlen_pad: int) -> int:
     """K2's band height for a launch of qlen_pad rows."""
     return next((b for b in STREAM_BANDS if qlen_pad <= b), STREAM_BANDS[-1])
-
-
-def stream_form(qlen_pad: int) -> str:
-    """Which kernel scores sw_scores_stream on the card: "rows"."""
-    return "rows"
 
 
 def _row_shift(h: torch.Tensor, fill: int) -> torch.Tensor:
@@ -373,8 +365,7 @@ def sw_scores_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
                      matrix8: torch.Tensor, db: torch.Tensor,
                      start: torch.Tensor, *, gapopenextend: int,
                      gapextend: int, clamp: int | None = None,
-                     dprof: torch.Tensor | None = None,
-                     form: str | None = None) -> torch.Tensor:
+                     dprof: torch.Tensor | None = None) -> torch.Tensor:
     """Score queries against a lane-packed chunk.
 
     qcodes:  [NQ, QLEN] int32 query codes, PAD_SYMBOL padded (build_qcodes)
@@ -385,11 +376,19 @@ def sw_scores_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
     start:   [L // KSEG, NSEQS] int8 — 1 where a lane begins a new
              sequence at that block
     clamp:   saturate H at this value (the reference's narrow tiers)
-    dprof:   the chunk's block profiles (build_dprofile_series); without
-             them the kernel looks scores up in the matrix
+    dprof:   the chunk's block profiles (build_dprofile_series), read by
+             the plain version only: the card's kernel takes none
     Returns [NQ, L // KSEG, NSEQS] int32: each lane's running max after
     every block; a sequence's score is the value at its end block
-    (gather_scores)."""
+    (gather_scores).
+
+    On the card (csrc/carry_rows.cu stream_rows_kernel) a warp takes a
+    (query, lane), its threads pipelining the query's rows in bands of
+    stream_band(QLEN) rows laid from each query's end, 8 lanes of one
+    query a block sharing the band's profile; needs gapopenextend >=
+    gapextend.  Timed against the lane form it replaced (a thread a
+    (query, lane), with block profiles) at four shapes, it was 2.4 to 15
+    times faster (PERF.md, PR 8)."""
     dev = db.device
     _check("qcodes", qcodes, torch.int32, 2, dev)
     _check("qlens", qlens, torch.int32, 1, dev)
@@ -412,9 +411,8 @@ def sw_scores_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
         return sw_scores_stream_plain(
             qcodes, qlens, matrix8, db, start, gapopenextend=gapopenextend,
             gapextend=gapextend, clamp=clamp, dprof=dprof)
-    if (form or stream_form(qlen_pad)) == "lanes":
-        return _stream_lanes(qcodes, qlens, matrix8, db, start, gapopenextend,
-                             gapextend, clamp, dprof)
+    if dprof is not None:
+        raise ValueError("the card's K2 takes no block profiles")
     _check_gaps(gapopenextend, gapextend)
     out = torch.zeros((nq, nblocks, nseqs), dtype=torch.int32, device=dev)
     band = stream_band(qlen_pad)
@@ -431,24 +429,7 @@ def sw_scores_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
                 _ptr(out[q0:q1]), _ptr(None if bh is None else bh[0]),
                 _ptr(None if bh is None else bh[1]), q1 - q0, qlen_pad,
                 nblocks, nseqs, int(gapopenextend), int(gapextend),
-                band // 32, *_clampv(clamp), int(STREAM_DUMP_CHAIN))
-    return out
-
-
-def _stream_lanes(qcodes, qlens, matrix8, db, start, Q, R, clamp, dprof):
-    """sw_scores_stream on the lane form (csrc/stream.cu mode 0): one
-    thread a (query, lane), 128 lanes a block, H/E in a global scratch."""
-    dev = db.device
-    nq, qlen_pad = qcodes.shape
-    L, nseqs = db.shape
-    nblocks = L // KSEG
-    out = torch.empty((nq, nblocks, nseqs), dtype=torch.int32, device=dev)
-    hst = torch.empty((nq, qlen_pad, nseqs), dtype=torch.int32, device=dev)
-    est = torch.empty_like(hst)
-    _launch("swipe_stream", dev, _ptr(qcodes), _ptr(qlens), _ptr(matrix8),
-            _ptr(db), _ptr(start), _ptr(dprof), _ptr(out), _ptr(hst),
-            _ptr(est), nq, qlen_pad, nblocks, nseqs, int(Q), int(R),
-            *_clampv(clamp))
+                band // 32, *_clampv(clamp))
     return out
 
 
@@ -517,8 +498,9 @@ def sw_scores_stream_carry_plain(qcodes, qlens, matrix8, db, start, h, e, s,
     return out, h, e, s
 
 
-# the row-form kernels' band height (32 threads x rows a thread), by
-# whether the matrix is int32; csrc/rows.cuh Rows<M>::RS
+# the carry and hint kernels' band height (32 threads x rows a thread),
+# by whether the matrix is int32; csrc/rows.cuh Rows<M>::RS (K2's are
+# STREAM_BANDS, chosen by the launch's qlen_pad)
 ROW_BANDS = {False: 32 * 16, True: 32 * 8}
 
 
@@ -1139,7 +1121,6 @@ def sw_hint_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
 # kernel launches (held here, so a caller that wraps a wrapper still
 # counts on the original; ops.sw_wavefront adds its own)
 _COUNTED = {"swipe_dprofile": build_dprofile_series,
-            "swipe_stream": sw_scores_stream,
             "swipe_stream_rows": sw_scores_stream,
             "swipe_stream_carry": sw_scores_stream_carry_lanes,
             "swipe_carry_rows": sw_scores_stream_carry_rows,

@@ -46,7 +46,7 @@ SEG_STRIPS = 256
 MAX_QLEN = 1024     # the kernel's row cap (the JAX kernel's)
 # K7's (columns a thread, warps a block, rows a handoff group): a slab of
 # 32 * C columns a warp; one of csrc/wavefront.cu's instantiations
-WAVEFRONT_CONFIG = (32, 1, 8)
+WAVEFRONT_CONFIG = (32, 1, 4)
 
 
 def wavefront_slabs(L: int, config=WAVEFRONT_CONFIG) -> tuple[int, int]:

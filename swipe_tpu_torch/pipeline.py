@@ -13,12 +13,13 @@ Database units up to the giant threshold take one of three routes, per
 slot group one walk over chunks cached on the device and one
 device-to-host copy feeding hit entry:
 
-* the plain lane pack (pack_stream): each chunk's block profiles (K1),
-  its scores (K2), then each sequence's score gathered and reduced to
-  the top K with torch ops;
+* the plain lane pack (pack_stream): each chunk's scores (K2, which
+  looks scores up in the matrix), then each sequence's score gathered
+  and reduced to the top K with torch ops;
 * the flow series (pack_stream_flow), for heavy length tails over small
-  databases: the same with the carry kernel (K3), each lane's DP state
-  gathered across lanes between chunks;
+  databases: each chunk's block profiles (K1) and its scores on the
+  carry kernel (K3), each lane's DP state gathered across lanes between
+  chunks;
 * queries over 1024 rows (the "long" groups: qlen_pad rounded to 512,
   1024 lanes, SLOT_BATCH_LONG slots) take the plain pack at
   LONG_MAX_COLS columns, whatever the flow heuristic says, scored in
@@ -197,7 +198,7 @@ class SearchEngine:
     STREAM_CONFIGS = ((2048, 512), (1024, 1024))
     # queries over the last config's row cap are "long"
     ROW_CAP = STREAM_CONFIGS[-1][1]
-    # block profiles are built per chunk when they fit this budget
+    # a flow chunk's block profiles are built when they fit this budget
     # (bytes = 128 x chunk bytes)
     DPROF_MAX_BYTES = 3 << 30
     # packed chunks stay on the device up to this budget; larger
@@ -258,9 +259,10 @@ class SearchEngine:
         self._seg_shape = (512, 16384) if stream else \
             (nseqs, max_cols or 16384)
         if max_cols is None:
-            # stream: 2048 lanes x 8192 columns = 16 MB per chunk, whose
-            # block profiles (2 GB) fit DPROF_MAX_BYTES; units up to 65536
-            # columns stay in the plain pack as oversized chunks.  The
+            # stream: 2048 lanes x 8192 columns = 16 MB per chunk (the JAX
+            # engine's, whose block profiles, 2 GB, fit DPROF_MAX_BYTES);
+            # units up to 65536 columns stay in the plain pack as
+            # oversized chunks.  The
             # segment backends' giants are units over a chunk's height
             max_cols = 8192 if stream else 16384
             self._giant_cols = 65536 if stream else max_cols
@@ -615,17 +617,17 @@ class SearchEngine:
         self._score_carry_series(slots, qlen_pad, timings)
 
     def _profiles(self, m8, data):
-        """A chunk's block profiles (K1) when they fit DPROF_MAX_BYTES,
-        else None (the kernels then look scores up in the matrix)."""
+        """A flow chunk's block profiles (K1) when they fit
+        DPROF_MAX_BYTES, else None (the kernel then looks scores up in the
+        matrix)."""
         from .ops.sw_stream import build_dprofile_series
         return build_dprofile_series(m8, data) \
             if data.numel() * 128 <= self.DPROF_MAX_BYTES else None
 
     def _stream_scores(self, chunks, qc, ql, m8, long=False):
-        """Score plain-pack chunks (K1, then K2; a long group: K5's tile
-        passes, which look scores up in the matrix): yields (dump,
-        end_block, lane, unit ids) per chunk; one profile build serves
-        the whole slot group."""
+        """Score plain-pack chunks (K2; a long group: K5's tile passes),
+        both looking scores up in the matrix: yields (dump, end_block,
+        lane, unit ids) per chunk."""
         from .ops.sw_stream import sw_scores_stream, sw_scores_stream_long
         p = self.params
         kw = dict(gapopenextend=p.gapopenextend, gapextend=p.gapextend)
@@ -635,10 +637,7 @@ class SearchEngine:
                                             tile_rows=self.LONG_TILE_ROWS,
                                             **kw)
             else:
-                dp = self._profiles(m8, data)
-                out = sw_scores_stream(qc, ql, m8, data, start, dprof=dp,
-                                       **kw)
-                del dp
+                out = sw_scores_stream(qc, ql, m8, data, start, **kw)
             yield out, eb, ln, ud
 
     def _flow_scores(self, nseqs, qc, ql, m8, qlen_pad):
@@ -829,8 +828,8 @@ class SearchEngine:
 
     def _iter_segmented_giants(self, slots, qlen_pad, V):
         """Score the giants as overlapped pieces of stride S and length
-        S + V lane-packed at full occupancy (K1, K2); a giant's score is
-        the max over its pieces."""
+        S + V lane-packed at full occupancy (K2); a giant's score is the
+        max over its pieces."""
         from .ops.sw_stream import gather_scores, sw_scores_stream
         p = self.params
         nseqs = 2048 if qlen_pad <= dict(self.STREAM_CONFIGS)[2048] \
@@ -839,11 +838,9 @@ class SearchEngine:
         qc, ql, m8 = self._slot_tensors(slots, qlen_pad)
         best = np.zeros((len(slots), len(self._giant_ids)), dtype=np.int64)
         for data, start, eb, ln, snos in dev_chunks:
-            dp = self._profiles(m8, data)
             out = sw_scores_stream(qc, ql, m8, data, start,
                                    gapopenextend=p.gapopenextend,
-                                   gapextend=p.gapextend, dprof=dp)
-            del dp
+                                   gapextend=p.gapextend)
             sc = gather_scores(out, eb, ln).cpu().numpy()
             np.maximum.at(best, (slice(None), owner[snos]), sc)
         yield self._giant_ids, best

@@ -53,18 +53,43 @@ def test_dprofile_kernel_matches_plain(chunk):
     assert torch.equal(got, sw.build_dprofile_series_plain(m8, data))
 
 
-@pytest.mark.parametrize("dprof,clamp", [(False, None), (True, None),
-                                         (True, 50)])
-def test_stream_kernel_matches_plain(dev, chunk, dprof, clamp):
+@pytest.mark.parametrize("clamp", [None, 50])
+def test_stream_kernel_matches_plain(dev, chunk, clamp):
+    # the card's K2 looks scores up in the matrix: block profiles raise
     m8, data, start = chunk
     rng = np.random.default_rng(1)
     qs = [rng.integers(1, 26, size=n, dtype=np.int8) for n in (5, 64, 130)]
     qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 160))
-    kw = dict(gapopenextend=12, gapextend=1, clamp=clamp,
-              dprof=sw.build_dprofile_series(m8, data) if dprof else None)
+    kw = dict(gapopenextend=12, gapextend=1, clamp=clamp)
+    n = sw.sw_scores_stream.launches
     got = sw.sw_scores_stream(qc, ql, m8, data, start, **kw)
+    assert sw.sw_scores_stream.launches == n + 1
     assert torch.equal(got, sw.sw_scores_stream_plain(qc, ql, m8, data,
                                                       start, **kw))
+    with pytest.raises(ValueError):
+        sw.sw_scores_stream(qc, ql, m8, data, start,
+                            dprof=sw.build_dprofile_series(m8, data), **kw)
+
+
+@pytest.mark.parametrize("clamp", [None, 50])
+@pytest.mark.parametrize("lengths", rc.STREAM_LENGTHS,
+                         ids=lambda t: "-".join(map(str, t)))
+def test_stream_kernel_at_band_edges(dev, chunk, lengths, clamp):
+    # every band height (128, 256, 512 rows, two bands over 512), lanes
+    # refilled at column 16, query windows planted across strip and band
+    # edges
+    m8, data, start = chunk
+    rng = np.random.default_rng(sum(lengths))
+    qs = [rng.integers(1, 26, size=n, dtype=np.int8) for n in lengths]
+    host, st = data.cpu().numpy(), start.cpu().numpy()
+    st[1, ::5] = 1
+    assert rc.plant_windows(rng, host, st, qs, rc.STREAM_EDGES)
+    d, st = torch.from_numpy(host).to(dev), torch.from_numpy(st).to(dev)
+    qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
+        qs, -(-max(lengths) // 32) * 32))
+    kw = dict(gapopenextend=12, gapextend=1, clamp=clamp)
+    assert torch.equal(sw.sw_scores_stream(qc, ql, m8, d, st, **kw),
+                       sw.sw_scores_stream_plain(qc, ql, m8, d, st, **kw))
 
 
 def test_hint_kernel_matches_plain(dev, chunk):
@@ -257,9 +282,36 @@ def test_wavefront_kernel_matches_plain(dev, chunk):
     # one segment: the carried H/E rows too
     a = wf.make_wavefront_state(3, 1024, dev)
     b = wf.make_wavefront_state(3, 1024, dev)
-    wf.sw_wavefront(mq, segs[:3000], *a, gapopenextend=12, gapextend=1)
-    wf.sw_wavefront_plain(mq, segs[:3000], *b, gapopenextend=12, gapextend=1)
+    wf.sw_wavefront(mq, segs[:3072], *a, gapopenextend=12, gapextend=1)
+    wf.sw_wavefront_plain(mq, segs[:3072], *b, gapopenextend=12, gapextend=1)
     for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("nq", [1, 3, 16])
+def test_wavefront_kernel_across_slab_edges(dev, chunk, nq):
+    # torch_row_cases' giant: alignments with horizontal gaps of 1,100 and
+    # 700 columns across slab edges and segment cuts, segment by segment
+    # (every segment's state), then a 1,024-column tail segment
+    from swipe_tpu_torch.ops import sw_wavefront as wf
+    m8 = chunk[0].cpu().numpy()
+    rng = np.random.default_rng(7)
+    qs, seq = rc.wavefront_case(rng)
+    qs += [rng.integers(1, 26, size=int(n), dtype=np.int8)
+           for n in rng.integers(1, 1025, size=13)]
+    mq = torch.from_numpy(wf.build_mq(sw.build_qcodes(qs[:nq], 1024)[0],
+                                      m8)).to(dev)
+    db = torch.from_numpy(seq).to(dev)
+    kw = dict(gapopenextend=12, gapextend=1)
+    got = wf.make_wavefront_state(nq, 1024, dev)
+    want = tuple(x.clone() for x in got)
+    for pos in range(0, len(seq), rc.WAVE_SEGMENT):
+        wf.sw_wavefront(mq, db[pos:pos + rc.WAVE_SEGMENT], *got, **kw)
+        wf.sw_wavefront_plain(mq, db[pos:pos + rc.WAVE_SEGMENT], *want, **kw)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    for x, y in zip(wf.sw_wavefront(mq, db[:1024], *want, **kw),
+                    wf.sw_wavefront_plain(mq, db[:1024], *got, **kw)):
         assert torch.equal(x, y)
 
 

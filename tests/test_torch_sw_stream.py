@@ -157,7 +157,6 @@ def test_stream_band_choice():
         fits = [b for b in tsw.STREAM_BANDS if b >= qlen_pad]
         assert band == (min(fits) if fits else max(tsw.STREAM_BANDS))
     assert tsw.stream_band(256) == 256 and tsw.stream_band(257) == 512
-    assert tsw.stream_form(256) == "rows"
 
 
 def test_gather_scores_matches_jax():
