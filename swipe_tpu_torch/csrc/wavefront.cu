@@ -25,7 +25,9 @@
 //     earlier is the diagonal into its first column;
 //   * the query profile sits in shared memory as int16 [sym][row]: the 32
 //     threads of a warp are on 32 consecutive rows, so their lookups hit
-//     at most two rows a bank, one word when the symbols agree.
+//     at most two rows a bank, one word when the symbols agree.  A
+//     lookup's address is a base common to the warp's step plus the
+//     column's offset, held in a register for the whole slab.
 // A warp covers a slab of 32 * C columns; a block of W warps covers W
 // slabs in a row.  A warp's left edge (H and E + Q of every row at the
 // column before its slab) comes in a row at a time, each row's 16 bytes
@@ -160,7 +162,11 @@ wavefront_kernel(const int8_t* __restrict__ mq,
     const int4* left = edge + ((long long)q * nbs + bs - 1) * stride;
     int4* right = edge + ((long long)q * nbs + bs) * stride;
 
-    // the thread's C columns: profile offsets of their symbols
+    // the thread's C columns: the byte offsets of their symbols' profile
+    // rows, less the thread's row lag, so that row st - t of column i is
+    // at (profile + st) + off[i], a uniform base plus a register; kept
+    // opaque, so the compiler holds them instead of rebuilding them from
+    // the symbols every step
     int off[C];
     {
       const int* col = reinterpret_cast<const int*>(db + (gs * 32 + t) * C);
@@ -169,8 +175,11 @@ wavefront_kernel(const int8_t* __restrict__ mq,
         const int v = col[i];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          off[4 * i + j] = ((v >> (8 * j)) & (NSYM - 1)) * stride;
+          off[4 * i + j] =
+              2 * (((v >> (8 * j)) & (NSYM - 1)) * stride - t);
       }
+#pragma unroll
+      for (int i = 0; i < C; ++i) asm volatile("" : "+r"(off[i]));
     }
 
     // warp 0 stages its left edge G rows at a time, loaded one group
@@ -223,10 +232,11 @@ wavefront_kernel(const int8_t* __restrict__ mq,
         el = v.z;
       }
       if (r >= 0 && r < qlen_pad) {
-        const int16_t* pr = prof + r;
+        const char* pr = reinterpret_cast<const char*>(prof + st);
         int hn[C];
 #pragma unroll
-        for (int i = 0; i < C; ++i) hn[i] = pr[off[i]];
+        for (int i = 0; i < C; ++i)
+          hn[i] = *reinterpret_cast<const int16_t*>(pr + off[i]);
         int d = hprev;
 #pragma unroll
         for (int i = 0; i < C; ++i) {
