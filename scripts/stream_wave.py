@@ -4,7 +4,7 @@ on one CUDA card.
     python3 scripts/stream_wave.py [--check-only]
 
 First each kernel is held against its plain version on small inputs,
-exactly: K7 in every (C, W, G) instantiation of csrc/wavefront.cu over a
+exactly: K7 in every (C, W, P) instantiation of csrc/wavefront.cu over a
 giant cut into segments (hits and a long horizontal gap across slab edges
 and a segment cut; 1 and 3 queries, 40-1,000 rows), K2's row form at every
 band height (query lengths at the band edges, a start bit inside the first
@@ -42,9 +42,9 @@ sys.path.insert(0, os.path.join(REPO, "tests"))
 from row_kernels import card, lengths, seqs_of, timed  # noqa: E402
 import torch_row_cases as rc  # noqa: E402
 
-# (C, W, G) instantiations of csrc/wavefront.cu
-WAVE_CONFIGS = ((32, 1, 4), (32, 1, 8), (16, 1, 4), (32, 2, 4),
-                (32, 4, 4), (16, 4, 4))
+# (C, W, P) instantiations of csrc/wavefront.cu
+WAVE_CONFIGS = ((32, 1, 4), (32, 1, 6), (32, 1, 8), (16, 1, 4),
+                (16, 1, 8), (32, 4, 4))
 
 
 def equal(name, got, want):

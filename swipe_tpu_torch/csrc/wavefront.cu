@@ -38,8 +38,8 @@
 //     staging array in shared memory;
 //   * a block's last warp writes its right edge into global memory, which
 //     the wrapper zeroes before the launch; the next block slab's first
-//     warp loads it G rows at a time, one group ahead, and polls a row
-//     again until its 1s are there.
+//     warp loads each row P steps before it needs it, one lane a step,
+//     and polls a row again until its 1s are there.
 // Slab 0 stages the carried state (column -1); the segment's last slab
 // writes the new one.  Each warp folds its S into s[q] with atomicMax.
 //
@@ -52,8 +52,9 @@
 //
 // Bound: the DP's critical path at tblastn's shape (16 queries of 512
 // rows, 262,144 columns; the throughput term is half of it).  A slab
-// starts about 2G + 31 steps after the one to its left, so C and G set
-// how fast the wavefront crosses the segment.
+// starts about P + 31 steps after the one to its left, and a step
+// carries the wavefront C columns along a row, so C and P set how fast it
+// crosses the segment.
 #include "sw_common.cuh"
 
 using namespace swipe;
@@ -125,7 +126,7 @@ __device__ __forceinline__ void load_profile(const int8_t* mqq, int qlen_pad,
   }
 }
 
-template <int C, int W, int G>
+template <int C, int W, int P>
 __global__ void __launch_bounds__(32 * W)
 wavefront_kernel(const int8_t* __restrict__ mq,
                  const int8_t* __restrict__ db, int32_t* h, int32_t* e,
@@ -182,17 +183,17 @@ wavefront_kernel(const int8_t* __restrict__ mq,
       for (int i = 0; i < C; ++i) asm volatile("" : "+r"(off[i]));
     }
 
-    // warp 0 stages its left edge G rows at a time, loaded one group
-    // ahead: the carried state for slab 0 (H and the cell's own E, made
-    // E + Q of the next column when stored), else the block slab to its
-    // left's edge.  Thread t < G holds row r0 + t until it is stored.
+    // warp 0 stages its left edge P rows ahead: at step st lane st % P
+    // stores row st, which it loaded P steps ago (polled again until
+    // whole), and loads row st + P.  The rows are the carried state for
+    // slab 0 (H and the cell's own E, made E + Q of the next column when
+    // stored), else the block slab to its left's edge.
     int4 fv = make_int4(0, 1, NEG_INF, 1);
-    auto fetch = [&](int r0) {
-      const int r = r0 + t;
-      if (w != 0 || t >= G || r >= qlen_pad) return;
-      fv = gs == 0 ? make_int4(hq[r], 1, eq[r], 1) : get_row(left + r);
+    auto fetch = [&](int r) {
+      if (r < qlen_pad)
+        fv = gs == 0 ? make_int4(hq[r], 1, eq[r], 1) : get_row(left + r);
     };
-    fetch(0);
+    if (w == 0 && t < P) fetch(t);
 
     int Hc[C], Fp[C];            // H of the row above, F + Q into this row
 #pragma unroll
@@ -206,19 +207,17 @@ wavefront_kernel(const int8_t* __restrict__ mq,
     int hout = 0, eout = NEG_INF;
     const int steps = qlen_pad + 31;
     for (int st = 0; st < steps; ++st) {
-      if (w == 0 && st % G == 0) {
-        // store group st / G (loaded one group ago, polled again until
-        // whole), load the next
-        if (t < G && st + t < qlen_pad) {
+      if (w == 0) {
+        if (t == st % P && st < qlen_pad) {
           while (!whole(fv)) {
             __nanosleep(20);
-            fv = get_row(left + st + t);
+            fv = get_row(left + st);
           }
           if (gs == 0) fv.z = __viaddmax_s32(fv.z, Q - R, fv.x);
-          stage[st + t] = fv;
+          stage[st] = fv;
+          fetch(st + P);
         }
         __syncwarp();
-        fetch(st + G);
       }
       const int r = st - t;
       if (t == 0 && r < qlen_pad) {
@@ -275,14 +274,14 @@ wavefront_kernel(const int8_t* __restrict__ mq,
   }
 }
 
-template <int C, int W, int G>
+template <int C, int W, int P>
 int launch(const int8_t* mq, const int8_t* db, int32_t* h, int32_t* e,
            int32_t* s, int4* edge, int* ticket, int nq, int qlen_pad, int L,
            int Q, int R, cudaStream_t st) {
   if (L % (32 * C)) return (int)cudaErrorInvalidValue;
   const int stride = row_stride(qlen_pad);
   const size_t smem = wave_smem(W, stride);
-  const auto kernel = wavefront_kernel<C, W, G>;
+  const auto kernel = wavefront_kernel<C, W, P>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -306,29 +305,29 @@ int launch(const int8_t* mq, const int8_t* db, int32_t* h, int32_t* e,
 
 // mq [nq, qlen_pad, 32] int8 per-row scores, db [L] int8 symbols; h/e
 // [nq, qlen_pad] and s [nq] int32, the carried state, updated in place.
-// (c, w, g): columns a thread, warps a block, rows a handoff group, one
-// of the instantiations below; edge the block slabs' right edges (int4
+// (c, w, p): columns a thread, warps a block, rows a block's first warp
+// loads its left edge ahead, one of the instantiations below; edge the block slabs' right edges (int4
 // [nq, block slabs, row_stride(qlen_pad)]) and ticket the ticket counter
 // (int32 [1]), both zeroed before each launch.  L a multiple of 32 * c;
 // needs Q >= R.
 extern "C" int swipe_wavefront(const int8_t* mq, const int8_t* db,
                                int32_t* h, int32_t* e, int32_t* s,
                                int4* edge, int* ticket, int nq, int qlen_pad,
-                               int L, int Q, int R, int c, int w, int g,
+                               int L, int Q, int R, int c, int w, int p,
                                void* stream) {
   if (nq <= 0 || L <= 0 || qlen_pad <= 0) return (int)cudaGetLastError();
   if (qlen_pad > MAX_ROWS || Q < R) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-#define WAVE_CONFIG(C, W, G)                                              \
-  if (c == C && w == W && g == G)                                         \
-    return launch<C, W, G>(mq, db, h, e, s, edge, ticket, nq, qlen_pad, \
+#define WAVE_CONFIG(C, W, P)                                              \
+  if (c == C && w == W && p == P)                                         \
+    return launch<C, W, P>(mq, db, h, e, s, edge, ticket, nq, qlen_pad, \
                            L, Q, R, st);
   WAVE_CONFIG(32, 1, 4)
+  WAVE_CONFIG(32, 1, 6)
   WAVE_CONFIG(32, 1, 8)
   WAVE_CONFIG(16, 1, 4)
-  WAVE_CONFIG(32, 2, 4)
+  WAVE_CONFIG(16, 1, 8)
   WAVE_CONFIG(32, 4, 4)
-  WAVE_CONFIG(16, 4, 4)
 #undef WAVE_CONFIG
   return (int)cudaErrorInvalidValue;
 }

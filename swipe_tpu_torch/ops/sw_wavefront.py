@@ -44,7 +44,7 @@ STRIP = 1024        # the JAX kernel's strip width: segments are multiples
 # segmentation, so both packages carry state across the same cuts)
 SEG_STRIPS = 256
 MAX_QLEN = 1024     # the kernel's row cap (the JAX kernel's)
-# K7's (columns a thread, warps a block, rows a handoff group): a slab of
+# K7's (columns a thread, warps a block, rows loaded ahead): a slab of
 # 32 * C columns a warp; one of csrc/wavefront.cu's instantiations
 WAVEFRONT_CONFIG = (32, 1, 4)
 
@@ -121,7 +121,7 @@ def sw_wavefront(mq: torch.Tensor, db: torch.Tensor, h: torch.Tensor,
     first), updated IN PLACE and returned as (h, e, s).  s holds each
     query's running max score.  On the card L is a multiple of the slab
     (32 * C columns) and gapopenextend >= gapextend; ``config`` picks
-    another (C, W, G) instantiation of the kernel than WAVEFRONT_CONFIG
+    another (C, W, P) instantiation of the kernel than WAVEFRONT_CONFIG
     (for timing them)."""
     dev = mq.device
     for name, t, dtype, ndim in (("mq", mq, torch.int8, 3),
