@@ -4,16 +4,14 @@ on one CUDA card.
     python3 scripts/stream_wave.py [--check-only]
 
 First each kernel is held against its plain version on small inputs,
-exactly: K7 in every (C, W, P) instantiation of csrc/wavefront.cu over a
-giant cut into segments (hits and a long horizontal gap across slab edges
-and a segment cut; 1 and 3 queries, 40-1,000 rows), K2's row form at every
-band height (query lengths at the band edges, a start bit inside the first
-32 columns, with and without a clamp).
-Then, inputs from fixed seeds:
+exactly: K7 over a giant cut into segments (hits and long horizontal gaps
+across slab edges and segment cuts; 1 and 3 queries, 40-1,000 rows), K2
+at every band height (query lengths at the band edges, a start bit inside
+the first 32 columns, with and without a clamp).  Then, inputs from fixed
+seeds:
 
 * K7 at tblastn's segment, 16 queries of 400 aa (qlen_pad 512) against
-  262,144 residues, in every instantiation; one query; a tail segment of
-  1,024 columns;
+  262,144 residues; one query; a tail segment of 1,024 columns;
 * K2 at chip_smoke.py's shapes: Swiss-Prot (16 x 200 aa, qlen_pad 256, a
   2048-lane x 8,192-column chunk of Swiss-Prot-like records), genome (16 x
   500 nt, qlen_pad 512, 2048 x 8,192 of gene-length records, +1/-3, gaps
@@ -42,11 +40,6 @@ sys.path.insert(0, os.path.join(REPO, "tests"))
 from row_kernels import card, lengths, seqs_of, timed  # noqa: E402
 import torch_row_cases as rc  # noqa: E402
 
-# (C, W, P) instantiations of csrc/wavefront.cu
-WAVE_CONFIGS = ((32, 1, 4), (32, 1, 6), (32, 1, 8), (16, 1, 4),
-                (16, 1, 8), (32, 4, 4))
-
-
 def equal(name, got, want):
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -58,8 +51,8 @@ def equal(name, got, want):
 
 
 def check_wavefront(wf, sw, m8, dev, emit):
-    """Every instantiation against the plain version on torch_row_cases'
-    giant, segment by segment, with 1 and 3 queries."""
+    """K7 against the plain version on torch_row_cases' giant, segment by
+    segment, with 1 and 3 queries."""
     rng = np.random.default_rng(11)
     qs, seq = rc.wavefront_case(rng)
     mq = torch.from_numpy(wf.build_mq(sw.build_qcodes(qs, 1024)[0],
@@ -74,15 +67,14 @@ def check_wavefront(wf, sw, m8, dev, emit):
             wf.sw_wavefront_plain(mq[:nq], db[pos:pos + rc.WAVE_SEGMENT],
                                   *st, **kw)
             want[nq, pos] = tuple(x.clone() for x in st)
-    for cfg in WAVE_CONFIGS:
-        for nq in (1, len(qs)):
-            got = wf.make_wavefront_state(nq, 1024, dev)
-            for pos in cuts:
-                wf.sw_wavefront(mq[:nq], db[pos:pos + rc.WAVE_SEGMENT], *got,
-                                config=cfg, **kw)
-                equal(f"sw_wavefront {cfg} {nq} queries at column {pos}",
-                      got, want[nq, pos])
-        emit(check="K7", config=list(cfg), ok=True)
+    for nq in (1, len(qs)):
+        got = wf.make_wavefront_state(nq, 1024, dev)
+        for pos in cuts:
+            wf.sw_wavefront(mq[:nq], db[pos:pos + rc.WAVE_SEGMENT], *got,
+                            **kw)
+            equal(f"sw_wavefront {nq} queries at column {pos}", got,
+                  want[nq, pos])
+    emit(check="K7", ok=True)
 
 
 def check_stream(sw, batching, m8, dev, emit):
@@ -117,13 +109,10 @@ def wave_times(wf, sw, m8, dev, emit):
                                       m8.cpu().numpy())).to(dev)
     seg = torch.from_numpy(seqs_of(rng, [262144], 20)[0]).to(dev)
     kw = dict(gapopenextend=12, gapextend=1)
-    for cfg in WAVE_CONFIGS:
-        for nq, L in ((16, 262144), (1, 262144), (16, 1024)):
-            st = wf.make_wavefront_state(nq, 512, dev)
-            ms = timed(lambda: wf.sw_wavefront(mq[:nq], seg[:L], *st,
-                                               config=cfg, **kw), 3)
-            emit(kernel="K7", config=list(cfg), queries=nq, columns=L,
-                 ms=ms)
+    for nq, L in ((16, 262144), (1, 262144), (16, 1024)):
+        st = wf.make_wavefront_state(nq, 512, dev)
+        ms = timed(lambda: wf.sw_wavefront(mq[:nq], seg[:L], *st, **kw), 3)
+        emit(kernel="K7", queries=nq, columns=L, ms=ms)
 
 
 def stream_shapes(sw, batching, dev):

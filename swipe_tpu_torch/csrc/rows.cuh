@@ -1,10 +1,13 @@
 // The band walker of the row-form kernels: a warp takes one (query, lane)
 // pair and sweeps a chunk's columns as a systolic pipeline over the
-// query's rows.  Included by carry_rows.cu (K3's row form, K5, K6) and
-// hint.cu (K4).
+// query's rows.  Included by carry_rows.cu (K2, K3's row form, K5, K6)
+// and hint.cu (K4).
 //
 //   * a band is 32 * RS consecutive query rows; thread t owns a strip of
-//     RS rows, their H and pre-advanced E in registers for the whole walk;
+//     RS rows, their H and pre-advanced E in registers for the whole walk.
+//     RS is a template parameter: 16 (int8 matrix) and 8 (int32) for K3,
+//     K4, K5 and K6; 4, 8 or 16 for K2, whose launches pick the band from
+//     the query length;
 //   * at step s thread t computes column s - t: F runs down its strip,
 //     and it hands its bottom row's H and F to thread t + 1 with
 //     __shfl_up_sync; H that arrived one step earlier is the diagonal

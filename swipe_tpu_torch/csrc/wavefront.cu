@@ -11,15 +11,15 @@
 // The TPU kernel walks a segment in 1024-column strips one after another,
 // the query's rows its time axis.  Here the strips become slabs that run
 // at the same time, pipelined across the SMs:
-//   * the band walker of rows.cuh transposed: thread t of a warp owns C
+//   * the band walker of rows.cuh transposed: thread t of a warp owns COLS
 //     consecutive db columns, their H of the row above and F in registers
 //     for the whole slab, and at step s computes row s - t of them;
-//   * E runs along the row through the thread's C columns, one
-//     instruction a column: it is taken from the cell before its max with
-//     E (hn = max(diag + p, F, 0)), exact because Q >= R, as rows.cuh
-//     takes F.  E and F are kept as E + Q and F + Q, so that H = max(E +
-//     Q - Q, hn) and the next E + Q = max(E + Q - R, hn) are one DPX
-//     instruction each;
+//   * E runs along the row through the thread's columns, one instruction
+//     a column: it is taken from the cell before its max with E (hn =
+//     max(diag + p, F, 0)), exact because Q >= R, as rows.cuh takes F.  E
+//     and F are kept as E + Q and F + Q, so that H = max(E + Q - Q, hn)
+//     and the next E + Q = max(E + Q - R, hn) are one DPX instruction
+//     each;
 //   * the thread hands its last column's H and E + Q for that row to
 //     thread t + 1 with __shfl_up_sync; the H that arrived one step
 //     earlier is the diagonal into its first column;
@@ -28,33 +28,31 @@
 //     at most two rows a bank, one word when the symbols agree.  A
 //     lookup's address is a base common to the warp's step plus the
 //     column's offset, held in a register for the whole slab.
-// A warp covers a slab of 32 * C columns; a block of W warps covers W
-// slabs in a row.  A warp's left edge (H and E + Q of every row at the
-// column before its slab) comes in a row at a time, each row's 16 bytes
-// {H, 1, E + Q, 1} written with one store and read with one load, so a
-// reader that sees both 1s holds the row (the 8-byte halves are single
-// copies: the handoff of NCCL's LL protocol) and no fence is needed:
-//   * inside a block, thread 31 of warp w writes each row into warp w + 1's
-//     staging array in shared memory;
-//   * a block's last warp writes its right edge into global memory, which
-//     the wrapper zeroes before the launch; the next block slab's first
-//     warp loads each row P steps before it needs it, one lane a step,
-//     and polls a row again until its 1s are there.
-// Slab 0 stages the carried state (column -1); the segment's last slab
-// writes the new one.  Each warp folds its S into s[q] with atomicMax.
+// A warp (a block) covers a slab of 32 * COLS columns.  Its left edge (H
+// and E + Q of every row at the column before the slab) comes from the
+// slab to its left through global memory, which the wrapper zeroes before
+// the launch: that slab's thread 31 writes each row's 16 bytes {H, 1, E +
+// Q, 1} with one store, and this slab loads them GROUP rows at a time,
+// one group ahead, into shared memory, polling a row again until its 1s
+// are there (the 8-byte halves are single copies: the handoff of NCCL's
+// LL protocol, so no fence is needed).  Slab 0 stages the carried state
+// (column -1); the segment's last slab writes the new one.  Each warp
+// folds its S into s[q] with atomicMax.
 //
-// No deadlock: blocks take (query, block slab) tickets from a counter in
-// the order they start (slab-major, so the queries advance together), and
-// a ticket waits only on a smaller one, held by a block that is running.
+// No deadlock: blocks take (query, slab) tickets from a counter in the
+// order they start (slab-major, so the queries advance together), and a
+// ticket waits only on a smaller one, held by a block that is running.
 // The grid is no larger than the blocks the card holds at once.  The
 // wrapper zeroes the counter and the edges on the launch's stream before
 // each launch.
 //
 // Bound: the DP's critical path at tblastn's shape (16 queries of 512
-// rows, 262,144 columns; the throughput term is half of it).  A slab
-// starts about P + 31 steps after the one to its left, and a step
-// carries the wavefront C columns along a row, so C and P set how fast it
-// crosses the segment.
+// rows, 262,144 columns; the throughput term is a third of it).  A step
+// carries the wavefront COLS columns along a row and a slab starts about
+// 2 * GROUP + 31 steps after the one to its left; a warp alone on its SM
+// quarter issues the step's instructions one after another, so a
+// query's time is about its columns times the instructions of a cell, not
+// the critical path's three.
 #include "sw_common.cuh"
 
 using namespace swipe;
@@ -63,6 +61,12 @@ namespace {
 
 constexpr int MAX_ROWS = 1024;
 constexpr unsigned FULL = 0xffffffffu;
+// columns a thread and rows a group of the left edge (32 and 4 timed
+// fastest against 8 and 16 columns, 8 to 32 rows, and slabs of 2 and 4
+// warps handing their edges on through shared memory: PERF.md, PR 8);
+// ops/sw_wavefront.py SLAB_COLS mirrors the slab, 32 * COLS
+constexpr int COLS = 32;
+constexpr int GROUP = 4;
 
 // the profile's row stride: rows rounded to 64, so stride / 2 words is a
 // multiple of 32 and a lookup's bank is its row's
@@ -70,24 +74,23 @@ __host__ __device__ constexpr int row_stride(int qlen_pad) {
   return (qlen_pad + 63) / 64 * 64;
 }
 
-// shared memory: the profile (int16 [NSYM][stride]), each warp's staged
-// left edge (int4 [W][stride]) and the block's ticket
-__host__ __device__ constexpr size_t wave_smem(int W, int stride) {
-  return sizeof(int16_t) * NSYM * stride + sizeof(int4) * W * stride +
+// shared memory: the profile (int16 [NSYM][stride]), the staged left edge
+// (int4 [stride]) and the block's ticket
+__host__ __device__ constexpr size_t wave_smem(int stride) {
+  return sizeof(int16_t) * NSYM * stride + sizeof(int4) * stride +
          sizeof(int);
 }
 
-// A row of an edge, {H, 1, E + Q, 1}, as one 16-byte store and load
-// (generic addresses: shared or global memory).
+// A row of an edge, {H, 1, E + Q, 1}, as one 16-byte store and load.
 __device__ __forceinline__ void put_row(int4* p, int h, int e) {
-  asm volatile("st.volatile.v4.s32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+  asm volatile("st.volatile.global.v4.s32 [%0], {%1, %2, %3, %4};" ::"l"(p),
                "r"(h), "r"(1), "r"(e), "r"(1)
                : "memory");
 }
 
 __device__ __forceinline__ int4 get_row(const int4* p) {
   int4 v;
-  asm volatile("ld.volatile.v4.s32 {%0, %1, %2, %3}, [%4];"
+  asm volatile("ld.volatile.global.v4.s32 {%0, %1, %2, %3}, [%4];"
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "l"(p)
                : "memory");
@@ -126,8 +129,7 @@ __device__ __forceinline__ void load_profile(const int8_t* mqq, int qlen_pad,
   }
 }
 
-template <int C, int W, int P>
-__global__ void __launch_bounds__(32 * W)
+__global__ void __launch_bounds__(32)
 wavefront_kernel(const int8_t* __restrict__ mq,
                  const int8_t* __restrict__ db, int32_t* h, int32_t* e,
                  int32_t* s, int4* edge, int* ticket_counter, int nq,
@@ -135,44 +137,37 @@ wavefront_kernel(const int8_t* __restrict__ mq,
   extern __shared__ __align__(16) unsigned char smem[];
   const int stride = row_stride(qlen_pad);
   int16_t* prof = reinterpret_cast<int16_t*>(smem);
-  int4* stages = reinterpret_cast<int4*>(prof + NSYM * stride);
-  int* ticket = reinterpret_cast<int*>(stages + W * stride);
-  const int w = threadIdx.x >> 5, t = threadIdx.x & 31;
-  const int nws = L / (32 * C);           // warp slabs of the segment
-  const int nbs = (nws + W - 1) / W;      // block slabs
-  int4* stage = stages + w * stride;
+  int4* stage = reinterpret_cast<int4*>(prof + NSYM * stride);
+  int* ticket = reinterpret_cast<int*>(stage + stride);
+  const int t = threadIdx.x;
+  const int nslabs = L / (32 * COLS);
 
   for (;;) {
-    // every warp is past the previous ticket's walk
-    __syncthreads();
-    if (threadIdx.x == 0) *ticket = atomicAdd(ticket_counter, 1);
-    for (int i = threadIdx.x; i < W * stride; i += blockDim.x)
-      stages[i] = make_int4(0, 0, 0, 0);
-    __syncthreads();
+    __syncwarp();          // the previous ticket's walk is over
+    if (t == 0) *ticket = atomicAdd(ticket_counter, 1);
+    __syncwarp();
     const int k = *ticket;
-    if (k >= nq * nbs) return;
-    const int q = k % nq, bs = k / nq;
+    if (k >= nq * nslabs) return;
+    const int q = k % nq, slab = k / nq;
     load_profile(mq + (long long)q * qlen_pad * NSYM, qlen_pad, stride,
                  prof);
-    __syncthreads();
-    const int gs = bs * W + w;             // this warp's slab
-    if (gs >= nws) continue;               // past a partial block's end
-    const bool last = gs == nws - 1;       // writes the carried state
+    const bool last = slab == nslabs - 1;  // writes the carried state
     int32_t* hq = h + (long long)q * qlen_pad;
     int32_t* eq = e + (long long)q * qlen_pad;
-    const int4* left = edge + ((long long)q * nbs + bs - 1) * stride;
-    int4* right = edge + ((long long)q * nbs + bs) * stride;
+    const int4* left = edge + ((long long)q * nslabs + slab - 1) * stride;
+    int4* right = edge + ((long long)q * nslabs + slab) * stride;
 
-    // the thread's C columns: the byte offsets of their symbols' profile
+    // the thread's columns: the byte offsets of their symbols' profile
     // rows, less the thread's row lag, so that row st - t of column i is
     // at (profile + st) + off[i], a uniform base plus a register; kept
     // opaque, so the compiler holds them instead of rebuilding them from
     // the symbols every step
-    int off[C];
+    int off[COLS];
     {
-      const int* col = reinterpret_cast<const int*>(db + (gs * 32 + t) * C);
+      const int* col =
+          reinterpret_cast<const int*>(db + (slab * 32 + t) * COLS);
 #pragma unroll
-      for (int i = 0; i < C / 4; ++i) {
+      for (int i = 0; i < COLS / 4; ++i) {
         const int v = col[i];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
@@ -180,24 +175,25 @@ wavefront_kernel(const int8_t* __restrict__ mq,
               2 * (((v >> (8 * j)) & (NSYM - 1)) * stride - t);
       }
 #pragma unroll
-      for (int i = 0; i < C; ++i) asm volatile("" : "+r"(off[i]));
+      for (int i = 0; i < COLS; ++i) asm volatile("" : "+r"(off[i]));
     }
 
-    // warp 0 stages its left edge P rows ahead: at step st lane st % P
-    // stores row st, which it loaded P steps ago (polled again until
-    // whole), and loads row st + P.  The rows are the carried state for
-    // slab 0 (H and the cell's own E, made E + Q of the next column when
-    // stored), else the block slab to its left's edge.
+    // the left edge, staged GROUP rows at a time, loaded one group ahead:
+    // the carried state for slab 0 (H and the cell's own E, made E + Q of
+    // the next column when stored), else the slab to the left's edge.
+    // Thread t < GROUP holds row r0 + t until it is stored.
     int4 fv = make_int4(0, 1, NEG_INF, 1);
-    auto fetch = [&](int r) {
-      if (r < qlen_pad)
-        fv = gs == 0 ? make_int4(hq[r], 1, eq[r], 1) : get_row(left + r);
+    auto fetch = [&](int r0) {
+      const int r = r0 + t;
+      if (t >= GROUP || r >= qlen_pad) return;
+      fv = slab == 0 ? make_int4(hq[r], 1, eq[r], 1) : get_row(left + r);
     };
-    if (w == 0 && t < P) fetch(t);
+    fetch(0);
+    __syncwarp();          // the profile
 
-    int Hc[C], Fp[C];            // H of the row above, F + Q into this row
+    int Hc[COLS], Fp[COLS];      // H of the row above, F + Q into this row
 #pragma unroll
-    for (int i = 0; i < C; ++i) {
+    for (int i = 0; i < COLS; ++i) {
       Hc[i] = 0;
       Fp[i] = NEG_INF;
     }
@@ -207,44 +203,41 @@ wavefront_kernel(const int8_t* __restrict__ mq,
     int hout = 0, eout = NEG_INF;
     const int steps = qlen_pad + 31;
     for (int st = 0; st < steps; ++st) {
-      if (w == 0) {
-        if (t == st % P && st < qlen_pad) {
+      if (st % GROUP == 0) {
+        // store group st / GROUP (loaded one group ago, polled again
+        // until whole), load the next
+        if (t < GROUP && st + t < qlen_pad) {
           while (!whole(fv)) {
             __nanosleep(20);
-            fv = get_row(left + st);
+            fv = get_row(left + st + t);
           }
-          if (gs == 0) fv.z = __viaddmax_s32(fv.z, Q - R, fv.x);
-          stage[st] = fv;
-          fetch(st + P);
+          if (slab == 0) fv.z = __viaddmax_s32(fv.z, Q - R, fv.x);
+          stage[st + t] = fv;
         }
         __syncwarp();
+        fetch(st + GROUP);
       }
       const int r = st - t;
       if (t == 0 && r < qlen_pad) {
-        // warp 0 stored its own rows before the __syncwarp above
-        int4 v = w == 0 ? stage[r] : get_row(stage + r);
-        while (!whole(v)) {
-          __nanosleep(10);
-          v = get_row(stage + r);
-        }
+        const int4 v = stage[r];
         hl = v.x;
         el = v.z;
       }
       if (r >= 0 && r < qlen_pad) {
         const char* pr = reinterpret_cast<const char*>(prof + st);
-        int hn[C];
+        int hn[COLS];
 #pragma unroll
-        for (int i = 0; i < C; ++i)
+        for (int i = 0; i < COLS; ++i)
           hn[i] = *reinterpret_cast<const int16_t*>(pr + off[i]);
         int d = hprev;
 #pragma unroll
-        for (int i = 0; i < C; ++i) {
+        for (int i = 0; i < COLS; ++i) {
           hn[i] = __viaddmax_s32_relu(Fp[i], -Q, d + hn[i]);
           d = Hc[i];
         }
         int E = el, eown = el;
 #pragma unroll
-        for (int i = 0; i < C; ++i) {
+        for (int i = 0; i < COLS; ++i) {
           eown = E;
           const int hh = __viaddmax_s32(E, -Q, hn[i]);
           E = __viaddmax_s32(E, -R, hn[i]);
@@ -252,16 +245,16 @@ wavefront_kernel(const int8_t* __restrict__ mq,
           Fp[i] = __viaddmax_s32(Fp[i], -R, hh);
         }
 #pragma unroll
-        for (int i = 0; i + 1 < C; i += 2) S = __vimax3_s32(S, Hc[i], Hc[i + 1]);
-        hout = Hc[C - 1];
+        for (int i = 0; i + 1 < COLS; i += 2)
+          S = __vimax3_s32(S, Hc[i], Hc[i + 1]);
+        hout = Hc[COLS - 1];
         eout = E;
         if (t == 31) {
           if (last) {
             hq[r] = hout;
             eq[r] = eown - Q;
           } else {
-            put_row(w == W - 1 ? right + r : stages + (w + 1) * stride + r,
-                    hout, eout);
+            put_row(right + r, hout, eout);
           }
         }
       }
@@ -274,60 +267,36 @@ wavefront_kernel(const int8_t* __restrict__ mq,
   }
 }
 
-template <int C, int W, int P>
-int launch(const int8_t* mq, const int8_t* db, int32_t* h, int32_t* e,
-           int32_t* s, int4* edge, int* ticket, int nq, int qlen_pad, int L,
-           int Q, int R, cudaStream_t st) {
-  if (L % (32 * C)) return (int)cudaErrorInvalidValue;
-  const int stride = row_stride(qlen_pad);
-  const size_t smem = wave_smem(W, stride);
-  const auto kernel = wavefront_kernel<C, W, P>;
+}  // namespace
+
+// mq [nq, qlen_pad, 32] int8 per-row scores, db [L] int8 symbols; h/e
+// [nq, qlen_pad] and s [nq] int32, the carried state, updated in place;
+// edge the slabs' right edges (int4 [nq, L / 1024, row_stride(qlen_pad)])
+// and ticket the ticket counter (int32 [1]), both zeroed before each
+// launch.  L a multiple of 1024 (32 * COLS); needs Q >= R.
+extern "C" int swipe_wavefront(const int8_t* mq, const int8_t* db,
+                               int32_t* h, int32_t* e, int32_t* s,
+                               int4* edge, int* ticket, int nq, int qlen_pad,
+                               int L, int Q, int R, void* stream) {
+  if (nq <= 0 || L <= 0 || qlen_pad <= 0) return (int)cudaGetLastError();
+  if (qlen_pad > MAX_ROWS || Q < R || L % (32 * COLS))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wave_smem(row_stride(qlen_pad));
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      wavefront_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess ||
       (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, 32 * W, smem)) != cudaSuccess)
+           &per_sm, wavefront_kernel, 32, smem)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int nws = L / (32 * C);
-  const int tickets = nq * ((nws + W - 1) / W);
-  const int grid = min(tickets, per_sm * sms);
-  kernel<<<grid, 32 * W, smem, st>>>(mq, db, h, e, s, edge, ticket, nq,
-                                     qlen_pad, L, Q, R);
+  const int tickets = nq * (L / (32 * COLS));
+  wavefront_kernel<<<min(tickets, per_sm * sms), 32, smem,
+                     (cudaStream_t)stream>>>(mq, db, h, e, s, edge, ticket,
+                                             nq, qlen_pad, L, Q, R);
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// mq [nq, qlen_pad, 32] int8 per-row scores, db [L] int8 symbols; h/e
-// [nq, qlen_pad] and s [nq] int32, the carried state, updated in place.
-// (c, w, p): columns a thread, warps a block, rows a block's first warp
-// loads its left edge ahead, one of the instantiations below; edge the block slabs' right edges (int4
-// [nq, block slabs, row_stride(qlen_pad)]) and ticket the ticket counter
-// (int32 [1]), both zeroed before each launch.  L a multiple of 32 * c;
-// needs Q >= R.
-extern "C" int swipe_wavefront(const int8_t* mq, const int8_t* db,
-                               int32_t* h, int32_t* e, int32_t* s,
-                               int4* edge, int* ticket, int nq, int qlen_pad,
-                               int L, int Q, int R, int c, int w, int p,
-                               void* stream) {
-  if (nq <= 0 || L <= 0 || qlen_pad <= 0) return (int)cudaGetLastError();
-  if (qlen_pad > MAX_ROWS || Q < R) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-#define WAVE_CONFIG(C, W, P)                                              \
-  if (c == C && w == W && p == P)                                         \
-    return launch<C, W, P>(mq, db, h, e, s, edge, ticket, nq, qlen_pad, \
-                           L, Q, R, st);
-  WAVE_CONFIG(32, 1, 4)
-  WAVE_CONFIG(32, 1, 6)
-  WAVE_CONFIG(32, 1, 8)
-  WAVE_CONFIG(16, 1, 4)
-  WAVE_CONFIG(16, 1, 8)
-  WAVE_CONFIG(32, 4, 4)
-#undef WAVE_CONFIG
-  return (int)cudaErrorInvalidValue;
 }

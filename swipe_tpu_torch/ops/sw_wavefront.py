@@ -5,14 +5,13 @@ Port of ``swipe_tpu/ops/sw_wavefront.py``.  The stream kernels put one db
 sequence in each lane, so a lone chromosome-scale unit would run on one
 lane of the card.  The wavefront kernel (K7, ``csrc/wavefront.cu``)
 parallelises inside the (query, sequence) pair instead: the segment's
-columns are cut into slabs of ``32 * C`` columns, a warp a slab, thread t
-owning C columns and computing row s - t of them at step s (the band
-walker of ``csrc/rows.cuh`` with rows and columns swapped).  Slabs run at
-once on every SM, each starting a few dozen steps after the one to its
-left, whose right edge it reads through shared memory (the warps of a
-block) or global memory behind a progress counter (see the source's
-notes).  It serves the few giants whose positive-score span is too large
-to cut them into overlapped pieces (the engine's routing,
+columns are cut into slabs of SLAB_COLS, a warp a slab, thread t owning
+32 columns and computing row s - t of them at step s (the band walker of
+``csrc/rows.cuh`` with rows and columns swapped).  Every query's slabs
+run at once on all the SMs, each a few dozen steps behind the one to its
+left, whose right edge it reads row by row through global memory (see
+the source's notes).  It serves the few giants whose positive-score span
+is too large to cut them into overlapped pieces (the engine's routing,
 pipeline.SearchEngine._iter_carry_scores).
 
 The cross-segment state is, per query row, the H and E of the segment's
@@ -33,7 +32,7 @@ import torch
 from ..batching import NEG_INF, PAD_SYMBOL
 from . import sw_stream as _sw
 
-__all__ = ["SEG_STRIPS", "STRIP", "WAVEFRONT_CONFIG", "build_mq",
+__all__ = ["SEG_STRIPS", "SLAB_COLS", "STRIP", "build_mq",
            "make_wavefront_state", "sw_wavefront", "sw_wavefront_plain",
            "sw_wavefront_scores", "wavefront_slabs",
            "wavefront_state_from_jax"]
@@ -44,19 +43,17 @@ STRIP = 1024        # the JAX kernel's strip width: segments are multiples
 # segmentation, so both packages carry state across the same cuts)
 SEG_STRIPS = 256
 MAX_QLEN = 1024     # the kernel's row cap (the JAX kernel's)
-# K7's (columns a thread, warps a block, rows loaded ahead): a slab of
-# 32 * C columns a warp; one of csrc/wavefront.cu's instantiations
-WAVEFRONT_CONFIG = (32, 1, 4)
+# K7's slab, the columns of a warp: 32 threads x 32 columns
+# (csrc/wavefront.cu COLS)
+SLAB_COLS = 1024
 
 
-def wavefront_slabs(L: int, config=WAVEFRONT_CONFIG) -> tuple[int, int]:
-    """(warp slabs, block slabs) of an L-column segment under K7's
-    ``config``: L // (32 * C) slabs of a warp, W of them a block."""
-    c, w, _ = config
-    if L % (32 * c):
-        raise ValueError(f"segment width {L} not a multiple of {32 * c}")
-    nws = L // (32 * c)
-    return nws, -(-nws // w)
+def wavefront_slabs(L: int) -> int:
+    """The slabs of an L-column segment on the card: one (query, slab) a
+    block, every query's slabs running at once over the SMs."""
+    if L % SLAB_COLS:
+        raise ValueError(f"segment width {L} not a multiple of {SLAB_COLS}")
+    return L // SLAB_COLS
 
 
 def build_mq(qcodes: np.ndarray, matrix8: np.ndarray) -> np.ndarray:
@@ -111,7 +108,7 @@ def sw_wavefront_plain(mq, db, h, e, s, *, gapopenextend: int,
 
 def sw_wavefront(mq: torch.Tensor, db: torch.Tensor, h: torch.Tensor,
                  e: torch.Tensor, s: torch.Tensor, *, gapopenextend: int,
-                 gapextend: int, config=None):
+                 gapextend: int):
     """Score NQ queries against one segment of a db sequence, carrying
     the state across segments.
 
@@ -119,10 +116,8 @@ def sw_wavefront(mq: torch.Tensor, db: torch.Tensor, h: torch.Tensor,
     segment; h/e [NQ, QLEN] and s [NQ] int32: the state left by the
     previous segment of the same sequence (make_wavefront_state for the
     first), updated IN PLACE and returned as (h, e, s).  s holds each
-    query's running max score.  On the card L is a multiple of the slab
-    (32 * C columns) and gapopenextend >= gapextend; ``config`` picks
-    another (C, W, P) instantiation of the kernel than WAVEFRONT_CONFIG
-    (for timing them)."""
+    query's running max score.  On the card L is a multiple of SLAB_COLS
+    (the JAX kernel's strip) and gapopenextend >= gapextend."""
     dev = mq.device
     for name, t, dtype, ndim in (("mq", mq, torch.int8, 3),
                                  ("db", db, torch.int8, 1),
@@ -145,18 +140,16 @@ def sw_wavefront(mq: torch.Tensor, db: torch.Tensor, h: torch.Tensor,
     if db.data_ptr() % 4 or mq.data_ptr() % 16:
         raise ValueError("sw_wavefront: db must be 4-byte and mq 16-byte "
                          "aligned")
-    cfg = WAVEFRONT_CONFIG if config is None else config
-    _, nbs = wavefront_slabs(db.shape[0], cfg)
-    # the block slabs' right edges (a row is {H, 1, E + Q, 1} once
-    # written) and the ticket counter, zeroed on this stream before the
-    # launch
-    edge = torch.zeros((nq, nbs, -(-qlen_pad // 64) * 64, 4),
-                       dtype=torch.int32, device=dev)
+    # the slabs' right edges (a row is {H, 1, E + Q, 1} once written) and
+    # the ticket counter, zeroed on this stream before the launch
+    edge = torch.zeros((nq, wavefront_slabs(db.shape[0]),
+                        -(-qlen_pad // 64) * 64, 4), dtype=torch.int32,
+                       device=dev)
     ticket = torch.zeros(1, dtype=torch.int32, device=dev)
     _sw._launch("swipe_wavefront", dev, _sw._ptr(mq), _sw._ptr(db),
                 _sw._ptr(h), _sw._ptr(e), _sw._ptr(s), _sw._ptr(edge),
                 _sw._ptr(ticket), nq, qlen_pad, db.shape[0],
-                int(gapopenextend), int(gapextend), *cfg)
+                int(gapopenextend), int(gapextend))
     return h, e, s
 
 

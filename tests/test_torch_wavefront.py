@@ -149,14 +149,13 @@ def test_wavefront_shapes():
 
 def test_wavefront_slab_counts():
     # every segment width _segments yields, 1,024 to 262,144 columns,
-    # splits into whole slabs of the card kernel, more than one a query
-    c, w, _ = TW.WAVEFRONT_CONFIG
+    # splits into whole slabs of the card kernel; a query's full segment
+    # runs on hundreds of blocks
     widths = {width for n in [1] + [1024 << k for k in range(9)] + [300_000]
               for _, width in TW._segments(n)}
     assert widths == {1024 << k for k in range(9)}
     for L in sorted(widths):
-        nws, nbs = TW.wavefront_slabs(L)
-        assert nws * 32 * c == L and nbs == -(-nws // w)
-        assert nbs > 1
+        assert TW.wavefront_slabs(L) * TW.SLAB_COLS == L
+    assert TW.wavefront_slabs(TW.STRIP * TW.SEG_STRIPS) == 256
     with pytest.raises(ValueError):
         TW.wavefront_slabs(1000)
