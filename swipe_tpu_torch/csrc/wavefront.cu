@@ -61,9 +61,9 @@ namespace {
 
 constexpr int MAX_ROWS = 1024;
 constexpr unsigned FULL = 0xffffffffu;
-// columns a thread and rows a group of the left edge (32 and 4 timed
-// fastest against 8 and 16 columns, 8 to 32 rows, and slabs of 2 and 4
-// warps handing their edges on through shared memory: PERF.md, PR 8);
+// columns a thread and rows a group of the left edge: 32 and 4 timed
+// fastest against fewer columns, larger groups and blocks of 2 and 4
+// warps handing their edges on through shared memory (PERF.md);
 // ops/sw_wavefront.py SLAB_COLS mirrors the slab, 32 * COLS
 constexpr int COLS = 32;
 constexpr int GROUP = 4;

@@ -388,7 +388,7 @@ def sw_scores_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
     query a block sharing the band's profile; needs gapopenextend >=
     gapextend.  Timed against the lane form it replaced (a thread a
     (query, lane), with block profiles) at four shapes, it was 2.4 to 15
-    times faster (PERF.md, PR 8)."""
+    times faster (PERF.md)."""
     dev = db.device
     _check("qcodes", qcodes, torch.int32, 2, dev)
     _check("qlens", qlens, torch.int32, 1, dev)
