@@ -74,11 +74,24 @@ __host__ __device__ constexpr int row_stride(int qlen_pad) {
   return (qlen_pad + 63) / 64 * 64;
 }
 
-// shared memory: the profile (int16 [NSYM][stride]), the staged left edge
-// (int4 [stride]) and the block's ticket
-__host__ __device__ constexpr size_t wave_smem(int stride) {
-  return sizeof(int16_t) * NSYM * stride + sizeof(int4) * stride +
-         sizeof(int);
+// the profile's rows: PAD rows above and below the query's, so that
+// every step's lookups stay in it (VARIANT > 0)
+template <int VARIANT>
+__host__ __device__ constexpr int pad_rows() {
+  return VARIANT ? 32 : 0;
+}
+
+template <int VARIANT>
+__host__ __device__ constexpr int prof_stride(int qlen_pad) {
+  return row_stride(qlen_pad + 2 * pad_rows<VARIANT>());
+}
+
+// shared memory: the profile (int16 [NSYM][prof_stride]), the staged left
+// edge (int4 [stride]) and the block's ticket
+template <int VARIANT>
+__host__ __device__ constexpr size_t wave_smem(int qlen_pad) {
+  return sizeof(int16_t) * NSYM * prof_stride<VARIANT>(qlen_pad) +
+         sizeof(int4) * row_stride(qlen_pad) + sizeof(int);
 }
 
 // A row of an edge, {H, 1, E + Q, 1}, as one 16-byte store and load.
@@ -99,22 +112,28 @@ __device__ __forceinline__ int4 get_row(const int4* p) {
 
 __device__ __forceinline__ bool whole(int4 v) { return v.y == 1 && v.w == 1; }
 
-// The query's profile, int16 [sym][stride] from int8 mq [qlen_pad][32]:
-// a thread takes rows 2p and 2p + 1 (64 bytes) and writes word p of every
+// The query's profile, int16 [sym][stride] from int8 mq [qlen_pad][32],
+// row r at r + pad; rows outside the query score as PAD: a thread takes
+// rows 2p - pad and 2p + 1 - pad (64 bytes) and writes word p of every
 // symbol, so a warp's stores hit 32 consecutive words.
 __device__ __forceinline__ void load_profile(const int8_t* mqq, int qlen_pad,
-                                             int stride, int16_t* prof) {
+                                             int stride, int pad,
+                                             int16_t* prof) {
+  constexpr int PADV = (int)0x80808080;
   uint32_t* words = reinterpret_cast<uint32_t*>(prof);
   for (int p = threadIdx.x; p < stride / 2; p += blockDim.x) {
-    int4 a[2] = {}, b[2] = {};
+    const int ra0 = 2 * p - pad, rb0 = ra0 + 1;
+    int4 a[2] = {make_int4(PADV, PADV, PADV, PADV),
+                 make_int4(PADV, PADV, PADV, PADV)};
+    int4 b[2] = {a[0], a[1]};
     const int4* src = reinterpret_cast<const int4*>(mqq);
-    if (2 * p < qlen_pad) {
-      a[0] = src[4 * p];
-      a[1] = src[4 * p + 1];
+    if (ra0 >= 0 && ra0 < qlen_pad) {
+      a[0] = src[2 * ra0];
+      a[1] = src[2 * ra0 + 1];
     }
-    if (2 * p + 1 < qlen_pad) {
-      b[0] = src[4 * p + 2];
-      b[1] = src[4 * p + 3];
+    if (rb0 >= 0 && rb0 < qlen_pad) {
+      b[0] = src[2 * rb0];
+      b[1] = src[2 * rb0 + 1];
     }
     const int* ra = reinterpret_cast<const int*>(a);
     const int* rb = reinterpret_cast<const int*>(b);
@@ -129,15 +148,18 @@ __device__ __forceinline__ void load_profile(const int8_t* mqq, int qlen_pad,
   }
 }
 
+template <int VARIANT>
 __global__ void __launch_bounds__(32)
 wavefront_kernel(const int8_t* __restrict__ mq,
                  const int8_t* __restrict__ db, int32_t* h, int32_t* e,
                  int32_t* s, int4* edge, int* ticket_counter, int nq,
                  int qlen_pad, int L, int Q, int R) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int PADR = pad_rows<VARIANT>();
   const int stride = row_stride(qlen_pad);
+  const int pstride = prof_stride<VARIANT>(qlen_pad);
   int16_t* prof = reinterpret_cast<int16_t*>(smem);
-  int4* stage = reinterpret_cast<int4*>(prof + NSYM * stride);
+  int4* stage = reinterpret_cast<int4*>(prof + NSYM * pstride);
   int* ticket = reinterpret_cast<int*>(stage + stride);
   const int t = threadIdx.x;
   const int nslabs = L / (32 * COLS);
@@ -149,8 +171,8 @@ wavefront_kernel(const int8_t* __restrict__ mq,
     const int k = *ticket;
     if (k >= nq * nslabs) return;
     const int q = k % nq, slab = k / nq;
-    load_profile(mq + (long long)q * qlen_pad * NSYM, qlen_pad, stride,
-                 prof);
+    load_profile(mq + (long long)q * qlen_pad * NSYM, qlen_pad, pstride,
+                 PADR, prof);
     const bool last = slab == nslabs - 1;  // writes the carried state
     int32_t* hq = h + (long long)q * qlen_pad;
     int32_t* eq = e + (long long)q * qlen_pad;
@@ -172,7 +194,7 @@ wavefront_kernel(const int8_t* __restrict__ mq,
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           off[4 * i + j] =
-              2 * (((v >> (8 * j)) & (NSYM - 1)) * stride - t);
+              2 * (((v >> (8 * j)) & (NSYM - 1)) * pstride + PADR - t);
       }
 #pragma unroll
       for (int i = 0; i < COLS; ++i) asm volatile("" : "+r"(off[i]));
@@ -223,7 +245,9 @@ wavefront_kernel(const int8_t* __restrict__ mq,
         hl = v.x;
         el = v.z;
       }
-      if (r >= 0 && r < qlen_pad) {
+      // VARIANT > 0: every thread computes every step, rows above the
+      // query as virtual rows (H 0) and rows below it as PAD rows
+      if (VARIANT > 0 || (r >= 0 && r < qlen_pad)) {
         const char* pr = reinterpret_cast<const char*>(prof + st);
         int hn[COLS];
 #pragma unroll
@@ -236,20 +260,47 @@ wavefront_kernel(const int8_t* __restrict__ mq,
           d = Hc[i];
         }
         int E = el, eown = el;
+        if constexpr (VARIANT == 2) {
+          // E + Q entering each column: the second half's chain from
+          // -inf beside the first's, then maxed with the first half's end
+          // carried on
+          constexpr int HALF = COLS / 2;
+          int Ein[COLS];
+          int E2 = NEG_INF;
 #pragma unroll
-        for (int i = 0; i < COLS; ++i) {
-          eown = E;
-          const int hh = __viaddmax_s32(E, -Q, hn[i]);
-          E = __viaddmax_s32(E, -R, hn[i]);
-          Hc[i] = hh;
-          Fp[i] = __viaddmax_s32(Fp[i], -R, hh);
+          for (int i = 0; i < HALF; ++i) {
+            Ein[i] = E;
+            E = __viaddmax_s32(E, -R, hn[i]);
+            Ein[HALF + i] = E2;
+            E2 = __viaddmax_s32(E2, -R, hn[HALF + i]);
+          }
+#pragma unroll
+          for (int i = 0; i < HALF; ++i)
+            Ein[HALF + i] = __viaddmax_s32(E, -R * i, Ein[HALF + i]);
+          eown = Ein[COLS - 1];
+          E = __viaddmax_s32(E, -R * HALF, E2);
+#pragma unroll
+          for (int i = 0; i < COLS; ++i) {
+            const int hh = __viaddmax_s32(Ein[i], -Q, hn[i]);
+            Hc[i] = hh;
+            Fp[i] = __viaddmax_s32(Fp[i], -R, hh);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < COLS; ++i) {
+            eown = E;
+            const int hh = __viaddmax_s32(E, -Q, hn[i]);
+            E = __viaddmax_s32(E, -R, hn[i]);
+            Hc[i] = hh;
+            Fp[i] = __viaddmax_s32(Fp[i], -R, hh);
+          }
         }
 #pragma unroll
         for (int i = 0; i + 1 < COLS; i += 2)
           S = __vimax3_s32(S, Hc[i], Hc[i + 1]);
         hout = Hc[COLS - 1];
         eout = E;
-        if (t == 31) {
+        if (t == 31 && r >= 0 && r < qlen_pad) {
           if (last) {
             hq[r] = hout;
             eq[r] = eown - Q;
@@ -267,6 +318,29 @@ wavefront_kernel(const int8_t* __restrict__ mq,
   }
 }
 
+template <int VARIANT>
+int launch(const int8_t* mq, const int8_t* db, int32_t* h, int32_t* e,
+           int32_t* s, int4* edge, int* ticket, int nq, int qlen_pad, int L,
+           int Q, int R, cudaStream_t st) {
+  const size_t smem = wave_smem<VARIANT>(qlen_pad);
+  const auto kernel = wavefront_kernel<VARIANT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, 32, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int tickets = nq * (L / (32 * COLS));
+  kernel<<<min(tickets, per_sm * sms), 32, smem, st>>>(
+      mq, db, h, e, s, edge, ticket, nq, qlen_pad, L, Q, R);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // mq [nq, qlen_pad, 32] int8 per-row scores, db [L] int8 symbols; h/e
@@ -277,26 +351,18 @@ wavefront_kernel(const int8_t* __restrict__ mq,
 extern "C" int swipe_wavefront(const int8_t* mq, const int8_t* db,
                                int32_t* h, int32_t* e, int32_t* s,
                                int4* edge, int* ticket, int nq, int qlen_pad,
-                               int L, int Q, int R, void* stream) {
+                               int L, int Q, int R, int variant,
+                               void* stream) {
   if (nq <= 0 || L <= 0 || qlen_pad <= 0) return (int)cudaGetLastError();
   if (qlen_pad > MAX_ROWS || Q < R || L % (32 * COLS))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = wave_smem(row_stride(qlen_pad));
-  cudaError_t err = cudaFuncSetAttribute(
-      wavefront_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, wavefront_kernel, 32, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int tickets = nq * (L / (32 * COLS));
-  wavefront_kernel<<<min(tickets, per_sm * sms), 32, smem,
-                     (cudaStream_t)stream>>>(mq, db, h, e, s, edge, ticket,
-                                             nq, qlen_pad, L, Q, R);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (variant == 1)
+    return launch<1>(mq, db, h, e, s, edge, ticket, nq, qlen_pad, L, Q, R,
+                     st);
+  if (variant == 2)
+    return launch<2>(mq, db, h, e, s, edge, ticket, nq, qlen_pad, L, Q, R,
+                     st);
+  return launch<0>(mq, db, h, e, s, edge, ticket, nq, qlen_pad, L, Q, R,
+                   st);
 }
