@@ -67,17 +67,14 @@ def check_wavefront(wf, sw, m8, dev, emit):
             wf.sw_wavefront_plain(mq[:nq], db[pos:pos + rc.WAVE_SEGMENT],
                                   *st, **kw)
             want[nq, pos] = tuple(x.clone() for x in st)
-    for variant in (0, 1, 2):
-        wf.WAVEFRONT_VARIANT = variant
-        for nq in (1, len(qs)):
-            got = wf.make_wavefront_state(nq, 1024, dev)
-            for pos in cuts:
-                wf.sw_wavefront(mq[:nq], db[pos:pos + rc.WAVE_SEGMENT],
-                                *got, **kw)
-                equal(f"sw_wavefront {variant} {nq} queries at column "
-                      f"{pos}", got, want[nq, pos])
-        emit(check="K7", variant=variant, ok=True)
-    wf.WAVEFRONT_VARIANT = 0
+    for nq in (1, len(qs)):
+        got = wf.make_wavefront_state(nq, 1024, dev)
+        for pos in cuts:
+            wf.sw_wavefront(mq[:nq], db[pos:pos + rc.WAVE_SEGMENT], *got,
+                            **kw)
+            equal(f"sw_wavefront {nq} queries at column {pos}", got,
+                  want[nq, pos])
+    emit(check="K7", ok=True)
 
 
 def check_stream(sw, batching, m8, dev, emit):
@@ -112,14 +109,10 @@ def wave_times(wf, sw, m8, dev, emit):
                                       m8.cpu().numpy())).to(dev)
     seg = torch.from_numpy(seqs_of(rng, [262144], 20)[0]).to(dev)
     kw = dict(gapopenextend=12, gapextend=1)
-    for variant in (0, 1, 2, 0):
-        wf.WAVEFRONT_VARIANT = variant
-        for nq, L in ((16, 262144), (1, 262144), (16, 1024)):
-            st = wf.make_wavefront_state(nq, 512, dev)
-            ms = timed(lambda: wf.sw_wavefront(mq[:nq], seg[:L], *st, **kw),
-                       3)
-            emit(kernel="K7", variant=variant, queries=nq, columns=L, ms=ms)
-    wf.WAVEFRONT_VARIANT = 0
+    for nq, L in ((16, 262144), (1, 262144), (16, 1024)):
+        st = wf.make_wavefront_state(nq, 512, dev)
+        ms = timed(lambda: wf.sw_wavefront(mq[:nq], seg[:L], *st, **kw), 3)
+        emit(kernel="K7", queries=nq, columns=L, ms=ms)
 
 
 def stream_shapes(sw, batching, dev):

@@ -27,7 +27,11 @@
 //     threads of a warp are on 32 consecutive rows, so their lookups hit
 //     at most two rows a bank, one word when the symbols agree.  A
 //     lookup's address is a base common to the warp's step plus the
-//     column's offset, held in a register for the whole slab.
+//     column's offset, held in a register for the whole slab;
+//   * every thread computes every step, without a branch around the
+//     cells: the profile holds PAD rows above and below the query's, rows
+//     above it are virtual rows (H 0, as row -1 is) and rows below it PAD
+//     rows, which never raise S; neither is stored.
 // A warp (a block) covers a slab of 32 * COLS columns.  Its left edge (H
 // and E + Q of every row at the column before the slab) comes from the
 // slab to its left through global memory, which the wrapper zeroes before
@@ -62,8 +66,9 @@ namespace {
 constexpr int MAX_ROWS = 1024;
 constexpr unsigned FULL = 0xffffffffu;
 // columns a thread and rows a group of the left edge: 32 and 4 timed
-// fastest against fewer columns, larger groups and blocks of 2 and 4
-// warps handing their edges on through shared memory (PERF.md);
+// fastest against fewer columns, larger groups, blocks of 2 and 4 warps
+// handing their edges on through shared memory, and E's chain along a
+// row split in two (PERF.md);
 // ops/sw_wavefront.py SLAB_COLS mirrors the slab, 32 * COLS
 constexpr int COLS = 32;
 constexpr int GROUP = 4;
@@ -74,23 +79,18 @@ __host__ __device__ constexpr int row_stride(int qlen_pad) {
   return (qlen_pad + 63) / 64 * 64;
 }
 
-// the profile's rows: PAD rows above and below the query's, so that
-// every step's lookups stay in it (VARIANT > 0)
-template <int VARIANT>
-__host__ __device__ constexpr int pad_rows() {
-  return VARIANT ? 32 : 0;
-}
+// the profile holds PAD_ROWS PAD rows above and below the query's, so
+// that every step's lookups, of every thread, stay in it
+constexpr int PAD_ROWS = 32;
 
-template <int VARIANT>
 __host__ __device__ constexpr int prof_stride(int qlen_pad) {
-  return row_stride(qlen_pad + 2 * pad_rows<VARIANT>());
+  return row_stride(qlen_pad + 2 * PAD_ROWS);
 }
 
 // shared memory: the profile (int16 [NSYM][prof_stride]), the staged left
 // edge (int4 [stride]) and the block's ticket
-template <int VARIANT>
 __host__ __device__ constexpr size_t wave_smem(int qlen_pad) {
-  return sizeof(int16_t) * NSYM * prof_stride<VARIANT>(qlen_pad) +
+  return sizeof(int16_t) * NSYM * prof_stride(qlen_pad) +
          sizeof(int4) * row_stride(qlen_pad) + sizeof(int);
 }
 
@@ -148,16 +148,14 @@ __device__ __forceinline__ void load_profile(const int8_t* mqq, int qlen_pad,
   }
 }
 
-template <int VARIANT>
 __global__ void __launch_bounds__(32)
 wavefront_kernel(const int8_t* __restrict__ mq,
                  const int8_t* __restrict__ db, int32_t* h, int32_t* e,
                  int32_t* s, int4* edge, int* ticket_counter, int nq,
                  int qlen_pad, int L, int Q, int R) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int PADR = pad_rows<VARIANT>();
   const int stride = row_stride(qlen_pad);
-  const int pstride = prof_stride<VARIANT>(qlen_pad);
+  const int pstride = prof_stride(qlen_pad);
   int16_t* prof = reinterpret_cast<int16_t*>(smem);
   int4* stage = reinterpret_cast<int4*>(prof + NSYM * pstride);
   int* ticket = reinterpret_cast<int*>(stage + stride);
@@ -172,7 +170,7 @@ wavefront_kernel(const int8_t* __restrict__ mq,
     if (k >= nq * nslabs) return;
     const int q = k % nq, slab = k / nq;
     load_profile(mq + (long long)q * qlen_pad * NSYM, qlen_pad, pstride,
-                 PADR, prof);
+                 PAD_ROWS, prof);
     const bool last = slab == nslabs - 1;  // writes the carried state
     int32_t* hq = h + (long long)q * qlen_pad;
     int32_t* eq = e + (long long)q * qlen_pad;
@@ -194,7 +192,7 @@ wavefront_kernel(const int8_t* __restrict__ mq,
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           off[4 * i + j] =
-              2 * (((v >> (8 * j)) & (NSYM - 1)) * pstride + PADR - t);
+              2 * (((v >> (8 * j)) & (NSYM - 1)) * pstride + PAD_ROWS - t);
       }
 #pragma unroll
       for (int i = 0; i < COLS; ++i) asm volatile("" : "+r"(off[i]));
@@ -245,68 +243,38 @@ wavefront_kernel(const int8_t* __restrict__ mq,
         hl = v.x;
         el = v.z;
       }
-      // VARIANT > 0: every thread computes every step, rows above the
-      // query as virtual rows (H 0) and rows below it as PAD rows
-      if (VARIANT > 0 || (r >= 0 && r < qlen_pad)) {
-        const char* pr = reinterpret_cast<const char*>(prof + st);
-        int hn[COLS];
+      // the cells of row r, a virtual or PAD row outside the query
+      const char* pr = reinterpret_cast<const char*>(prof + st);
+      int hn[COLS];
 #pragma unroll
-        for (int i = 0; i < COLS; ++i)
-          hn[i] = *reinterpret_cast<const int16_t*>(pr + off[i]);
-        int d = hprev;
+      for (int i = 0; i < COLS; ++i)
+        hn[i] = *reinterpret_cast<const int16_t*>(pr + off[i]);
+      int d = hprev;
 #pragma unroll
-        for (int i = 0; i < COLS; ++i) {
-          hn[i] = __viaddmax_s32_relu(Fp[i], -Q, d + hn[i]);
-          d = Hc[i];
-        }
-        int E = el, eown = el;
-        if constexpr (VARIANT == 2) {
-          // E + Q entering each column: the second half's chain from
-          // -inf beside the first's, then maxed with the first half's end
-          // carried on
-          constexpr int HALF = COLS / 2;
-          int Ein[COLS];
-          int E2 = NEG_INF;
+      for (int i = 0; i < COLS; ++i) {
+        hn[i] = __viaddmax_s32_relu(Fp[i], -Q, d + hn[i]);
+        d = Hc[i];
+      }
+      int E = el, eown = el;
 #pragma unroll
-          for (int i = 0; i < HALF; ++i) {
-            Ein[i] = E;
-            E = __viaddmax_s32(E, -R, hn[i]);
-            Ein[HALF + i] = E2;
-            E2 = __viaddmax_s32(E2, -R, hn[HALF + i]);
-          }
+      for (int i = 0; i < COLS; ++i) {
+        eown = E;
+        const int hh = __viaddmax_s32(E, -Q, hn[i]);
+        E = __viaddmax_s32(E, -R, hn[i]);
+        Hc[i] = hh;
+        Fp[i] = __viaddmax_s32(Fp[i], -R, hh);
+      }
 #pragma unroll
-          for (int i = 0; i < HALF; ++i)
-            Ein[HALF + i] = __viaddmax_s32(E, -R * i, Ein[HALF + i]);
-          eown = Ein[COLS - 1];
-          E = __viaddmax_s32(E, -R * HALF, E2);
-#pragma unroll
-          for (int i = 0; i < COLS; ++i) {
-            const int hh = __viaddmax_s32(Ein[i], -Q, hn[i]);
-            Hc[i] = hh;
-            Fp[i] = __viaddmax_s32(Fp[i], -R, hh);
-          }
+      for (int i = 0; i + 1 < COLS; i += 2)
+        S = __vimax3_s32(S, Hc[i], Hc[i + 1]);
+      hout = Hc[COLS - 1];
+      eout = E;
+      if (t == 31 && r >= 0 && r < qlen_pad) {
+        if (last) {
+          hq[r] = hout;
+          eq[r] = eown - Q;
         } else {
-#pragma unroll
-          for (int i = 0; i < COLS; ++i) {
-            eown = E;
-            const int hh = __viaddmax_s32(E, -Q, hn[i]);
-            E = __viaddmax_s32(E, -R, hn[i]);
-            Hc[i] = hh;
-            Fp[i] = __viaddmax_s32(Fp[i], -R, hh);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i + 1 < COLS; i += 2)
-          S = __vimax3_s32(S, Hc[i], Hc[i + 1]);
-        hout = Hc[COLS - 1];
-        eout = E;
-        if (t == 31 && r >= 0 && r < qlen_pad) {
-          if (last) {
-            hq[r] = hout;
-            eq[r] = eown - Q;
-          } else {
-            put_row(right + r, hout, eout);
-          }
+          put_row(right + r, hout, eout);
         }
       }
       hprev = hl;
@@ -316,29 +284,6 @@ wavefront_kernel(const int8_t* __restrict__ mq,
     S = __reduce_max_sync(FULL, S);
     if (t == 0) atomicMax(s + q, S);
   }
-}
-
-template <int VARIANT>
-int launch(const int8_t* mq, const int8_t* db, int32_t* h, int32_t* e,
-           int32_t* s, int4* edge, int* ticket, int nq, int qlen_pad, int L,
-           int Q, int R, cudaStream_t st) {
-  const size_t smem = wave_smem<VARIANT>(qlen_pad);
-  const auto kernel = wavefront_kernel<VARIANT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, 32, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int tickets = nq * (L / (32 * COLS));
-  kernel<<<min(tickets, per_sm * sms), 32, smem, st>>>(
-      mq, db, h, e, s, edge, ticket, nq, qlen_pad, L, Q, R);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -351,18 +296,26 @@ int launch(const int8_t* mq, const int8_t* db, int32_t* h, int32_t* e,
 extern "C" int swipe_wavefront(const int8_t* mq, const int8_t* db,
                                int32_t* h, int32_t* e, int32_t* s,
                                int4* edge, int* ticket, int nq, int qlen_pad,
-                               int L, int Q, int R, int variant,
-                               void* stream) {
+                               int L, int Q, int R, void* stream) {
   if (nq <= 0 || L <= 0 || qlen_pad <= 0) return (int)cudaGetLastError();
   if (qlen_pad > MAX_ROWS || Q < R || L % (32 * COLS))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (variant == 1)
-    return launch<1>(mq, db, h, e, s, edge, ticket, nq, qlen_pad, L, Q, R,
-                     st);
-  if (variant == 2)
-    return launch<2>(mq, db, h, e, s, edge, ticket, nq, qlen_pad, L, Q, R,
-                     st);
-  return launch<0>(mq, db, h, e, s, edge, ticket, nq, qlen_pad, L, Q, R,
-                   st);
+  const size_t smem = wave_smem(qlen_pad);
+  cudaError_t err = cudaFuncSetAttribute(
+      wavefront_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, wavefront_kernel, 32, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int tickets = nq * (L / (32 * COLS));
+  wavefront_kernel<<<min(tickets, per_sm * sms), 32, smem,
+                     (cudaStream_t)stream>>>(mq, db, h, e, s, edge, ticket,
+                                             nq, qlen_pad, L, Q, R);
+  return (int)cudaGetLastError();
 }

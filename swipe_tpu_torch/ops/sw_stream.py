@@ -154,7 +154,7 @@ _SIGNATURES = {
     "swipe_stream_tile": ("carry_rows", [_P] * 8 + [_I] * 10 + [_P]),
     "swipe_stream_tile_carry": ("carry_rows", [_P] * 12 + [_I] * 10 + [_P]),
     "swipe_carry_rows": ("carry_rows", [_P] * 11 + [_I] * 10 + [_P]),
-    "swipe_wavefront": ("wavefront", [_P] * 7 + [_I] * 6 + [_P]),
+    "swipe_wavefront": ("wavefront", [_P] * 7 + [_I] * 5 + [_P]),
     "swipe_segment": ("segment", [_P, _I] + [_P] * 5 + [_I] * 7 + [_P]),
     "swipe_segment_tiled": ("segment", [_P] * 6 + [_I] * 7 + [_P]),
     "swipe_peak": ("peak", [_P] * 2 + [_I] * 6 + [_P]),

@@ -46,10 +46,6 @@ MAX_QLEN = 1024     # the kernel's row cap (the JAX kernel's)
 # K7's slab, the columns of a warp: 32 threads x 32 columns
 # (csrc/wavefront.cu COLS)
 SLAB_COLS = 1024
-# the kernel's step: 0 cells of the thread's rows only, 1 every step's
-# cells (rows outside the query as PAD or virtual rows), 2 as 1 with E's
-# chain along the row in two halves
-WAVEFRONT_VARIANT = 0
 
 
 def wavefront_slabs(L: int) -> int:
@@ -153,7 +149,7 @@ def sw_wavefront(mq: torch.Tensor, db: torch.Tensor, h: torch.Tensor,
     _sw._launch("swipe_wavefront", dev, _sw._ptr(mq), _sw._ptr(db),
                 _sw._ptr(h), _sw._ptr(e), _sw._ptr(s), _sw._ptr(edge),
                 _sw._ptr(ticket), nq, qlen_pad, db.shape[0],
-                int(gapopenextend), int(gapextend), WAVEFRONT_VARIANT)
+                int(gapopenextend), int(gapextend))
     return h, e, s
 
 
