@@ -41,10 +41,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
               carry pass over a
               compact carry series (the same kinds of query ends, with and
               without a clamp), the
-              segmented kernel (int8 and int32 profiles) and the tiled one
-              on a 512-lane pack_database chunk of 24 segments and 8
-              padded ones with queries of 64-512 rows, and the peak probe
-              (both forms, 8 chains a thread and 1);
+              segment kernel of both entry points (the untiled one with
+              int8 and int32 profiles, the tiled one) on a 512-lane
+              pack_database chunk of 24 segments and 8 padded ones with
+              queries of 20-700 rows (the 700-row one in two int8 bands
+              and three int32 ones, planes between them), and the peak
+              probe (both forms, 8 chains a thread and 1);
 3. peak     — the card's int32 and DPX add-max rates and the rate its
               ALU pipe issues the chains' instructions (ops/peak.py,
               slope timing), which the operation bounds of phase 8 divide
@@ -65,8 +67,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               columns, four 512-row tile passes a chunk, no profiles),
               the same checks.  segment-search: the same database and
               queries with backend "pallas" (pack_database at 512 lanes x
-              16,384 columns, the tiled segment kernel): every hit list
-              must equal the plain-pack route's;
+              16,384 columns, the tiled entry point of the segment
+              kernel): every hit list must equal the plain-pack route's;
 5. proteome — the flow route (K3's lane form): 20,000 sequences from the same model (the
               size of UniProt's human reference proteome, UP000005640)
               plus one of 35,213 aa (the model's titin-length clip); the
@@ -75,7 +77,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               slot groups of at most 4 on the plain pack at 1024 lanes
               (not the flow series), the titin's chunk past 16,384
               columns.  segment-proteome: backend "pallas_v1" (the
-              untiled segment kernel), the titin a giant on the carry
+              untiled entry point), the titin a giant on the carry
               series: every hit list must equal the flow route's;
 6. genome   — blastn, +1/-3, gaps 5/2, 16 queries of 500 nt, against one
               chromosome of E. coli K-12 MG1655's length (4,641,652 bp,
@@ -235,6 +237,8 @@ KERNELS = {   # wrapper -> (its module, source, TPU kernel it replaces)
                          "swipe_tpu/ops/sw_stream.py:1263"),
     "stream_tile_carry_pass": (sw, "swipe_tpu_torch/csrc/carry_rows.cu",
                                "swipe_tpu/ops/sw_stream.py:1419"),
+    # K8 and K9: two entry points of one kernel (segment_rows_kernel),
+    # counted and timed apart
     "sw_scores_tiled": (tiled, "swipe_tpu_torch/csrc/segment.cu",
                         "swipe_tpu/ops/sw_tiled.py:146"),
     "sw_scores_segmented": (seg, "swipe_tpu_torch/csrc/segment.cu",
@@ -242,7 +246,8 @@ KERNELS = {   # wrapper -> (its module, source, TPU kernel it replaces)
     "peak_chain": (peak, "swipe_tpu_torch/csrc/peak.cu",
                    "tools/mfu_stream.py:50"),
 }
-# plain versions not named <wrapper>_plain in the wrapper's module
+# plain versions not named <wrapper>_plain in the wrapper's module (K8
+# shares K9's)
 PLAIN = {"sw_scores_tiled": seg.sw_scores_segmented_plain,
          "sw_scores_stream_carry_lanes": sw.sw_scores_stream_carry_plain,
          "sw_scores_stream_carry_rows": sw.sw_scores_stream_carry_plain,
@@ -257,7 +262,9 @@ STATE_ARGS = {"sw_scores_stream_carry_lanes": (5, 6, 7),
 # warp a (query, lane) (ms, this script on an NVIDIA H100 80GB HBM3,
 # 700.00 W), printed in brackets beside this run's
 REDESIGNED_FROM_MS = {"stream_tile_pass": 247.789, "sw_hint_stream": 115.292,
-                      "sw_scores_stream": 108.812, "sw_wavefront": 55.319}
+                      "sw_scores_stream": 108.812, "sw_wavefront": 55.319,
+                      "sw_scores_tiled": 54.596,
+                      "sw_scores_segmented": 83.401}
 # the align phase's steps, timed on the host in every search: step ->
 # (owner, attribute); the hint kernel's seconds are part of the hint pass
 ALIGN_STEPS = {"finalize": (HitList, "finalize"),
@@ -503,7 +510,9 @@ def check_segments(dev, m62, rng, report):
     """K9 with an int8 and with an int32 profile (BLOSUM62, and BLOSUM62
     scaled by 100), and K8, against their plain loop on one
     pack_database chunk at 512 lanes: 24 segments and 8 padded ones,
-    queries of 64-512 rows."""
+    queries of 20-700 rows at qlen_pad 768 (the 700-row one in two int8
+    bands of 512 rows and three int32 ones of 256, with planes between
+    them)."""
     seqs = [rng.integers(1, 26, size=int(n), dtype=np.int8)
             for n in rng.integers(5, 120, size=512 * 24)]
     ch = pack_database(seqs, nseqs=512, max_cols=16384)[0]
@@ -514,11 +523,11 @@ def check_segments(dev, m62, rng, report):
     data = torch.from_numpy(ch.data).to(dev)
     seg_ids = torch.from_numpy(ch.seg_ids).to(dev)
     qs = [rng.integers(1, 26, size=n, dtype=np.int8)
-          for n in (64, 200, 377, 512)]
+          for n in (20, 64, 200, 377, 512, 700)]
     for fn, scale, dtype in ((seg.sw_scores_segmented, 1, np.int8),
                              (seg.sw_scores_segmented, 100, np.int32),
                              (tiled.sw_scores_tiled, 1, np.int8)):
-        qpt = torch.from_numpy(seg.build_qpt(qs, m62.matrix * scale, 512,
+        qpt = torch.from_numpy(seg.build_qpt(qs, m62.matrix * scale, 768,
                                              dtype=dtype)).to(dev)
         kw = dict(nsegs=ch.nsegs, gapopenextend=12 * scale, gapextend=scale)
         _compare(fn.__name__, fn(qpt, data, seg_ids, **kw),
@@ -1671,8 +1680,7 @@ def _work(name, args, kw, out):
         return (nbytes, *_ops(cells, CELL_OPS, extra))
     if name in ("sw_scores_segmented", "sw_scores_tiled"):
         qpt, db, seg_ids = args
-        pad = -128 if qpt.dtype == torch.int8 else -(1 << 20)
-        rows = int((qpt != pad).any(dim=2).sum())    # true query rows
+        rows = int(seg.query_lengths(qpt).sum())     # true query rows
         cells = rows * int((db != PAD_SYMBOL).sum())
         return (_nbytes(qpt, db, seg_ids, out), *_ops(cells, CELL_OPS))
     if name == "peak_chain":
@@ -1722,9 +1730,9 @@ def _chain(name, args, kw):
         cols = _longest(start, db)
     elif name in ("sw_scores_segmented", "sw_scores_tiled"):
         qpt, db, seg_ids = args
-        pad = -128 if qpt.dtype == torch.int8 else -(1 << 20)
-        rows = int((qpt != pad).any(dim=2).sum(dim=1).max())
-        cols = int(torch.bincount(seg_ids.long()).max()) * SEG_BLK
+        rows = int(seg.query_lengths(qpt).max())
+        # the widest segment (seg_ids' last entry repeats the last block's)
+        cols = int(torch.bincount(seg_ids[:-1].long()).max()) * SEG_BLK
     elif name == "sw_wavefront":
         mq, db = args[:2]
         rows = int((mq != -128).any(dim=2).sum(dim=1).max())

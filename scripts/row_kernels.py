@@ -1,6 +1,7 @@
-"""Time the row-form kernels (K3's row form, K4, K5, K6) on one CUDA card.
+"""Time the row-form kernels (K3's row form, K4, K5, K6, K8, K9) on one
+CUDA card.
 
-    python3 scripts/row_kernels.py [--root DIR] [--tag T]
+    python3 scripts/row_kernels.py [--root DIR] [--tag T] [--only K8,K9,...]
 
 Inputs come from fixed seeds, built as the engine builds them:
 
@@ -24,6 +25,17 @@ Inputs come from fixed seeds, built as the engine builds them:
   8,192 columns, one chromosome lane), and K3's row form at wide-genome's
   chunk (16 x 500 nt, the int32 matrix) and tblastn-carry's (16 x 400 aa,
   six frame lanes);
+* K8 and K9 (the segment kernel's two entry points), one launch of 16
+  queries against the fullest 512-lane x 16,384-column pack_database
+  chunk of
+  segment-search    200 aa (K8, BLOSUM62 11/1, qlen_pad 256), records
+                    of the Swiss-Prot length model;
+  segment-proteome  200 aa (K9, an int8 profile), 20,000 proteome-sized
+                    records;
+  wide-genome       500 nt (K9, an int32 profile: blastn +100/-300, gaps
+                    500/200, qlen_pad 512), 4,000 gene-length records;
+  long-segment      600-1,024 aa (K8, qlen_pad 1024: two bands),
+                    segment-search's chunk;
 * where K3's two forms cross: 16 queries of 200 and of 500 residues
   (BLOSUM62, gaps 11/1) against one chunk of 2,048 columns whose 32 to
   2,048 lanes all hold random records (a start bit every 19 blocks on
@@ -31,16 +43,17 @@ Inputs come from fixed seeds, built as the engine builds them:
   lane form with them (build_dprofile_series and the launch, as the flow
   route runs it), their dumps and states held equal.
 
-``--root`` imports the package from another checkout, for instance a
-parent commit's unpacked into a directory that .gitignore lists, to time
-its kernels on the same inputs (the wrappers' contracts are the same).
-Each result is one JSON line with the card and its power limit: ms a
-launch (CUDA events over 5 launches after a warm-up, 3 for the
-crossover) and a digest of the outputs of one fresh launch, equal across
-trees when their results are.  Last, for each kernel function of the
-tree's built carry_rows and hint libraries (cuobjdump), its registers,
-SASS instructions and the count of each opcode class that the walker's
-cost turns on.
+``--only`` runs some of the groups: K5, K4, K6, K3r, K8, K9, forms (the
+crossover) and sass.  ``--root`` imports the package from another
+checkout, for instance a parent commit's unpacked into a directory that
+.gitignore lists, to time its kernels on the same inputs (the wrappers'
+contracts are the same).  Each result is one JSON line with the card and
+its power limit: ms a launch (CUDA events over 5 launches after a
+warm-up, 3 for the crossover) and a digest of the outputs of one fresh
+launch, equal across trees when their results are.  Last, for each
+kernel function of the tree's built carry_rows, hint and segment
+libraries (cuobjdump), its registers, SASS instructions and the count of
+each opcode class that the walker's cost turns on.
 """
 
 from __future__ import annotations
@@ -218,6 +231,51 @@ def carry_shapes(sw, dev):
          dict(gapopenextend=12, gapextend=1))]
 
 
+def segment_shapes(batching, dev):
+    """(kernel, name, wrapper, qpt, db, seg_ids, keywords) of K8 and K9
+    at the segment route's chunks."""
+    import torch
+    from swipe_tpu_torch.matrices import ScoreMatrix
+    from swipe_tpu_torch.ops import sw_segmented as seg
+    from swipe_tpu_torch.ops import sw_tiled
+    rng = np.random.default_rng(10)
+    m62 = ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix
+    nt = ScoreMatrix.nucleotide(100, -300, 500, 200).matrix
+
+    def chunk(recs):
+        # the segment route's giants (over a chunk's height) stay out
+        recs = [r for r in recs if len(r) <= 16384]
+        ch = max(batching.pack_database(recs, nseqs=512, max_cols=16384),
+                 key=lambda c: (c.data.shape[0], int((c.data != 31).sum())))
+        return ch.data, ch.seg_ids, ch.nsegs
+
+    def put(qlens, alphabet, matrix, dtype, qlen_pad):
+        return torch.from_numpy(seg.build_qpt(
+            seqs_of(rng, qlens, alphabet), matrix, qlen_pad,
+            dtype=dtype)).to(dev)
+
+    search = chunk(seqs_of(rng, lengths(rng, 50_000), 20))
+    proteome = chunk(seqs_of(rng, lengths(rng, 20_000), 20))
+    genes = chunk(seqs_of(rng, rng.integers(200, 3001, 4000), 4))
+    aa = dict(gapopenextend=12, gapextend=1)
+    out = []
+    for kernel, name, fn, (data, seg_ids, nsegs), qpt, kw in (
+            ("K8", "segment-search", sw_tiled.sw_scores_tiled, search,
+             put([200] * 16, 20, m62, np.int8, 256), aa),
+            ("K9", "segment-proteome", seg.sw_scores_segmented, proteome,
+             put([200] * 16, 20, m62, np.int8, 256), aa),
+            ("K9", "wide-genome", seg.sw_scores_segmented, genes,
+             put([500] * 16, 4, nt, np.int32, 512),
+             dict(gapopenextend=700, gapextend=200)),
+            ("K8", "long-segment", sw_tiled.sw_scores_tiled, search,
+             put(rng.integers(600, 1025, 16), 20, m62, np.int8, 1024),
+             aa)):
+        out.append((kernel, name, fn, qpt, torch.from_numpy(data).to(dev),
+                    torch.from_numpy(seg_ids).to(dev),
+                    dict(kw, nsegs=nsegs)))
+    return out
+
+
 def crossover(sw, dev):
     """(pairs, rows, {form: ms}) of K3's two forms at each shape, their
     outputs held equal."""
@@ -267,10 +325,10 @@ OPCODES = ("VIADDMNMX", "VIMNMX3", "SHFL.UP", "BAR", "LDS", "STS", "LDG",
 
 def sass_stats(build):
     """{kernel function: (registers, SASS instructions, {opcode class:
-    count})} of the built carry_rows and hint libraries."""
+    count})} of the built carry_rows, hint and segment libraries."""
     tool = build.cuda_tool("cuobjdump")
     out = {}
-    for lib in ("carry_rows", "hint"):
+    for lib in ("carry_rows", "hint", "segment"):
         path = build.kernel_library(lib)
         res = subprocess.run([tool, "-res-usage", path], capture_output=True,
                              text=True).stdout
@@ -291,7 +349,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=REPO)
     ap.add_argument("--tag", default="")
+    ap.add_argument("--only", default="K5,K4,K6,K3r,K8,K9,forms,sass",
+                    help="comma-separated groups to run (default: all)")
     args = ap.parse_args()
+    only = set(args.only.split(","))
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
     from swipe_tpu_torch import _build as build
@@ -308,7 +369,8 @@ def main() -> int:
         print(json.dumps(dict(info, **kw)), flush=True)
 
     for name, qc, ql, mat, data, start, (Q, R) in tile_shapes(sw, batching,
-                                                               dev):
+                                                               dev) \
+            if "K5" in only else ():
         kw = dict(gapopenextend=Q, gapextend=R, tile_rows=512)
         nq, L, n = qc.shape[0], data.shape[0], data.shape[1]
         planes = sw._tile_planes(nq, L, n, dev)
@@ -319,7 +381,8 @@ def main() -> int:
         emit(kernel="K5", shape=name, ms=ms, digest=dig,
              dims=[nq, 512, L, n])
 
-    for name, qc, ql, mat, db, starts, (Q, R) in hint_shapes(sw, dev):
+    for name, qc, ql, mat, db, starts, (Q, R) in hint_shapes(sw, dev) \
+            if "K4" in only else ():
         kw = dict(gapopenextend=Q, gapextend=R)
         dig = digest(sw.sw_hint_stream(qc, ql, mat, db, starts, **kw))
         ms = timed(lambda: sw.sw_hint_stream(qc, ql, mat, db, starts, **kw))
@@ -327,6 +390,8 @@ def main() -> int:
              rows=int(ql.max()))
 
     for kernel, name, fn, make, kw in carry_shapes(sw, dev):
+        if kernel not in only:
+            continue
         a = make()
         out = fn(*a, **kw)
         dig = digest([x for x in out if torch.is_tensor(x)])
@@ -334,10 +399,20 @@ def main() -> int:
         ms = timed(lambda: fn(*a, **kw))
         emit(kernel=kernel, shape=name, ms=ms, digest=dig)
 
-    for pairs, qlen, ms in crossover(sw, dev):
+    for kernel, name, fn, qpt, data, seg_ids, kw in segment_shapes(
+            batching, dev) if only & {"K8", "K9"} else ():
+        if kernel not in only:
+            continue
+        dig = digest([fn(qpt, data, seg_ids, **kw)])
+        ms = timed(lambda: fn(qpt, data, seg_ids, **kw))
+        emit(kernel=kernel, shape=name, ms=ms, digest=dig,
+             dims=[*qpt.shape[:2], *data.shape], dtype=str(qpt.dtype))
+
+    for pairs, qlen, ms in crossover(sw, dev) if "forms" in only else ():
         emit(kernel="K3 forms", pairs=pairs, qlen=qlen, **ms)
 
-    for name, (regs, n, ops) in sorted(sass_stats(build).items()):
+    for name, (regs, n, ops) in sorted(sass_stats(build).items()) \
+            if "sass" in only else ():
         emit(function=name, registers=regs, sass_instructions=n, **ops)
     return 0
 

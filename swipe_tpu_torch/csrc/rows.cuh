@@ -1,13 +1,13 @@
 // The band walker of the row-form kernels: a warp takes one (query, lane)
 // pair and sweeps a chunk's columns as a systolic pipeline over the
-// query's rows.  Included by carry_rows.cu (K2, K3's row form, K5, K6)
-// and hint.cu (K4).
+// query's rows.  Included by carry_rows.cu (K2, K3's row form, K5, K6),
+// hint.cu (K4) and segment.cu (K8, K9).
 //
 //   * a band is 32 * RS consecutive query rows; thread t owns a strip of
 //     RS rows, their H and pre-advanced E in registers for the whole walk.
 //     RS is a template parameter: 16 (int8 matrix) and 8 (int32) for K3,
-//     K4, K5 and K6; 4, 8 or 16 for K2, whose launches pick the band from
-//     the query length;
+//     K4, K5 and K6; 4, 8 or 16 for K2 and the int8 K8 and K9, whose
+//     launches pick the band from the query length;
 //   * at step s thread t computes column s - t: F runs down its strip,
 //     and it hands its bottom row's H and F to thread t + 1 with
 //     __shfl_up_sync; H that arrived one step earlier is the diagonal
@@ -98,6 +98,25 @@ __device__ __forceinline__ void block_profile(const int32_t* qc, const M* m,
         m + (r >= 0 && r < r1 ? qc[r] & (NSYM - 1) : PAD_SYMBOL) * NSYM;
     for (int sym = 0; sym < NSYM; ++sym)
       prof[(sym * RS + i) * 32 + t] = mrow[sym];
+  }
+  __syncthreads();
+}
+
+// block_profile from a transposed query profile instead of codes and a
+// matrix (the segment kernels' qpt [rows, NSYM], ops/sw_segmented.py
+// build_qpt): row r's scores are qp[r * NSYM + sym].  Rows above row 0
+// take the PAD column of row 0, which holds qpt's pad in every row; the
+// rows past the query hold it already.
+template <int WARPS, typename M, int RS = Rows<M>::RS>
+__device__ __forceinline__ void block_profile(const M* qp, int r0, M* prof) {
+  const int t = threadIdx.x & 31;
+  const int row0 = r0 + t * RS;
+  __syncthreads();
+  for (int i = threadIdx.x >> 5; i < RS; i += WARPS) {
+    const int r = row0 + i;
+    const M* prow = qp + max(r, 0) * NSYM;
+    for (int sym = 0; sym < NSYM; ++sym)
+      prof[(sym * RS + i) * 32 + t] = prow[r >= 0 ? sym : PAD_SYMBOL];
   }
   __syncthreads();
 }

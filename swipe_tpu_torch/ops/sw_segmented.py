@@ -15,6 +15,14 @@ CUDA tensors and the plain column loop ``sw_scores_segmented_plain`` for
 CPU tensors; a failed launch raises.  It takes an int8 profile or, for
 matrices outside int8, an int32 one (the route of the JAX package's
 lax twin).  Its launches count in ``sw_scores_segmented.launches``.
+
+On the card both segmented entry points (this one and
+``ops.sw_tiled.sw_scores_tiled``) run one kernel on the band walker of
+``csrc/rows.cuh``: a warp a (query, lane), 8 lanes of one query a block,
+bands sized to QLEN laid from each query's end (``query_lengths``),
+planes between bands, the queries split over launches by
+``sw_stream.plane_split`` (``segment_plan``).  It needs gapopenextend
+>= gapextend.
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ import torch
 from ..batching import NEG_INF, PAD_SYMBOL, SEG_BLK
 from . import sw_stream as _sw
 
-__all__ = ["PAD_SYMBOL", "NEG_INF", "SEG_BLK", "build_qpt",
+__all__ = ["PAD_SYMBOL", "NEG_INF", "SEG_BLK", "build_qpt", "qpt_pad",
+           "query_lengths", "segment_plan",
            "sw_scores_segmented", "sw_scores_segmented_plain"]
 
 
@@ -42,7 +51,7 @@ def build_qpt(queries: list[np.ndarray], matrix: np.ndarray,
     if m.min() < info.min or m.max() > info.max:
         raise ValueError(
             f"score matrix must fit {np.dtype(dtype).name} for this kernel")
-    pad = max(int(info.min), -(1 << 20))
+    pad = qpt_pad(dtype)
     nq = len(queries)
     qpt = np.full((nq, qlen_pad, 32), pad, dtype=dtype)
     for n, q in enumerate(queries):
@@ -52,6 +61,43 @@ def build_qpt(queries: list[np.ndarray], matrix: np.ndarray,
         qpt[n, :L, :] = m[np.asarray(q, dtype=np.int64), :].astype(dtype)
         qpt[n, :, PAD_SYMBOL] = pad
     return qpt
+
+
+def qpt_pad(dtype) -> int:
+    """build_qpt's pad for a profile of ``dtype`` (numpy or torch): the
+    type's minimum, at most -2^20."""
+    info = torch.iinfo(dtype) if isinstance(dtype, torch.dtype) \
+        else np.iinfo(dtype)
+    return max(int(info.min), -(1 << 20))
+
+
+def query_lengths(qpt: torch.Tensor) -> torch.Tensor:
+    """Each query's rows in a build_qpt profile [NQ, QLEN, 32]: its last
+    row with an entry other than the pad, plus one ([NQ] int32, on
+    qpt's device; 0 for a query of pad rows only).  Rows past it hold
+    the pad alone and so never raise a score."""
+    nq, qlen, _ = qpt.shape
+    if qlen == 0:
+        return torch.zeros(nq, dtype=torch.int32, device=qpt.device)
+    real = (qpt != qpt_pad(qpt.dtype)).any(dim=2)          # [NQ, QLEN]
+    rows = torch.arange(1, qlen + 1, dtype=torch.int32, device=qpt.device)
+    return torch.where(real, rows, 0).amax(dim=1)
+
+
+def segment_plan(qpt: torch.Tensor, L: int, nseqs: int, gapopenextend: int,
+                 gapextend: int):
+    """The card kernel's launches for qpt against an [L, nseqs] chunk:
+    (query_lengths(qpt), the band height, the queries a launch takes).
+    The band is K2's (sw_stream.stream_band: 128, 256 or 512 rows) for
+    an int8 profile and 256 rows (8 a thread, the walker's int32 strip)
+    for an int32 one.  Raises ValueError on a negative gap open penalty,
+    which the walker does not take."""
+    _sw._check_gaps(gapopenextend, gapextend)
+    nq, qlen_pad, _ = qpt.shape
+    band = _sw.ROW_BANDS[True] if qpt.dtype == torch.int32 \
+        else _sw.stream_band(qlen_pad)
+    return (query_lengths(qpt), band,
+            _sw.plane_split(nq, qlen_pad, band, L, nseqs))
 
 
 def sw_scores_segmented_plain(qpt, db, seg_ids, *, nsegs: int,
@@ -108,18 +154,25 @@ def check_segment_args(qpt, db, seg_ids, nsegs: int, dtypes) -> torch.device:
 
 def segment_launch(fn: str, qpt, db, seg_ids, nsegs: int, Q: int, R: int,
                    *lead) -> torch.Tensor:
-    """Launch a segmented kernel: the zeroed output (segments no block
-    names stay 0) and the [NQ, QLEN, NSEQS] row scratch."""
+    """Launch a segmented entry point of csrc/segment.cu (segment_plan):
+    the zeroed output (segments no block names stay 0) and, when a query
+    can take more than one band, the planes between bands."""
     dev = db.device
-    nq, qlen, _ = qpt.shape
+    nq, qlen_pad, _ = qpt.shape
     L, nseqs = db.shape
+    qlens, band, step = segment_plan(qpt, L, nseqs, Q, R)
     out = torch.zeros((nq, nsegs, nseqs), dtype=torch.int32, device=dev)
-    hst = torch.empty((nq, qlen, nseqs), dtype=torch.int32, device=dev)
-    est = torch.empty_like(hst)
-    _sw._launch(fn, dev, _sw._ptr(qpt), *lead, _sw._ptr(db),
-                _sw._ptr(seg_ids), _sw._ptr(out), _sw._ptr(hst),
-                _sw._ptr(est), nq, qlen, L // SEG_BLK, nseqs, nsegs, int(Q),
-                int(R))
+    bh = None if qlen_pad <= band else torch.empty(
+        (2, step, L, nseqs), dtype=torch.int32, device=dev)
+    for q0 in range(0, nq, step):
+        q1 = min(nq, q0 + step)
+        _sw._launch(fn, dev, _sw._ptr(qpt[q0:q1]), _sw._ptr(qlens[q0:q1]),
+                    *lead, _sw._ptr(db), _sw._ptr(seg_ids),
+                    _sw._ptr(out[q0:q1]),
+                    _sw._ptr(None if bh is None else bh[0]),
+                    _sw._ptr(None if bh is None else bh[1]), q1 - q0,
+                    qlen_pad, L // SEG_BLK, nseqs, nsegs, int(Q), int(R),
+                    band // 32)
     return out
 
 

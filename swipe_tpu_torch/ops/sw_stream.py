@@ -155,8 +155,9 @@ _SIGNATURES = {
     "swipe_stream_tile_carry": ("carry_rows", [_P] * 12 + [_I] * 10 + [_P]),
     "swipe_carry_rows": ("carry_rows", [_P] * 11 + [_I] * 10 + [_P]),
     "swipe_wavefront": ("wavefront", [_P] * 7 + [_I] * 5 + [_P]),
-    "swipe_segment": ("segment", [_P, _I] + [_P] * 5 + [_I] * 7 + [_P]),
-    "swipe_segment_tiled": ("segment", [_P] * 6 + [_I] * 7 + [_P]),
+    "swipe_segment": ("segment", [_P] * 2 + [_I] + [_P] * 5 + [_I] * 8
+                      + [_P]),
+    "swipe_segment_tiled": ("segment", [_P] * 7 + [_I] * 8 + [_P]),
     "swipe_peak": ("peak", [_P] * 2 + [_I] * 6 + [_P]),
 }
 _FUNCS: dict[str, ctypes._CFuncPtr] = {}
@@ -260,6 +261,17 @@ _STREAM_PLANE_BYTES = 1 << 30
 def stream_band(qlen_pad: int) -> int:
     """K2's band height for a launch of qlen_pad rows."""
     return next((b for b in STREAM_BANDS if qlen_pad <= b), STREAM_BANDS[-1])
+
+
+def plane_split(nq: int, qlen_pad: int, band: int, L: int, nseqs: int
+                ) -> int:
+    """The queries a launch of a band walker (K2, K8, K9) takes: all of
+    them when qlen_pad fits one band, else as many as keep the planes
+    between bands, [2, step, L, nseqs] int32, within _STREAM_PLANE_BYTES
+    (at least one)."""
+    if qlen_pad <= band:
+        return nq
+    return max(1, min(nq, _STREAM_PLANE_BYTES // (8 * L * nseqs)))
 
 
 def _row_shift(h: torch.Tensor, fill: int) -> torch.Tensor:
@@ -416,12 +428,10 @@ def sw_scores_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
     _check_gaps(gapopenextend, gapextend)
     out = torch.zeros((nq, nblocks, nseqs), dtype=torch.int32, device=dev)
     band = stream_band(qlen_pad)
-    # the planes between a query's bands, when it has more than one; a
-    # launch takes as many queries as fit _STREAM_PLANE_BYTES
-    step, bh = nq, None
-    if qlen_pad > band:
-        step = max(1, min(nq, _STREAM_PLANE_BYTES // (8 * L * nseqs)))
-        bh = torch.empty((2, step, L, nseqs), dtype=torch.int32, device=dev)
+    # the planes between a query's bands, when it has more than one
+    step = plane_split(nq, qlen_pad, band, L, nseqs)
+    bh = None if qlen_pad <= band else torch.empty(
+        (2, step, L, nseqs), dtype=torch.int32, device=dev)
     for q0 in range(0, nq, step):
         q1 = min(nq, q0 + step)
         _launch("swipe_stream_rows", dev, _ptr(qcodes[q0:q1]),

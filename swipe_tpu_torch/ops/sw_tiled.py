@@ -3,11 +3,12 @@
 Port of ``swipe_tpu/ops/sw_tiled.py``: the same contract as
 ``ops.sw_segmented.sw_scores_segmented`` with an int8 profile whose
 QLEN is a multiple of 64 (the TPU kernel's tile, kept as the contract's
-check).  The CUDA kernel (``csrc/segment.cu`` ``tiled_kernel``) holds a
-tile of query rows in registers and walks each block's 32 columns,
-passing the tile's bottom row (its H and its F advanced into the next
-tile) from tile to tile, so its row state is read and written once per
-(tile, block).  CPU tensors take the plain column loop shared with K9.
+check).  On the card it runs K9's kernel (``csrc/segment.cu``
+``segment_rows_kernel``, int8, on the band walker: a warp a (query,
+lane), bands sized to the query; see ``ops.sw_segmented``): the TPU's
+64-row tile is the TPU's layout, not part of the contract, so one CUDA
+design serves both.  It needs gapopenextend >= gapextend.  CPU tensors
+take the plain column loop shared with K9.
 Unlike the TPU kernel, which leaves the segments no block names
 unwritten, the port zeroes them as K9 does.  Launches count in
 ``sw_scores_tiled.launches``.
@@ -30,7 +31,8 @@ def sw_scores_tiled(qpt: torch.Tensor, db: torch.Tensor,
                     seg_ids: torch.Tensor, *, nsegs: int,
                     gapopenextend: int, gapextend: int) -> torch.Tensor:
     """sw_scores_segmented with an int8 profile of QLEN a multiple of TQ;
-    raises ValueError otherwise."""
+    raises ValueError otherwise (and on the card on a negative gap open
+    penalty)."""
     dev = check_segment_args(qpt, db, seg_ids, nsegs, (torch.int8,))
     if qpt.shape[1] % TQ:
         raise ValueError(f"qlen {qpt.shape[1]} not a multiple of TQ={TQ}")

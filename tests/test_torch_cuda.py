@@ -589,39 +589,82 @@ def test_engine_long_query_on_card_matches_cpu(dev, route):
     assert on_card == on_cpu and on_card[0][0] == 30
 
 
-def _segment_chunk(dev, wide):
-    """A pack_database chunk at 512 lanes with padded segments, and
-    queries of 64-300 rows as an int8 profile (BLOSUM62) or an int32 one
-    (blastn +200/-300)."""
-    from swipe_tpu_torch.batching import pack_database
+# the segment kernels' cases: (query lengths, qlen_pad, the lanes, the
+# records' length range, the records of at most one block)
+SEGMENT_CASES = {
+    # segments of mixed widths and padded ones, one band
+    "mixed": ((64, 150, 300), 320, 512, (5, 400), 0),
+    # a query over 512 rows (two int8 bands, three int32 ones with
+    # planes between them) beside one under 64
+    "long": ((20, 700), 768, 512, (5, 400), 0),
+    # 128-row bands: a one-row query, one at a band edge
+    "short": ((1, 20, 64, 128), 128, 512, (5, 400), 0),
+    # one-block (32-column) segments after wider ones, a lane count that
+    # leaves the last block of warps part empty; 256-row bands
+    "narrow": ((37, 64, 200), 256, 100, (33, 200), 400)}
+
+
+def _segment_chunk(dev, wide, case="mixed"):
+    """A pack_database chunk with padded segments (SEGMENT_CASES), and
+    its queries as an int8 profile (BLOSUM62) or an int32 one (blastn
+    +200/-300)."""
+    from swipe_tpu_torch.batching import SEG_BLK, pack_database
     from swipe_tpu_torch.ops.sw_segmented import build_qpt
+    qlens, qlen_pad, nseqs, (lo, hi_len), short = SEGMENT_CASES[case]
     rng = np.random.default_rng(11 + wide)
     hi = 15 if wide else 26
     seqs = [rng.integers(1, hi, size=int(n), dtype=np.int8)
-            for n in rng.integers(5, 400, size=512 * 10)]
-    ch = pack_database(seqs, nseqs=512, max_cols=16384)[0]
+            for n in list(rng.integers(lo, hi_len, size=nseqs * 10))
+            + list(rng.integers(1, SEG_BLK + 1, size=short))]
+    ch = pack_database(seqs, nseqs=nseqs, max_cols=16384)[0]
     assert ch.nsegs > int(ch.seg_ids.max()) + 1       # padded segments
+    if short:                                        # one-block segments
+        widths = np.bincount(ch.seg_ids[:-1])
+        assert (widths[:-1] == 1).sum() >= 2
     m = (ScoreMatrix.nucleotide(200, -300, 400, 200) if wide else
          ScoreMatrix.builtin("BLOSUM62", 11, 1))
-    qs = [rng.integers(1, hi, size=n, dtype=np.int8) for n in (64, 150, 300)]
-    qpt = build_qpt(qs, m.matrix, 320, dtype=np.int32 if wide else np.int8)
+    qs = [rng.integers(1, hi, size=n, dtype=np.int8) for n in qlens]
+    qpt = build_qpt(qs, m.matrix, qlen_pad,
+                    dtype=np.int32 if wide else np.int8)
     args = [torch.from_numpy(a).to(dev) for a in (qpt, ch.data, ch.seg_ids)]
     kw = dict(nsegs=ch.nsegs, gapopenextend=m.gapopen + m.gapextend,
               gapextend=m.gapextend)
     return args, kw
 
 
+@pytest.mark.parametrize("case", list(SEGMENT_CASES))
 @pytest.mark.parametrize("kernel", ["segmented_int8", "segmented_int32",
                                     "tiled"])
-def test_segment_kernels_match_plain(dev, kernel):
+def test_segment_kernels_match_plain(dev, kernel, case):
     from swipe_tpu_torch.ops import sw_segmented as seg
     from swipe_tpu_torch.ops import sw_tiled as tiled
-    args, kw = _segment_chunk(dev, kernel == "segmented_int32")
+    args, kw = _segment_chunk(dev, kernel == "segmented_int32", case)
     fn = tiled.sw_scores_tiled if kernel == "tiled" \
         else seg.sw_scores_segmented
     n = fn.launches
     got = fn(*args, **kw)
     assert fn.launches == n + 1
+    assert torch.equal(got, seg.sw_scores_segmented_plain(*args, **kw))
+    # the walker needs a gap open penalty of at least 0
+    with pytest.raises(ValueError, match="negative gap open"):
+        fn(*args, **dict(kw, gapopenextend=kw["gapextend"] - 1))
+
+
+@pytest.mark.parametrize("kernel", ["segmented_int8", "segmented_int32",
+                                    "tiled"])
+def test_segment_kernels_split_queries_over_launches(dev, kernel,
+                                                     monkeypatch):
+    """The planes' cap cut to one query's planes: "long"'s two queries
+    (one over 512 rows) take a launch each, with the same scores."""
+    from swipe_tpu_torch.ops import sw_segmented as seg
+    from swipe_tpu_torch.ops import sw_tiled as tiled
+    args, kw = _segment_chunk(dev, kernel == "segmented_int32", "long")
+    monkeypatch.setattr(sw, "_STREAM_PLANE_BYTES", 8 * args[1].numel())
+    fn = tiled.sw_scores_tiled if kernel == "tiled" \
+        else seg.sw_scores_segmented
+    n = fn.launches
+    got = fn(*args, **kw)
+    assert fn.launches == n + 2
     assert torch.equal(got, seg.sw_scores_segmented_plain(*args, **kw))
 
 

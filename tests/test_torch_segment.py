@@ -25,7 +25,8 @@ from swipe_tpu_torch.batching import pack_database, pack_stream_carry
 from swipe_tpu_torch.ops import align_hint as tah
 from swipe_tpu_torch.ops import peak
 from swipe_tpu_torch.ops import sw_stream as tsw
-from swipe_tpu_torch.ops.sw_segmented import (build_qpt, sw_scores_segmented,
+from swipe_tpu_torch.ops.sw_segmented import (build_qpt, segment_plan,
+                                              sw_scores_segmented,
                                               sw_scores_segmented_plain)
 from swipe_tpu_torch.ops.sw_tiled import sw_scores_tiled
 
@@ -110,6 +111,70 @@ def test_segmented_plain_matches_pallas_interpret():
     # K8's wrapper on the CPU: the same plain loop, the same scores
     tiled = sw_scores_tiled(_t(qpt), _t(ch.data), _t(ch.seg_ids), **kw)
     assert np.array_equal(tiled.numpy(), want)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["int8", "int32"])
+def test_segment_plan_lengths_band_and_split(wide):
+    """The card kernel's host plan: query lengths derived from qpt equal
+    the lengths given to build_qpt (empty, sub-64, a row either side of a
+    band edge, over 512 rows), the port's qpt equals the JAX package's,
+    the band is K2's for int8 and 256 rows for int32, the queries split
+    over launches only when a query can take two bands, and a negative
+    gap open penalty raises."""
+    m = WIDE[0] if wide else M62[0]
+    dtype = np.int32 if wide else np.int8
+    rng = np.random.default_rng(12)
+    qs = [rng.integers(1, 26, size=n, dtype=np.int8)
+          for n in (0, 1, 40, 255, 256, 257, 511, 700)]
+    for qlen_pad, band in ((64, 128), (256, 256), (512, 512), (768, 512)):
+        fit = [q for q in qs if len(q) <= qlen_pad]
+        qpt = build_qpt(fit, m.matrix, qlen_pad, dtype=dtype)
+        assert np.array_equal(qpt, jsp.build_qpt(fit, m.matrix, qlen_pad,
+                                                 dtype=dtype))
+        for L, nseqs in ((16384, 512), (65536, 512)):
+            qlens, got_band, step = segment_plan(_t(qpt), L, nseqs, 12, 1)
+            assert qlens.tolist() == [len(q) for q in fit]
+            assert got_band == (256 if wide else band)
+            # the planes [2, step, L, nseqs] int32 stay within 1 GiB
+            split = qlen_pad > got_band
+            assert step == (min(len(fit), (1 << 30) // (8 * L * nseqs))
+                            if split else len(fit))
+    with pytest.raises(ValueError, match="negative gap open"):
+        segment_plan(_t(qpt), 16384, 512, 1, 2)
+
+
+def test_chip_smoke_segment_bound_terms():
+    """chip_smoke.py's work and critical-path terms of a segment kernel
+    call: the cells of the query lengths against the real residues, and
+    rows + columns - 1 of the longest query against the widest segment.
+    seg_ids' last entry repeats the last block's segment and is no block
+    of its own, so a chunk whose last segment is the widest counts its
+    width, not one block more."""
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_terms", os.path.join(os.path.dirname(__file__),
+                                         os.pardir, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    m, go, ge = M62
+    rng = np.random.default_rng(13)
+    queries = _seqs(rng, 3, 10, 60)
+    # three 2-block segments: the chunk's rounding to 512 columns
+    # stretches the last one to 12 blocks
+    ch = pack_database(_seqs(rng, 24, 33, 64), nseqs=8)[0]
+    widths = np.bincount(ch.seg_ids[:-1])
+    assert widths.tolist() == [2, 2, 12]
+    qpt = build_qpt(queries, m.matrix, 64)
+    args = (_t(qpt), _t(ch.data), _t(ch.seg_ids))
+    out = sw_scores_segmented(*args, nsegs=ch.nsegs, gapopenextend=go + ge,
+                              gapextend=ge)
+    nbytes, alu, ops, _ = cs._work("sw_scores_segmented", args, {}, out)
+    cells = sum(len(q) for q in queries) * int((ch.data != 31).sum())
+    assert (alu, ops) == (cells * cs.CELL_OPS[0], cells * cs.CELL_OPS[1])
+    rows, cols = max(len(q) for q in queries), widths.max() * 32
+    assert cs._chain("sw_scores_segmented", args, {}) == \
+        (rows + cols - 1) * cs.CHAIN_OPS
 
 
 def test_tiled_rejects_qlen_off_the_tile():
