@@ -21,14 +21,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (queries at strip and band edges, over one band and over
               1,100 rows, ties across the edges; wide at 255-300 rows),
               directly and through both routes that launch it against
-              the host pass, the carry kernel's lane form over a
+              the host pass, the carry kernel's flow form over a
               2048-lane flow series (lane permutes, a narrowing drain, no
-              carry-in at its head, no carry-out at its tail) and a compact
-              carry series (lanes refilled mid-chunk; also wide), its row
-              form over the compact series with queries that end inside a
-              strip, at a strip edge, at a band edge, take three bands, and
-              an empty slot (int8, with a clamp, wide), every chunk's dump
-              and carried state, the
+              carry-in at its head, no carry-out at its tail; 128- and
+              512-row bands, one with a clamp) and a compact carry series
+              (lanes refilled mid-chunk; 256-row bands and three of 512
+              rows), its row form over the compact series with queries
+              that end inside a strip, at a strip edge, at a band edge,
+              take three bands, and an empty slot (int8, with a clamp,
+              wide), lanes planted across the compact series' cuts,
+              every chunk's dump and carried state, no block profiles,
+              the
               wavefront kernel over torch_row_cases' 3-segment giant
               (alignments with long horizontal gaps across slab edges and
               the segment cuts) with 1, 3 and 16 queries and over a
@@ -69,7 +72,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               queries with backend "pallas" (pack_database at 512 lanes x
               16,384 columns, the tiled entry point of the segment
               kernel): every hit list must equal the plain-pack route's;
-5. proteome — the flow route (K3's lane form): 20,000 sequences from the same model (the
+5. proteome — the flow route (K3's flow form, every chunk one launch, no
+              block profiles): 20,000 sequences from the same model (the
               size of UniProt's human reference proteome, UP000005640)
               plus one of 35,213 aa (the model's titin-length clip); the
               same queries' shape, scoring and checks.  long-proteome: 16
@@ -94,7 +98,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (-r 100 -q -300 -G 500 -E 200, outside int8): the genes on
               the segmented kernel with an int32 profile, the chromosome's
               567 chunks on the wide carry kernel's row form (one launch a
-              chunk, none of the lane form), hints on the wide hint
+              chunk, none of the flow form), hints on the wide hint
               kernel; planted windows at their oracle, every hit of the
               int8 search a hit here at exactly 100 x its score;
 7. tblastn  — the same database under tblastn (db_gencode 11), 16 queries
@@ -109,8 +113,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 8. time     — every kernel a search launched held against its plain
               version at that search's largest call of it (the inputs as
               they came in, exact equality), so each path is checked at
-              its own shapes; then each kernel's time and bound at its
-              largest call over all the searches, its plain version's
+              its own shapes (the profile build, which no search
+              launches, at the proteome's largest flow chunk); then each
+              kernel's time and bound at its largest call over all the
+              searches, its plain version's
               time at that call, and the wavefront kernel there with one
               query too; the tile passes of the long-search chunk summed,
               beside one stream-kernel pass over the same 2,048 rows; the
@@ -225,8 +231,8 @@ KERNELS = {   # wrapper -> (its module, source, TPU kernel it replaces)
                               "swipe_tpu/ops/sw_stream.py:154"),
     "sw_scores_stream": (sw, "swipe_tpu_torch/csrc/carry_rows.cu",
                          "swipe_tpu/ops/sw_stream.py:568"),
-    "sw_scores_stream_carry_lanes": (sw, "swipe_tpu_torch/csrc/stream.cu",
-                                     "swipe_tpu/ops/sw_stream.py:733"),
+    "sw_scores_stream_carry_flow": (sw, "swipe_tpu_torch/csrc/carry_rows.cu",
+                                    "swipe_tpu/ops/sw_stream.py:733"),
     "sw_scores_stream_carry_rows": (sw, "swipe_tpu_torch/csrc/carry_rows.cu",
                                     "swipe_tpu/ops/sw_stream.py:733"),
     "sw_hint_stream": (sw, "swipe_tpu_torch/csrc/hint.cu",
@@ -249,12 +255,12 @@ KERNELS = {   # wrapper -> (its module, source, TPU kernel it replaces)
 # plain versions not named <wrapper>_plain in the wrapper's module (K8
 # shares K9's)
 PLAIN = {"sw_scores_tiled": seg.sw_scores_segmented_plain,
-         "sw_scores_stream_carry_lanes": sw.sw_scores_stream_carry_plain,
+         "sw_scores_stream_carry_flow": sw.sw_scores_stream_carry_plain,
          "sw_scores_stream_carry_rows": sw.sw_scores_stream_carry_plain,
          "peak_chain": lambda x, iters, dpx=False, block=256:
          peak.peak_chain_plain(x, iters * peak.PEAK_STEPS)}
 # state arguments each wrapper updates in place (cloned before a replay)
-STATE_ARGS = {"sw_scores_stream_carry_lanes": (5, 6, 7),
+STATE_ARGS = {"sw_scores_stream_carry_flow": (5, 6, 7),
               "sw_scores_stream_carry_rows": (5, 6, 7), "sw_wavefront": (2, 3, 4),
               "stream_tile_pass": (6, 7, 8),
               "stream_tile_carry_pass": (6, 7, 8, 9, 10)}
@@ -264,7 +270,8 @@ STATE_ARGS = {"sw_scores_stream_carry_lanes": (5, 6, 7),
 REDESIGNED_FROM_MS = {"stream_tile_pass": 247.789, "sw_hint_stream": 115.292,
                       "sw_scores_stream": 108.812, "sw_wavefront": 55.319,
                       "sw_scores_tiled": 54.596,
-                      "sw_scores_segmented": 83.401}
+                      "sw_scores_segmented": 83.401,
+                      "sw_scores_stream_carry_flow": 19.296}
 # the align phase's steps, timed on the host in every search: step ->
 # (owner, attribute); the hint kernel's seconds are part of the hint pass
 ALIGN_STEPS = {"finalize": (HitList, "finalize"),
@@ -597,15 +604,18 @@ def cut_matters(plain, where, chunk, args, state, kw) -> bool:
 
 
 def check_carry(dev, m8, mw, qc, ql, rng, report):
-    """K3's two forms.  The lane form over a 2048-lane flow series (cut
-    chains continued on permuted lanes, a drain narrowed to 1024 lanes,
-    profiles on) through the entry point, and over a compact carry series
-    (two giants cut across chunks, short records refilling 16 lanes
-    mid-chunk, the state wider than the chunks) called directly, with the int8 and the int32 matrix ``mw``.
-    The row form through the entry point (carry_form picks it) over the
-    compact series with queries that end inside a strip, at a strip edge,
-    at a band edge, take several bands, and an empty slot (0-1,100 rows
-    at qlen_pad 1,536): int8, int8 with a clamp, int32, with lanes
+    """K3's two forms, no block profiles.  The flow form over a 2048-lane
+    flow series (cut chains continued on permuted lanes, a drain narrowed
+    to 1024 lanes) through the entry point (carry_form picks it) at
+    qlen_pad 512 (512-row bands) and called directly at qlen_pad 128 with
+    a clamp (128-row bands), and over a compact carry series (two giants
+    cut across chunks, short records refilling 16 lanes mid-chunk, the
+    state wider than the chunks) called directly at qlen_pad 256 (256-row
+    bands) and 1,536 (three 512-row bands, planes between them).  The row
+    form through the entry point over the compact series with queries
+    that end inside a strip, at a strip edge, at a band edge, take
+    several bands, and an empty slot (0-1,100 rows at qlen_pad 1,536):
+    int8, int8 with a clamp, int32.  On the compact series, lanes are
     planted across chunk cuts into a band's second strip (plant_cuts; a
     planted chunk's dump must depend on that diagonal).  No carry-in at
     a series' head, no carry-out at its tail; every chunk's dump and
@@ -623,37 +633,48 @@ def check_carry(dev, m8, mw, qc, ql, rng, report):
         raise RuntimeError("check: the K3 series lack a drain or chunks")
     long_qs = [rng.integers(1, 26, size=n, dtype=np.int8)
                for n in (300, 496, 512, 0, 1024, 1100)]
-    # the second strip of a band: of the int8 bands (512 rows, laid from
-    # the query's end: 1100 - 512 + 16) and of the int32 ones (256; the
-    # second band of 1024)
+    short_qs = [rng.integers(1, 26, size=n, dtype=np.int8)
+                for n in (256, 250, 100, 7, 0)]
+    # the second strip of a band laid from the query's end: of the int8
+    # bands of 512 rows (1100 - 512 + 16; the first band of 1024 and of
+    # 512), of the int32 ones (256; the second band of 1024), and of the
+    # flow form's 256-row bands (8 rows a thread: 256 rows from row 0,
+    # and the third strip of 250 rows from row -6)
     planted = {}
-    for wide, plants in ((False, [(5, 604), (4, 16)]),
-                         (True, [(5, 340), (4, 264)])):
-        qs, where = plant_cuts(carry, long_qs, plants)
-        planted[wide] = (tuple(torch.from_numpy(a).to(dev)
-                               for a in sw.build_qcodes(qs, 1536)), where)
-    lanes, rows = sw.sw_scores_stream_carry_lanes, sw.sw_scores_stream_carry_rows
+    for key, qs, plants, pad in (
+            ("int8", long_qs, [(5, 604), (4, 16), (2, 16)], 1536),
+            ("int32", long_qs, [(5, 340), (4, 264)], 1536),
+            ("256", short_qs, [(0, 8), (1, 10)], 256)):
+        qs, where = plant_cuts(carry, qs, plants)
+        planted[key] = (tuple(torch.from_numpy(a).to(dev)
+                              for a in sw.build_qcodes(qs, pad)), where)
+    q128 = tuple(torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
+        [rng.integers(1, 26, size=n, dtype=np.int8)
+         for n in (128, 100, 31, 0)], 128))
+    flow_form, rows = sw.sw_scores_stream_carry_flow, \
+        sw.sw_scores_stream_carry_rows
     entry = sw.sw_scores_stream_carry
-    for chunks, width, profiles, mat, scale, clamp, fn, form, q, where in (
-            (flow, 2048, True, m8, 1, None, entry, lanes, (qc, ql), ()),
-            (carry, 64, False, m8, 1, None, lanes, lanes, (qc, ql), ()),
-            (carry, 64, False, mw, 100, None, lanes, lanes, (qc, ql), ()),
-            (carry, 64, False, m8, 1, None, entry, rows, *planted[False]),
-            (carry, 64, False, m8, 1, 80, entry, rows, *planted[False]),
-            (carry, 64, False, mw, 100, None, entry, rows, *planted[True])):
+    for chunks, width, mat, scale, clamp, fn, form, q, where in (
+            (flow, 2048, m8, 1, None, entry, flow_form, (qc, ql), ()),
+            (flow, 2048, m8, 1, 80, flow_form, flow_form, q128, ()),
+            (carry, 64, m8, 1, None, flow_form, flow_form,
+             *planted["256"]),
+            (carry, 64, m8, 1, None, flow_form, flow_form,
+             *planted["int8"]),
+            (carry, 64, m8, 1, None, entry, rows, *planted["int8"]),
+            (carry, 64, m8, 1, 80, entry, rows, *planted["int8"]),
+            (carry, 64, mw, 100, None, entry, rows, *planted["int32"])):
         got = sw.make_stream_state(q[0].shape[0], q[0].shape[1], width, dev)
         want = tuple(x.clone() for x in got)
         for i, ch in enumerate(chunks):
-            if i and profiles:
+            if i and chunks is flow:
                 src = torch.from_numpy(ch.carry_src).to(dev)
                 got = sw.permute_stream_state(*got, src)
                 want = sw.permute_stream_state(*want, src)
             data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
                                                  ch.end_block, ch.lane, dev)
             kw = dict(gapopenextend=12 * scale, gapextend=scale, clamp=clamp,
-                      carry_in=i > 0, carry_out=i < len(chunks) - 1,
-                      dprof=sw.build_dprofile_series(m8, data)
-                      if profiles else None)
+                      carry_in=i > 0, carry_out=i < len(chunks) - 1)
             if clamp is None and any(c == i for c, _, _ in where) and \
                     not cut_matters(sw.sw_scores_stream_carry_plain, where,
                                     i, (*q, mat, data, start), want, kw):
@@ -969,7 +990,7 @@ def segment_search(label, dev, db, queries, want, backend, kernel, card,
     # the giants' carry series takes no profiles: K3's row form
     others = {"build_dprofile_series", "sw_scores_stream", "sw_wavefront",
               "stream_tile_pass", "stream_tile_carry_pass",
-              "sw_scores_stream_carry_lanes", "sw_scores_tiled",
+              "sw_scores_stream_carry_flow", "sw_scores_tiled",
               "sw_scores_segmented"} - {kernel}
     if any(launches[n] for n in others):
         raise RuntimeError(f"{label}: a kernel of another route launched")
@@ -1087,10 +1108,11 @@ def proteome(dev, workdir, nseq, nq, card, calls, seed=4):
         f"{engine._flow_cols(2048)} columns")
     hitlists, timings, wall, launches, split = run_search(
         "proteome", engine, queries,
-        ("build_dprofile_series", "sw_scores_stream_carry_lanes",
-         "sw_hint_stream"), calls)
-    if launches["sw_scores_stream_carry_rows"]:
-        raise RuntimeError("proteome: a flow chunk took K3's row form")
+        ("sw_scores_stream_carry_flow", "sw_hint_stream"), calls)
+    # every flow chunk (one slot group) on K3's flow form, no profiles
+    check_carry_forms("proteome", launches, nflow, form="flow")
+    no_profiles("proteome", launches)
+    record_profile_call(calls)
     nbytes = check_protein_hits("proteome", db, engine, queries, hitlists,
                                 homologs)
     cells = residues * 200 * nq
@@ -1162,7 +1184,7 @@ def long_search(label, engine, db, lens, nq, lo, hi, expect, card, calls,
                              for g in groups):
         raise RuntimeError(f"{label}: slot groups {groups} are not long "
                            "groups of at most 4 at 1024 lanes")
-    if launches["sw_scores_stream_carry_lanes"] \
+    if launches["sw_scores_stream_carry_flow"] \
             or launches["sw_scores_stream_carry_rows"] \
             or launches["sw_scores_stream"] \
             or launches["build_dprofile_series"]:
@@ -1441,21 +1463,34 @@ def genome_searches(dev, workdir, card, calls, seed=5):
 
 
 def no_profiles(label, launches):
-    """The plain pack's K2 takes no block profiles: a search off the flow
-    series builds none."""
+    """The card's stream and carry kernels take no block profiles: no
+    search builds them."""
     if launches["build_dprofile_series"]:
-        raise RuntimeError(f"{label}: block profiles were built for K2")
+        raise RuntimeError(f"{label}: block profiles were built")
 
 
-def check_carry_forms(label, launches, nchunks):
-    """A giant carry series of one slot group: every chunk one launch of
-    K3's row form, none of the lane form."""
-    got = (launches["sw_scores_stream_carry_rows"],
-           launches["sw_scores_stream_carry_lanes"])
+def record_profile_call(calls):
+    """K1 at the proteome's largest flow chunk, which no search launches
+    it on: its call kept under a label of its own ("proteome-profiles",
+    no search's launch counts), so the check and time phases hold and
+    time it at the flow route's shape."""
+    _, args, _ = calls["proteome", "sw_scores_stream_carry_flow"]
+    m8, db = args[2], args[3]
+    calls["proteome-profiles", "build_dprofile_series"] = (
+        m8.numel() + db.numel(), (m8, db), {})
+
+
+def check_carry_forms(label, launches, nchunks, form="rows"):
+    """A carry or flow series of one slot group: every chunk one launch of
+    K3's ``form`` ("rows": a giant carry series; "flow": a flow series),
+    none of the other."""
+    other = "flow" if form == "rows" else "rows"
+    got = (launches[f"sw_scores_stream_carry_{form}"],
+           launches[f"sw_scores_stream_carry_{other}"])
     if got != (nchunks, 0):
-        raise RuntimeError(f"{label}: K3 launched {got[0]} times in the row "
-                           f"form and {got[1]} in the lane form, not "
-                           f"{nchunks} and 0")
+        raise RuntimeError(f"{label}: K3 launched {got[0]} times in the "
+                           f"{form} form and {got[1]} in the {other} form, "
+                           f"not {nchunks} and 0")
 
 
 def track_hints(split):
@@ -1652,7 +1687,7 @@ def _work(name, args, kw, out):
     if name == "build_dprofile_series":
         m8, db = args
         return _nbytes(m8, db, out), 0, 0, 0
-    if name in ("sw_scores_stream", "sw_scores_stream_carry_lanes",
+    if name in ("sw_scores_stream", "sw_scores_stream_carry_flow",
                 "sw_scores_stream_carry_rows"):
         qc, ql, m8, db, start = args[:5]
         if isinstance(out, tuple):      # the dump and the state
@@ -1660,7 +1695,7 @@ def _work(name, args, kw, out):
         cells = int(ql.sum()) * int((db != PAD_SYMBOL).sum())
         extra = kw.get("clamp") is not None          # one min a cell
         state = args[5:]
-        nbytes = _nbytes(qc, ql, m8, db, start, kw.get("dprof"), out)
+        nbytes = _nbytes(qc, ql, m8, db, start, out)
         if state:   # the carried state read in and written out
             nbytes += _nbytes(*state) * (kw.get("carry_in", True)
                                          + kw.get("carry_out", True))
@@ -1718,7 +1753,7 @@ def _chain(name, args, kw):
         return 0
     if name == "peak_chain":
         return args[1] * peak.PEAK_STEPS * PEAK_CHAIN_OPS
-    if name in ("sw_scores_stream", "sw_scores_stream_carry_lanes",
+    if name in ("sw_scores_stream", "sw_scores_stream_carry_flow",
                 "sw_scores_stream_carry_rows"):
         qc, ql, _, db, start = args[:5]
         rows = min(int(ql.max()), qc.shape[1])

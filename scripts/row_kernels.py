@@ -1,4 +1,4 @@
-"""Time the row-form kernels (K3's row form, K4, K5, K6, K8, K9) on one
+"""Time the row-form kernels (K3's two forms, K4, K5, K6, K8, K9) on one
 CUDA card.
 
     python3 scripts/row_kernels.py [--root DIR] [--tag T] [--only K8,K9,...]
@@ -36,15 +36,29 @@ Inputs come from fixed seeds, built as the engine builds them:
                     500/200, qlen_pad 512), 4,000 gene-length records;
   long-segment      600-1,024 aa (K8, qlen_pad 1024: two bands),
                     segment-search's chunk;
-* where K3's two forms cross: 16 queries of 200 and of 500 residues
+* K3 on the flow series, one launch of 16 queries of 200 aa (qlen_pad
+  256) from a fresh state at
+  flow-chunk  the proteome's largest flow chunk, 2,048 lanes x 1,792
+              columns (pack_stream_flow of 20,000 proteome-sized records
+              and a titin-length one at the engine's chunk height),
+  one-shot    its largest drain, the series' one-shot end at 1,024
+              lanes (7,168 columns), and
+  drain       one of its titin chain's drains, 1,024 lanes x 128
+              columns;
+  through the entry point (the flow form; with FLOW_CHAIN off too, the
+  dump by every thread's atomicMax), or in a tree with the lane form,
+  the lane form with the block profiles built beforehand (its launch
+  alone, as the flow route timed it) and the profile build alone;
+* where K3's forms cross: 16 queries of 200 and of 500 residues
   (BLOSUM62, gaps 11/1) against one chunk of 2,048 columns whose 32 to
   2,048 lanes all hold random records (a start bit every 19 blocks on
-  average): the row form, the lane form without block profiles and the
-  lane form with them (build_dprofile_series and the launch, as the flow
-  route runs it), their dumps and states held equal.
+  average): the row form and the flow form, or in a tree with the lane
+  form, the row form and the lane form with block profiles
+  (build_dprofile_series and the launch, as the flow route ran it), their
+  dumps and states held equal.
 
-``--only`` runs some of the groups: K5, K4, K6, K3r, K8, K9, forms (the
-crossover) and sass.  ``--root`` imports the package from another
+``--only`` runs some of the groups: K5, K4, K6, K3r, K3f (the flow
+series' shapes), K8, K9, forms (the crossover) and sass.  ``--root`` imports the package from another
 checkout, for instance a parent commit's unpacked into a directory that
 .gitignore lists, to time its kernels on the same inputs (the wrappers'
 contracts are the same).  Each result is one JSON line with the card and
@@ -276,15 +290,94 @@ def segment_shapes(batching, dev):
     return out
 
 
+def flow_shapes(sw, batching, dev):
+    """(name, qcodes, qlens, matrix, db, start) of K3 at the proteome's
+    largest flow chunk, its one-shot drain and one of its 1,024 x 128
+    drains, packed as the engine packs them (SearchEngine._flow_cols,
+    _flow_chunks)."""
+    import torch
+    from swipe_tpu_torch.matrices import ScoreMatrix
+    rng = np.random.default_rng(11)
+    recs = seqs_of(rng, list(lengths(rng, 20_000)) + [LEN_MAX], 20)
+    avg_lane = sum(len(r) for r in recs) / 2048
+    cols = min(max((int(avg_lane) // 2 + 64) // 128 * 128, 256), 8192)
+    chunks = batching.pack_stream_flow(recs, nseqs=2048, max_cols=cols,
+                                       drain_cols=128)
+    def fullest(cs):
+        return max(cs, key=lambda c: (c.data_t.size,
+                                      int((c.data_t != 31).sum())))
+
+    # the largest call by its tensors (chip_smoke's pick: a full chunk,
+    # whose state is twice a drain's), the largest drain (the series'
+    # one-shot end) and a drain of the titin's chain
+    full = fullest([c for c in chunks if c.nseqs == 2048])
+    oneshot = fullest([c for c in chunks if c.nseqs == 1024])
+    drain = next(c for c in chunks if c.nseqs == 1024
+                 and c.data_t.shape[1] == 128)
+    m8 = torch.from_numpy(sw.build_matrix8(
+        ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix)).to(dev)
+    qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
+        seqs_of(rng, [200] * 16, 20), 256))
+    out = []
+    for name, ch in (("flow-chunk", full), ("one-shot", oneshot),
+                     ("drain", drain)):
+        data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
+                                             ch.end_block, ch.lane, dev)
+        out.append((name, qc, ql, m8, data, start))
+    return out
+
+
+def time_flow(sw, qc, ql, m8, data, start):
+    """{form: ms a launch} of K3 at a flow series' shape, the carried
+    state read and written, and the digest of one launch's dump and state
+    from a fresh state (the same in every tree)."""
+    kw = dict(gapopenextend=12, gapextend=1)
+    nseqs = data.shape[1]
+
+    st = sw.make_stream_state(16, qc.shape[1], nseqs, data.device)
+
+    def call(fn, **k):
+        return fn(qc, ql, m8, data, start, *st, **kw, **k)
+
+    ms = {}
+    if hasattr(sw, "sw_scores_stream_carry_flow"):
+        dig = digest(sw.sw_scores_stream_carry(
+            qc, ql, m8, data, start, *sw.make_stream_state(
+                16, qc.shape[1], nseqs, data.device), **kw))
+        ms["flow"] = timed(lambda: call(sw.sw_scores_stream_carry))
+        chain, sw.FLOW_CHAIN = sw.FLOW_CHAIN, False
+        try:
+            ms["flow_atomic"] = timed(lambda: call(sw.sw_scores_stream_carry))
+        finally:
+            sw.FLOW_CHAIN = chain
+    else:
+        dp = sw.build_dprofile_series(m8, data)
+        dig = digest(sw.sw_scores_stream_carry_lanes(
+            qc, ql, m8, data, start, *sw.make_stream_state(
+                16, qc.shape[1], nseqs, data.device), dprof=dp, **kw))
+        ms["lanes"] = timed(lambda: call(sw.sw_scores_stream_carry_lanes,
+                                         dprof=dp))
+        ms["dprofile"] = timed(lambda: sw.build_dprofile_series(m8, data))
+    return ms, dig
+
+
 def crossover(sw, dev):
-    """(pairs, rows, {form: ms}) of K3's two forms at each shape, their
-    outputs held equal."""
+    """(pairs, rows, {form: ms}, digest) of K3's forms at each shape,
+    their outputs held equal: the row form and the flow form, or in a
+    tree with the lane form, the row form and the lane form with block
+    profiles (built in each timed call, as the flow route built them)."""
     import torch
     from swipe_tpu_torch.matrices import ScoreMatrix
     rng = np.random.default_rng(1)
     m8 = torch.from_numpy(sw.build_matrix8(
         ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix)).to(dev)
     kw = dict(gapopenextend=12, gapextend=1)
+    forms = [("rows", sw.sw_scores_stream_carry_rows, False)]
+    if hasattr(sw, "sw_scores_stream_carry_flow"):
+        forms.append(("flow", sw.sw_scores_stream_carry_flow, False))
+    else:
+        forms.append(("lanes_profiles", sw.sw_scores_stream_carry_lanes,
+                      True))
     out = []
     for qlen, qlen_pad in ((200, 256), (500, 512)):
         qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
@@ -295,11 +388,7 @@ def crossover(sw, dev):
             start = torch.from_numpy((rng.random((2048 // sw.KSEG, nseqs))
                                       < 1 / 19).astype(np.int8)).to(dev)
             got, ms = [], {}
-            for name, fn, prof in (
-                    ("rows", sw.sw_scores_stream_carry_rows, False),
-                    ("lanes", sw.sw_scores_stream_carry_lanes, False),
-                    ("lanes_profiles", sw.sw_scores_stream_carry_lanes,
-                     True)):
+            for name, fn, prof in forms:
                 st = sw.make_stream_state(16, qlen_pad, nseqs, dev)
 
                 def call(fn=fn, prof=prof, st=st):
@@ -312,9 +401,7 @@ def crossover(sw, dev):
                        for a, b in zip(got[0], r)):
                 raise RuntimeError(f"K3's forms differ at 16 x {nseqs}, "
                                    f"{qlen} rows")
-            ms["dprofile"] = timed(lambda: sw.build_dprofile_series(m8, db),
-                                   reps=3)
-            out.append((16 * nseqs, qlen, ms))
+            out.append((16 * nseqs, qlen, ms, digest(got[0])))
     return out
 
 
@@ -349,7 +436,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=REPO)
     ap.add_argument("--tag", default="")
-    ap.add_argument("--only", default="K5,K4,K6,K3r,K8,K9,forms,sass",
+    ap.add_argument("--only", default="K5,K4,K6,K3r,K3f,K8,K9,forms,sass",
                     help="comma-separated groups to run (default: all)")
     args = ap.parse_args()
     only = set(args.only.split(","))
@@ -408,8 +495,14 @@ def main() -> int:
         emit(kernel=kernel, shape=name, ms=ms, digest=dig,
              dims=[*qpt.shape[:2], *data.shape], dtype=str(qpt.dtype))
 
-    for pairs, qlen, ms in crossover(sw, dev) if "forms" in only else ():
-        emit(kernel="K3 forms", pairs=pairs, qlen=qlen, **ms)
+    for name, *a in flow_shapes(sw, batching, dev) if "K3f" in only else ():
+        ms, dig = time_flow(sw, *a)
+        emit(kernel="K3", shape=name, digest=dig,
+             dims=[*a[0].shape, *a[3].shape], **ms)
+
+    for pairs, qlen, ms, dig in crossover(sw, dev) if "forms" in only \
+            else ():
+        emit(kernel="K3 forms", pairs=pairs, qlen=qlen, digest=dig, **ms)
 
     for name, (regs, n, ops) in sorted(sass_stats(build).items()) \
             if "sass" in only else ():

@@ -6,14 +6,17 @@ same command line, packs, hit lists and report bytes, with the kernels of
 the search path written by hand in CUDA C++ for sm_90a (``csrc/``):
 
   * the block score profiles of a lane-packed chunk (csrc/dprofile.cu);
-  * the grouped stream scoring of NQ queries against every lane, and its
-    carry form for flow and carry series (csrc/stream.cu);
+  * the grouped stream scoring of NQ queries against every lane, its
+    carry forms for flow and carry series and the query-tiled passes
+    (csrc/carry_rows.cu);
   * the anti-diagonal wavefront over one giant sequence
     (csrc/wavefront.cu);
-  * the alignment-endpoint hints of the align phase (csrc/hint.cu).
+  * the alignment-endpoint hints of the align phase (csrc/hint.cu);
+  * the segment-packed route's scoring (csrc/segment.cu) and the ALU-rate
+    probe (csrc/peak.cu).
 
-Each kernel has a plain PyTorch version beside it (ops/sw_stream.py,
-ops/sw_wavefront.py), which CPU tensors take; the engine runs on CUDA
+Each kernel has a plain PyTorch version beside it (ops/), which CPU
+tensors take; the engine runs on CUDA
 unless the caller passes ``device="cpu"``.  The package imports nothing of ``swipe_tpu`` or JAX.
 """
 

@@ -36,8 +36,8 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NATIVE_DIR = os.path.join(os.path.dirname(_PKG), "native")
 
 # one shared library per kernel source; headers are hashed into each
-KERNEL_SOURCES = ("dprofile", "stream", "hint", "wavefront",
-                  "carry_rows", "segment", "peak")
+KERNEL_SOURCES = ("dprofile", "hint", "wavefront", "carry_rows", "segment",
+                  "peak")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")

@@ -1,19 +1,20 @@
 // Stream scoring with a query's rows spread over a warp: the plain-pack
-// kernel (K2), the tile pass (K5), the tile carry pass (K6) and the row
-// form of the carry kernel (K3), all on the band walker of rows.cuh.
+// kernel (K2), the tile pass (K5), the tile carry pass (K6) and both
+// forms of the carry kernel (K3), all on the band walker of rows.cuh.
 //
 // Replaces the TPU kernels swipe_tpu/ops/sw_stream.py sw_scores_stream
 // (:568, _stream_kernel_grouped: every plain pack of a blastp/blastn
 // search, and the segmented giants' pieces), _stream_tile_pass (:1263,
 // _stream_tile_kernel, driven by sw_scores_stream_long),
 // _stream_tile_carry_pass (:1419, _stream_tile_carry_kernel, driven by
-// sw_scores_stream_carry_long) and sw_scores_stream_carry (:733) in its
-// launches without block profiles: the giant carry series
-// (pack_stream_carry), whose state is the chromosomes' compact lane count
-// rounded to a warp, so a launch holds a few hundred (query, lane) pairs,
-// most of them PAD.  The flow series' launches, which read block
-// profiles, keep the lane form (stream.cu); ops/sw_stream.py carry_form
-// picks the form.
+// sw_scores_stream_carry_long) and sw_scores_stream_carry (:733) in two
+// forms, which ops/sw_stream.py carry_form picks by the launch's lanes:
+// the flow form (K2's 8-warp blocks and bands sized to the query, with
+// the state carried) for the flow series' chunks and drains of 1,024 and
+// 2,048 lanes, and the row form (one-warp blocks, bands of Rows<M>::RS
+// rows, also the int32 matrix) for the giant carry series, whose state
+// is the chromosomes' compact lane count rounded to a warp, so a launch
+// holds a few hundred (query, lane) pairs, most of them PAD.
 //
 // Why a warp per pair.  One thread per pair (the old K2, K5 and K6) walks
 // a pair's whole chain: a giant launch's two to sixteen real pairs left
@@ -43,7 +44,9 @@
 //   * K6 walks the bands of one 512-row tile of a carry chunk, the tile's
 //     rows' H/E read at the chunk's first column and written at its last;
 //   * K3's row form walks every band of the query in turn, band k + 1
-//     reading band k's planes from a scratch.
+//     reading band k's planes from a scratch; its flow form does the
+//     same in K2's blocks and bands, the rows' H/E read at the chunk's
+//     first column and written at its last.
 //   The diagonal into band k + 1's top row at column 0 is the carried H of
 //   band k's last row, which band k overwrites: thread 31 keeps the value
 //   it read and hands it on.
@@ -51,10 +54,11 @@
 // of block b.  In K3's row form, K5 and K6 threads reach it at different
 // steps, so each thread whose strip has rows stores it with atomicMax
 // into the dump (K5's and K6's dumps are max-merged already; the row
-// form's wrapper zeroes its dump).  K2 hands the column's running max down
-// the pipeline with H and F instead, and thread 31 alone stores it (the
-// first band) or max-merges it (the bands below): timed 11% faster at
-// Swiss-Prot's chunk than every thread's atomicMax (PERF.md).
+// form's wrapper zeroes its dump).  K2 and K3's flow form hand the
+// column's running max down the pipeline with H and F instead, and thread
+// 31 alone stores it (the first band) or max-merges it (the bands below):
+// timed 11% faster at Swiss-Prot's chunk than every thread's atomicMax
+// (PERF.md).
 // Start bits (lane refill at KSEG): at a block whose start bit is set, a
 // thread zeroes its rows' H, sets E to -inf, takes the diagonal from the
 // left as 0 and restarts S; what arrives from above is not reset (the
@@ -451,6 +455,91 @@ stream_rows_kernel(const int32_t* __restrict__ qcodes,
   }
 }
 
+// K3's flow form: K2's blocks and bands with the state carried, as K3's
+// row form carries it.  TILE_WARPS lanes of one query a block share the
+// band's profile of 32 * RS rows; the bands are laid from the query's end
+// (whole, virtual rows above row 0); each band's rows are read from the
+// state at column 0 and written back at the last column, and thread 0 of
+// the first band starts from the carried S.  bh/bf: the planes between
+// bands, [nq, L, nseqs] (null when no query has more than one band).  The
+// dump is zeroed by the caller (a pair without rows max-merges into it).
+template <int RS, bool CLAMP, bool CHAIN>
+__global__ void __launch_bounds__(32 * TILE_WARPS)
+flow_rows_kernel(const int32_t* __restrict__ qcodes,
+                 const int32_t* __restrict__ qlens,
+                 const int8_t* __restrict__ m8, const int8_t* __restrict__ db,
+                 const int8_t* __restrict__ start, int32_t* out,
+                 int32_t* hst, int32_t* est, int32_t* s_io, int32_t* bh,
+                 int32_t* bf, int carry_in, int qlen_pad, int nblocks,
+                 int nseqs, int Q, int R, int clamp) {
+  int8_t* prof;
+  int2 *tring, *cap;
+  uint8_t* ring;
+  carve<TILE_WARPS, int8_t, RS>(prof, tring, cap, ring);
+  const int lane = blockIdx.x * TILE_WARPS + (threadIdx.x >> 5);
+  const int q = blockIdx.y;
+  // a warp past the chunk's lanes only joins the block's barriers
+  const bool live = lane < nseqs;
+  const long long n = nseqs;
+  const int L = nblocks * KSEG;
+  const int qlen = min(qlens[q], qlen_pad);
+  int32_t* dump = out + (long long)q * nblocks * n + lane;
+  int s = carry_in && live ? s_io[q * n + lane] : 0;
+  // no rows (the whole block: one query): S still goes through the blocks
+  if (qlen == 0) {
+    if (live && (threadIdx.x & 31) == 0)
+      s_io[q * n + lane] = no_rows(start + lane, dump, n, nblocks, s);
+    return;
+  }
+  const int32_t* qc = qcodes + (long long)q * qlen_pad;
+  const long long plane = (long long)q * L * n + lane;
+  const long long srow = (long long)q * qlen_pad * n + lane;
+  Band<int8_t> b{qc, m8, 0, 0, db + lane, start + lane, n, L, nullptr,
+                 nullptr, nullptr, nullptr, hst + srow, est + srow, dump,
+                 !carry_in || (live && start[lane] != 0), Q, R, clamp};
+  constexpr int BAND = 32 * RS;
+  int diag0 = 0, sfin = 0;
+  for (int r1 = qlen - (qlen - 1) / BAND * BAND; r1 <= qlen; r1 += BAND) {
+    b.r0 = r1 - BAND;
+    b.r1 = r1;
+    const bool last = r1 == qlen;
+    b.bot_h = last ? nullptr : bh + plane;
+    b.bot_f = last ? nullptr : bf + plane;
+    block_profile<TILE_WARPS, int8_t, RS>(qc, m8, b.r0, b.r1, prof);
+    if (live) {
+      int below;
+      sfin = max(sfin,
+                 walk_band<int8_t, CLAMP, false, true, TILE_WARPS, RS, CHAIN>(
+                     b, prof, ring, tring, cap, diag0, s, below));
+      diag0 = __shfl_sync(FULL, below, 31);
+    }
+    s = 0;
+    b.top_h = bh + plane;
+    b.top_f = bf + plane;
+  }
+  if (live) {
+    sfin = __reduce_max_sync(FULL, sfin);
+    if ((threadIdx.x & 31) == 0) s_io[q * n + lane] = sfin;
+  }
+}
+
+template <int RS, bool CLAMP, bool CHAIN>
+int launch_flow(dim3 grid, cudaStream_t st, const int32_t* qcodes,
+                const int32_t* qlens, const int8_t* m8, const int8_t* db,
+                const int8_t* start, int32_t* out, int32_t* hst,
+                int32_t* est, int32_t* s_io, int32_t* bh, int32_t* bf,
+                int carry_in, int qlen_pad, int nblocks, int nseqs, int Q,
+                int R, int clamp) {
+  const size_t smem = smem_bytes<int8_t, RS>(TILE_WARPS);
+  const auto kernel = flow_rows_kernel<RS, CLAMP, CHAIN>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, 32 * TILE_WARPS, smem, st>>>(
+      qcodes, qlens, m8, db, start, out, hst, est, s_io, bh, bf, carry_in,
+      qlen_pad, nblocks, nseqs, Q, R, clamp);
+  return (int)cudaGetLastError();
+}
+
 template <int RS, bool CLAMP>
 int launch_stream(dim3 grid, cudaStream_t st, const int32_t* qcodes,
                   const int32_t* qlens, const int8_t* m8, const int8_t* db,
@@ -618,5 +707,44 @@ extern "C" int swipe_stream_rows(const int32_t* qcodes, const int32_t* qlens,
   STREAM_RS(8)
   STREAM_RS(16)
 #undef STREAM_RS
+  return (int)cudaErrorInvalidValue;
+}
+
+// K3's flow form: out [nq, nblocks, nseqs] zeroed by the caller; hst/est
+// [nq, qlen_pad, nseqs] and s_io [nq, nseqs] the carried state, updated in
+// place (with carry_in 0 not read); rs the rows a thread (4, 8 or 16:
+// bands of 128, 256 or 512 rows); bh/bf [nq, L, nseqs] a scratch for the
+// planes between bands (null when qlen_pad fits one band); chain: the
+// dump handed down the pipeline, else every thread's atomicMax.  The
+// int8 matrix only.  Needs Q >= R.
+extern "C" int swipe_carry_flow(
+    const int32_t* qcodes, const int32_t* qlens, const int8_t* m8,
+    const int8_t* db, const int8_t* start, int32_t* out, int32_t* hst,
+    int32_t* est, int32_t* s_io, int32_t* bh, int32_t* bf, int carry_in,
+    int nq, int qlen_pad, int nblocks, int nseqs, int Q, int R, int rs,
+    int use_clamp, int clamp, int chain, void* stream) {
+  if (Q < R || (rs != 4 && rs != 8 && rs != 16))
+    return (int)cudaErrorInvalidValue;
+  if (qlen_pad > 32 * rs && bh == nullptr) return (int)cudaErrorInvalidValue;
+  if (nq <= 0 || nseqs <= 0 || nblocks <= 0) return (int)cudaGetLastError();
+  const dim3 grid((nseqs + TILE_WARPS - 1) / TILE_WARPS, nq);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define FLOW_LAUNCH(RS, CLAMP, CHAIN)                                       \
+  launch_flow<RS, CLAMP, CHAIN>(grid, st, qcodes, qlens, m8, db, start, out, \
+                                hst, est, s_io, bh, bf, carry_in, qlen_pad,  \
+                                nblocks, nseqs, Q, R, clamp)
+#define FLOW_RS(RS)                                                         \
+  if (rs == RS) {                                                           \
+    if (chain)                                                              \
+      return use_clamp ? FLOW_LAUNCH(RS, true, true)                        \
+                       : FLOW_LAUNCH(RS, false, true);                      \
+    return use_clamp ? FLOW_LAUNCH(RS, true, false)                         \
+                     : FLOW_LAUNCH(RS, false, false);                       \
+  }
+  FLOW_RS(4)
+  FLOW_RS(8)
+  FLOW_RS(16)
+#undef FLOW_RS
+#undef FLOW_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -1,13 +1,13 @@
 // The band walker of the row-form kernels: a warp takes one (query, lane)
 // pair and sweeps a chunk's columns as a systolic pipeline over the
-// query's rows.  Included by carry_rows.cu (K2, K3's row form, K5, K6),
+// query's rows.  Included by carry_rows.cu (K2, K3's two forms, K5, K6),
 // hint.cu (K4) and segment.cu (K8, K9).
 //
 //   * a band is 32 * RS consecutive query rows; thread t owns a strip of
 //     RS rows, their H and pre-advanced E in registers for the whole walk.
-//     RS is a template parameter: 16 (int8 matrix) and 8 (int32) for K3,
-//     K4, K5 and K6; 4, 8 or 16 for K2 and the int8 K8 and K9, whose
-//     launches pick the band from the query length;
+//     RS is a template parameter: 16 (int8 matrix) and 8 (int32) for K3's
+//     row form, K4, K5 and K6; 4, 8 or 16 for K2, K3's flow form and the
+//     int8 K8 and K9, whose launches pick the band from the query length;
 //   * at step s thread t computes column s - t: F runs down its strip,
 //     and it hands its bottom row's H and F to thread t + 1 with
 //     __shfl_up_sync; H that arrived one step earlier is the diagonal
@@ -30,8 +30,9 @@
 // db symbols) hit 32 consecutive elements, so no bank conflicts.  int8
 // entries for the int8 matrix (RS KB a band), int32 for the wide matrix.
 // In a block of one warp each thread fills its own column of it
-// (strip_profile); in a block of several (K5) every warp walks the same
-// band of the same query, so the warps share one (block_profile).  db
+// (strip_profile); in a block of several (K2, K3's flow form, K5, K8, K9)
+// every warp walks the same band of the same query, so the warps share
+// one (block_profile).  db
 // symbols, start bits and the planes are staged 32 columns at a time,
 // one window ahead of the pipeline, through a 64-column ring per warp.
 #pragma once
@@ -49,8 +50,8 @@ constexpr int RESET = 32;          // ring code bit: a start bit at this column
 // K6), by matrix element type (chosen by timing 8, 16 and 32;
 // ops/sw_stream.py ROW_BANDS mirrors the band heights, 32 * RS).  Every
 // function below takes RS as a template parameter defaulting to these, so
-// K2 instantiates bands of 128, 256 and 512 rows (ops/sw_stream.py
-// STREAM_BANDS).
+// K2 and K3's flow form instantiate bands of 128, 256 and 512 rows
+// (ops/sw_stream.py STREAM_BANDS).
 template <typename M> struct Rows;
 template <> struct Rows<int8_t> { static constexpr int RS = 16; };
 template <> struct Rows<int32_t> { static constexpr int RS = 8; };

@@ -6,17 +6,18 @@ C++ for sm_90a under ``csrc/`` and bound through a plain C interface with
 ctypes:
 
 * ``build_dprofile_series`` (``csrc/dprofile.cu``) — the block score
-  profiles of a chunk;
+  profiles of a chunk (held by the check phase; no search builds them);
 * ``sw_scores_stream`` (``csrc/carry_rows.cu``, a warp a (query, lane),
   bands sized to the query) — exact affine-gap scores of NQ queries
   against every lane of a chunk, dumped per block;
 * ``sw_scores_stream_carry`` — the same over one chunk of a flow or
   carry series, with each lane's DP state carried in and out, in one of
-  two forms (``carry_form``: by whether the launch takes profiles): the
-  lane form ``sw_scores_stream_carry_lanes`` (``csrc/stream.cu``, the
-  carry instantiation; the flow series) and the row form
-  ``sw_scores_stream_carry_rows`` (``csrc/carry_rows.cu``, a warp a
-  (query, lane); the giant carry series);
+  two forms (``carry_form``: by the launch's lanes and matrix), both in
+  ``csrc/carry_rows.cu`` with a warp a (query, lane): the flow form
+  ``sw_scores_stream_carry_flow`` (K2's blocks and bands sized to the
+  query; the flow series) and the row form
+  ``sw_scores_stream_carry_rows`` (one-warp blocks; the giant carry
+  series and every int32-matrix launch);
 * ``sw_hint_stream`` (``csrc/hint.cu``, a warp a (bin, lane)) —
   alignment-endpoint hints with search16s tie rules;
 * ``stream_tile_pass`` (``csrc/carry_rows.cu``, a warp a (query, lane)) —
@@ -59,8 +60,9 @@ __all__ = ["KSEG", "build_matrix8", "build_matrix_wide", "build_qcodes",
            "build_dprofile_series", "build_dprofile_series_plain",
            "sw_scores_stream", "sw_scores_stream_plain", "gather_scores",
            "make_stream_state", "permute_stream_state",
-           "stream_state_from_jax", "carry_form", "sw_scores_stream_carry",
-           "sw_scores_stream_carry_lanes", "sw_scores_stream_carry_rows",
+           "stream_state_from_jax", "carry_form", "stream_plan",
+           "sw_scores_stream_carry", "sw_scores_stream_carry_flow",
+           "sw_scores_stream_carry_rows",
            "sw_scores_stream_carry_plain", "sw_hint_stream",
            "sw_hint_stream_plain", "tile_planes_from_jax",
            "make_stream_state_long", "stream_state_long_from_jax",
@@ -149,11 +151,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "swipe_dprofile": ("dprofile", [_P, _P, _P, ctypes.c_longlong, _I, _P]),
     "swipe_stream_rows": ("carry_rows", [_P] * 8 + [_I] * 9 + [_P]),
-    "swipe_stream_carry": ("stream", [_P] * 10 + [_I] * 10 + [_P]),
     "swipe_hint": ("hint", [_P] * 3 + [_I] + [_P] * 6 + [_I] * 6 + [_P]),
     "swipe_stream_tile": ("carry_rows", [_P] * 8 + [_I] * 10 + [_P]),
     "swipe_stream_tile_carry": ("carry_rows", [_P] * 12 + [_I] * 10 + [_P]),
     "swipe_carry_rows": ("carry_rows", [_P] * 11 + [_I] * 10 + [_P]),
+    "swipe_carry_flow": ("carry_rows", [_P] * 11 + [_I] * 11 + [_P]),
     "swipe_wavefront": ("wavefront", [_P] * 7 + [_I] * 5 + [_P]),
     "swipe_segment": ("segment", [_P] * 2 + [_I] + [_P] * 5 + [_I] * 8
                       + [_P]),
@@ -226,8 +228,10 @@ def build_dprofile_series(matrix8: torch.Tensor, db: torch.Tensor
     L a multiple of KSEG, NSEQS a multiple of 4, symbols 0..31.  Returns
     [L // KSEG, 32, KSEG, NSEQS] int32 — the memory order of the JAX
     package's [nblocks, 32, KSEG * 8, NSEQS / 8] array, so a ``view``
-    turns one into the other.  128 bytes per db byte: callers budget
-    device memory (pipeline.SearchEngine.DPROF_MAX_BYTES)."""
+    turns one into the other: 128 bytes per db byte.  The card's stream
+    and carry kernels read no profiles (they stage the query's scores
+    from the matrix), so no search builds them; the plain versions still
+    take them on the CPU."""
     dev = db.device
     _check("matrix8", matrix8, torch.int8, 2, dev)
     _check("db", db, torch.int8, 2, dev)
@@ -265,13 +269,23 @@ def stream_band(qlen_pad: int) -> int:
 
 def plane_split(nq: int, qlen_pad: int, band: int, L: int, nseqs: int
                 ) -> int:
-    """The queries a launch of a band walker (K2, K8, K9) takes: all of
-    them when qlen_pad fits one band, else as many as keep the planes
-    between bands, [2, step, L, nseqs] int32, within _STREAM_PLANE_BYTES
-    (at least one)."""
+    """The queries a launch of a band walker (K2, K3's flow form, K8,
+    K9) takes: all of them when qlen_pad fits one band, else as many as
+    keep the planes between bands, [2, step, L, nseqs] int32, within
+    _STREAM_PLANE_BYTES (at least one)."""
     if qlen_pad <= band:
         return nq
     return max(1, min(nq, _STREAM_PLANE_BYTES // (8 * L * nseqs)))
+
+
+def stream_plan(nq: int, qlen_pad: int, L: int, nseqs: int
+                ) -> tuple[int, int]:
+    """The launches of K2 and K3's flow form for nq queries at qlen_pad
+    against an [L, nseqs] chunk: (the band height, stream_band(qlen_pad);
+    the queries a launch takes, plane_split).  The kernels' rows a thread
+    are the band over 32."""
+    band = stream_band(qlen_pad)
+    return band, plane_split(nq, qlen_pad, band, L, nseqs)
 
 
 def _row_shift(h: torch.Tensor, fill: int) -> torch.Tensor:
@@ -427,9 +441,8 @@ def sw_scores_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
         raise ValueError("the card's K2 takes no block profiles")
     _check_gaps(gapopenextend, gapextend)
     out = torch.zeros((nq, nblocks, nseqs), dtype=torch.int32, device=dev)
-    band = stream_band(qlen_pad)
+    band, step = stream_plan(nq, qlen_pad, L, nseqs)
     # the planes between a query's bands, when it has more than one
-    step = plane_split(nq, qlen_pad, band, L, nseqs)
     bh = None if qlen_pad <= band else torch.empty(
         (2, step, L, nseqs), dtype=torch.int32, device=dev)
     for q0 in range(0, nq, step):
@@ -514,16 +527,23 @@ def sw_scores_stream_carry_plain(qcodes, qlens, matrix8, db, start, h, e, s,
 ROW_BANDS = {False: 32 * 16, True: 32 * 8}
 
 
-def carry_form(profiles: bool) -> str:
-    """Which kernel scores a carry launch on the card: "lanes"
-    (csrc/stream.cu: a thread a (query, lane) pair, reading the block
-    profiles) when the launch takes profiles (the flow series), else
-    "rows" (csrc/carry_rows.cu: a warp a pair, the query's rows spread
-    over it; the giant carry series).  Both compute the same function.
-    Without profiles the row form was as fast or faster at every shape
-    timed from 16 x 32 to 16 x 2,048 pairs but one (16 x 1,024 pairs of
-    200 rows, 14% slower), so the launch's shape does not enter."""
-    return "lanes" if profiles else "rows"
+# the lanes of a carry launch from which K3's flow form scores it: the
+# smallest lane count of scripts/row_kernels.py's forms grid (16 queries
+# of 200 and of 500 rows, 32 to 2,048 lanes) from which the flow form was
+# as fast as the row form at both lengths (PERF.md)
+FLOW_LANES = 128
+
+
+def carry_form(nseqs: int, wide: bool) -> str:
+    """Which kernel scores a carry launch of nseqs lanes on the card, both
+    in csrc/carry_rows.cu with a warp a (query, lane): "flow" (K2's
+    blocks of 8 lanes of one query sharing the band's profile, bands of
+    128, 256 or 512 rows by qlen_pad) from FLOW_LANES lanes on (the flow
+    series' chunks and drains), else "rows" (one-warp blocks, which
+    spread a launch of few pairs over every SM; the giant carry series),
+    and "rows" for the int32 matrix, which the flow form does not take.
+    Both compute the same function."""
+    return "rows" if wide or nseqs < FLOW_LANES else "flow"
 
 
 def _check_carry(qcodes, qlens, matrix8, db, start, h, e, s, clamp, dprof):
@@ -597,7 +617,8 @@ def sw_scores_stream_carry(qcodes: torch.Tensor, qlens: torch.Tensor,
     at and past qlens[q] are no part of the state.
     db/start may be narrower than the state (compact carry chunks): the
     missing lanes are PAD-filled on the device.  ``dprof`` holds the
-    profiles at the state's width.
+    profiles at the state's width; the plain version reads them on the
+    CPU, and the card's kernels take none.
 
     With ``carry_out`` the state tensors are updated IN PLACE and
     returned.  Without it they are returned unchanged and must not be
@@ -605,44 +626,18 @@ def sw_scores_stream_carry(qcodes: torch.Tensor, qlens: torch.Tensor,
     lane starts fresh at block 0 and h/e/s are not read (a series' first
     chunk).  Returns (dump [NQ, L // KSEG, NSEQS], h, e, s).
 
-    The call takes one of two forms (carry_form): with profiles
-    sw_scores_stream_carry_lanes, else sw_scores_stream_carry_rows, which
-    validate it and, on the CPU, both run the plain version.  Scores and
-    state are the JAX package's sw_scores_stream_carry (``minter`` and
-    ``ru`` are TPU-only and change no result)."""
-    fn = sw_scores_stream_carry_rows if carry_form(dprof is not None) \
-        == "rows" else sw_scores_stream_carry_lanes
+    The call takes one of two forms (carry_form, by the state's lanes and
+    the matrix): sw_scores_stream_carry_flow or
+    sw_scores_stream_carry_rows, which validate it and, on the CPU, both
+    run the plain version.  Scores and state are the JAX package's
+    sw_scores_stream_carry (``minter`` and ``ru`` are TPU-only and change
+    no result)."""
+    fn = sw_scores_stream_carry_flow if carry_form(
+        h.shape[2], matrix8.dtype == torch.int32) == "flow" \
+        else sw_scores_stream_carry_rows
     return fn(qcodes, qlens, matrix8, db, start, h, e, s,
               gapopenextend=gapopenextend, gapextend=gapextend, clamp=clamp,
               dprof=dprof, carry_in=carry_in, carry_out=carry_out)
-
-
-def sw_scores_stream_carry_lanes(qcodes, qlens, matrix8, db, start, h, e, s,
-                                 *, gapopenextend: int, gapextend: int,
-                                 clamp: int | None = None, dprof=None,
-                                 carry_in: bool = True,
-                                 carry_out: bool = True):
-    """sw_scores_stream_carry on the lane form (csrc/stream.cu, the carry
-    instantiation): one thread a (query, lane), 128 lanes a block.  Same
-    contract."""
-    wide, db, start = _check_carry(qcodes, qlens, matrix8, db, start, h, e,
-                                   s, clamp, dprof)
-    kw = dict(gapopenextend=gapopenextend, gapextend=gapextend, clamp=clamp,
-              dprof=dprof, carry_in=carry_in, carry_out=carry_out)
-    dev = db.device
-    if dev.type != "cuda":
-        return sw_scores_stream_carry_plain(qcodes, qlens, matrix8, db,
-                                            start, h, e, s, **kw)
-    nq, qlen_pad = qcodes.shape
-    L, nseqs = db.shape
-    out = torch.empty((nq, L // KSEG, nseqs), dtype=torch.int32, device=dev)
-    hst, est, sio = _carry_state(h, e, s, carry_in, carry_out)
-    _launch("swipe_stream_carry", dev, _ptr(qcodes), _ptr(qlens),
-            _ptr(matrix8), _ptr(db), _ptr(start), _ptr(dprof), _ptr(out),
-            _ptr(hst), _ptr(est), _ptr(sio), int(carry_in), int(wide), nq,
-            qlen_pad, L // KSEG, nseqs, int(gapopenextend), int(gapextend),
-            *_clampv(clamp))
-    return out, h, e, s
 
 
 def _check_gaps(gapopenextend: int, gapextend: int) -> None:
@@ -689,6 +684,55 @@ def sw_scores_stream_carry_rows(qcodes, qlens, matrix8, db, start, h, e, s,
             int(gapextend), *_clampv(clamp))
     return out, h, e, s
 
+
+
+def sw_scores_stream_carry_flow(qcodes, qlens, matrix8, db, start, h, e, s,
+                                *, gapopenextend: int, gapextend: int,
+                                clamp: int | None = None, dprof=None,
+                                carry_in: bool = True,
+                                carry_out: bool = True):
+    """sw_scores_stream_carry on the flow form (csrc/carry_rows.cu
+    flow_rows_kernel): K2's kernel with the state carried, a warp a
+    (query, lane), 8 lanes of one query a block sharing the band's
+    profile, bands of stream_band(QLEN) rows laid from each query's end
+    (stream_plan).  Same contract; on the card the int8 matrix only, no
+    block profiles, and gapopenextend >= gapextend."""
+    wide, db, start = _check_carry(qcodes, qlens, matrix8, db, start, h, e,
+                                   s, clamp, dprof)
+    kw = dict(gapopenextend=gapopenextend, gapextend=gapextend, clamp=clamp,
+              dprof=dprof, carry_in=carry_in, carry_out=carry_out)
+    dev = db.device
+    if dev.type != "cuda":
+        return sw_scores_stream_carry_plain(qcodes, qlens, matrix8, db,
+                                            start, h, e, s, **kw)
+    if wide:
+        raise ValueError("the flow form takes the int8 matrix only")
+    if dprof is not None:
+        raise ValueError("the card's K3 takes no block profiles")
+    _check_gaps(gapopenextend, gapextend)
+    nq, qlen_pad = qcodes.shape
+    L, nseqs = db.shape
+    out = torch.zeros((nq, L // KSEG, nseqs), dtype=torch.int32, device=dev)
+    hst, est, sio = _carry_state(h, e, s, carry_in, carry_out)
+    band, step = stream_plan(nq, qlen_pad, L, nseqs)
+    # the planes between a query's bands, when it has more than one
+    bh = None if qlen_pad <= band else torch.empty(
+        (2, step, L, nseqs), dtype=torch.int32, device=dev)
+    for q0 in range(0, nq, step):
+        q1 = min(nq, q0 + step)
+        _launch("swipe_carry_flow", dev, _ptr(qcodes[q0:q1]),
+                _ptr(qlens[q0:q1]), _ptr(matrix8), _ptr(db), _ptr(start),
+                _ptr(out[q0:q1]), _ptr(hst[q0:q1]), _ptr(est[q0:q1]),
+                _ptr(sio[q0:q1]), _ptr(None if bh is None else bh[0]),
+                _ptr(None if bh is None else bh[1]), int(carry_in), q1 - q0,
+                qlen_pad, L // KSEG, nseqs, int(gapopenextend),
+                int(gapextend), band // 32, *_clampv(clamp), int(FLOW_CHAIN))
+    return out, h, e, s
+
+
+# the flow form's dump: handed down the pipeline (thread 31 stores it),
+# else every thread's atomicMax (timed against each other on the card)
+FLOW_CHAIN = True
 
 
 # ---- K5, K6: query-tile passes (queries over one tile) -------------------
@@ -1132,8 +1176,8 @@ def sw_hint_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
 # counts on the original; ops.sw_wavefront adds its own)
 _COUNTED = {"swipe_dprofile": build_dprofile_series,
             "swipe_stream_rows": sw_scores_stream,
-            "swipe_stream_carry": sw_scores_stream_carry_lanes,
             "swipe_carry_rows": sw_scores_stream_carry_rows,
+            "swipe_carry_flow": sw_scores_stream_carry_flow,
             "swipe_hint": sw_hint_stream,
             "swipe_stream_tile": stream_tile_pass,
             "swipe_stream_tile_carry": stream_tile_carry_pass}

@@ -1,5 +1,4 @@
-"""Search pipeline: pack -> profile + score on the card -> top-K -> hits ->
-align.
+"""Search pipeline: pack -> score on the card -> top-K -> hits -> align.
 
 Port of ``swipe_tpu/pipeline.py`` for the stream backend.  The host
 decisions are the JAX engine's, so the same packs and the same hits come
@@ -17,9 +16,9 @@ device-to-host copy feeding hit entry:
   looks scores up in the matrix), then each sequence's score gathered
   and reduced to the top K with torch ops;
 * the flow series (pack_stream_flow), for heavy length tails over small
-  databases: each chunk's block profiles (K1) and its scores on the
-  carry kernel (K3), each lane's DP state gathered across lanes between
-  chunks;
+  databases: each chunk's scores on the carry kernel's flow form (K3,
+  which looks scores up in the matrix), each lane's DP state gathered
+  across lanes between chunks;
 * queries over 1024 rows (the "long" groups: qlen_pad rounded to 512,
   1024 lanes, SLOT_BATCH_LONG slots) take the plain pack at
   LONG_MAX_COLS columns, whatever the flow heuristic says, scored in
@@ -198,9 +197,6 @@ class SearchEngine:
     STREAM_CONFIGS = ((2048, 512), (1024, 1024))
     # queries over the last config's row cap are "long"
     ROW_CAP = STREAM_CONFIGS[-1][1]
-    # a flow chunk's block profiles are built when they fit this budget
-    # (bytes = 128 x chunk bytes)
-    DPROF_MAX_BYTES = 3 << 30
     # packed chunks stay on the device up to this budget; larger
     # databases upload per search
     DEVICE_CACHE_BYTES = 8 << 30
@@ -260,7 +256,7 @@ class SearchEngine:
             (nseqs, max_cols or 16384)
         if max_cols is None:
             # stream: 2048 lanes x 8192 columns = 16 MB per chunk (the JAX
-            # engine's, whose block profiles, 2 GB, fit DPROF_MAX_BYTES);
+            # engine's);
             # units up to 65536 columns stay in the plain pack as
             # oversized chunks.  The
             # segment backends' giants are units over a chunk's height
@@ -616,14 +612,6 @@ class SearchEngine:
         # chromosome-scale units follow on the giant routes
         self._score_carry_series(slots, qlen_pad, timings)
 
-    def _profiles(self, m8, data):
-        """A flow chunk's block profiles (K1) when they fit
-        DPROF_MAX_BYTES, else None (the kernel then looks scores up in the
-        matrix)."""
-        from .ops.sw_stream import build_dprofile_series
-        return build_dprofile_series(m8, data) \
-            if data.numel() * 128 <= self.DPROF_MAX_BYTES else None
-
     def _stream_scores(self, chunks, qc, ql, m8, long=False):
         """Score plain-pack chunks (K2; a long group: K5's tile passes),
         both looking scores up in the matrix: yields (dump, end_block,
@@ -641,8 +629,9 @@ class SearchEngine:
             yield out, eb, ln, ud
 
     def _flow_scores(self, nseqs, qc, ql, m8, qlen_pad):
-        """Score a flow series in order (K1, K3), the carried state
-        permuted between chunks: yields (dump, end_block, lane, unit
+        """Score a flow series in order (K3, which looks scores up in the
+        matrix: no block profiles), the carried state permuted between
+        chunks: yields (dump, end_block, lane, unit
         ids) for the chunks where units end.  The series' head starts
         fresh and its tail hands no state on."""
         from .ops.sw_stream import (make_stream_state, permute_stream_state,
@@ -657,12 +646,10 @@ class SearchEngine:
                                           data.shape[1], self.device)
             else:
                 state = permute_stream_state(*state, src)
-            dp = self._profiles(m8, data)
             out, *state = sw_scores_stream_carry(
                 qc, ql, m8, data, start, *state,
                 gapopenextend=p.gapopenextend, gapextend=p.gapextend,
-                dprof=dp, carry_in=i > 0, carry_out=i < nchunks - 1)
-            del dp
+                carry_in=i > 0, carry_out=i < nchunks - 1)
             if ud.shape[0]:
                 yield out, eb, ln, ud
 

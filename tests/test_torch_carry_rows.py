@@ -2,8 +2,9 @@
 the CPU: a query's rows cut into bands and walked band after band (row
 -1 of a band from the band above's bottom row, the diagonal into its top
 row at a chunk's first column from the carried H of the row above)
-scores a carry series exactly as the whole query does; and the rule that
-picks K3's form from a launch's shape.  Integer DP: every comparison is
+scores a carry series exactly as the whole query does; the rule that
+picks K3's form from a launch's lanes and matrix; and the flow form's
+host plan.  Integer DP: every comparison is
 exact."""
 
 import importlib.util
@@ -153,32 +154,55 @@ def test_planted_cut_needs_the_carried_diagonal(series, band):
     assert matters == {c for c, _, _ in where}
 
 
-@pytest.mark.parametrize("nq,nseqs,profiles,form", [
-    (16, 32, False, "rows"),        # wide-genome: the chromosome lane
+@pytest.mark.parametrize("nq,nseqs,wide,form", [
+    (16, 32, True, "rows"),         # wide-genome: the chromosome lane
     (16, 32, False, "rows"),        # the tblastn carry series
     (16, 32, False, "rows"),        # segment-proteome's titin
+    (16, 64, False, "rows"),        # a giant carry series of 64 lanes
     (4, 64, False, "rows"),         # chip_smoke's compact check series
     (132, 32, False, "rows"),       # a warp an SM
-    (16, 1024, False, "rows"),      # many giants
-    (16, 2048, False, "rows"),
-    (16, 2048, True, "lanes"),      # the flow chunk
-    (16, 1024, True, "lanes"),      # a flow drain
-    (1, 32, True, "lanes"),         # any launch with profiles
+    (16, 2048, True, "rows"),       # a wide launch of many lanes
+    (16, 2048, False, "flow"),      # the proteome's flow chunk
+    (16, 1024, False, "flow"),      # a flow drain
+    (1, 1024, False, "flow"),       # one slot's drain
 ])
-def test_carry_form(monkeypatch, nq, nseqs, profiles, form):
-    # the rule, and sw_scores_stream_carry's dispatch by it whatever the
-    # launch's shape
-    assert tsw.carry_form(profiles) == form
+def test_carry_form(monkeypatch, nq, nseqs, wide, form):
+    # the rule by the launch's lanes and matrix, and sw_scores_stream_carry's
+    # dispatch by it whatever the launch's queries; block profiles do
+    # not enter
+    assert tsw.carry_form(nseqs, wide) == form
+    assert tsw.carry_form(tsw.FLOW_LANES, False) == "flow"
+    assert tsw.carry_form(tsw.FLOW_LANES - 1, False) == "rows"
     took = []
-    for name in ("rows", "lanes"):
+    for name in ("rows", "flow"):
         monkeypatch.setattr(tsw, f"sw_scores_stream_carry_{name}",
                             lambda *a, name=name, **k: took.append(name))
     h = torch.zeros((nq, 16, nseqs), dtype=torch.int32)
-    tsw.sw_scores_stream_carry(
-        torch.zeros((nq, 16), dtype=torch.int32), None, None, None, None,
-        h, h, h[:, 0], gapopenextend=12, gapextend=1,
-        dprof=torch.zeros(1) if profiles else None)
-    assert took == [form]
+    m = torch.zeros((32, 32), dtype=torch.int32 if wide else torch.int8)
+    for dprof in (None, torch.zeros(1)):
+        tsw.sw_scores_stream_carry(
+            torch.zeros((nq, 16), dtype=torch.int32), None, m, None, None,
+            h, h, h[:, 0], gapopenextend=12, gapextend=1, dprof=dprof)
+    assert took == [form, form]
+
+
+@pytest.mark.parametrize("qlen_pad,band,split", [
+    (32, 128, False), (128, 128, False), (129, 256, False),
+    (256, 256, False), (512, 512, False), (1024, 512, True),
+    (1536, 512, True)])
+def test_flow_host_plan(qlen_pad, band, split):
+    # the flow form's launches (stream_plan, shared with K2): bands of
+    # 128, 256 and 512 rows (4, 8 and 16 a thread) by qlen_pad, two or
+    # more 512-row bands over 512 with the queries split so that the
+    # planes between bands, [2, step, L, nseqs] int32, stay within 1 GiB
+    for nq, L, nseqs in ((16, 1792, 2048), (16, 128, 1024),
+                         (16, 65536, 2048), (3, 8192, 2048)):
+        got_band, step = tsw.stream_plan(nq, qlen_pad, L, nseqs)
+        assert got_band == band and band // 32 in (4, 8, 16)
+        assert step == (max(1, min(nq, (1 << 30) // (8 * L * nseqs)))
+                        if split else nq)
+        if split:
+            assert step * 8 * L * nseqs <= 1 << 30 or step == 1
 
 
 def test_cpu_takes_the_plain_version_of_both_forms(series):
@@ -191,12 +215,12 @@ def test_cpu_takes_the_plain_version_of_both_forms(series):
     want = tsw.sw_scores_stream_carry_plain(
         qc, ql, m8, data, start, *tsw.make_stream_state(5, QLEN_PAD, width),
         **kw)
-    n = (tsw.sw_scores_stream_carry_lanes.launches,
+    n = (tsw.sw_scores_stream_carry_flow.launches,
          tsw.sw_scores_stream_carry_rows.launches)
-    for fn in (tsw.sw_scores_stream_carry, tsw.sw_scores_stream_carry_lanes,
+    for fn in (tsw.sw_scores_stream_carry, tsw.sw_scores_stream_carry_flow,
                tsw.sw_scores_stream_carry_rows):
         got = fn(qc, ql, m8, data, start,
                  *tsw.make_stream_state(5, QLEN_PAD, width), **kw)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert (tsw.sw_scores_stream_carry_lanes.launches,
+    assert (tsw.sw_scores_stream_carry_flow.launches,
             tsw.sw_scores_stream_carry_rows.launches) == n

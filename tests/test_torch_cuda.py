@@ -199,33 +199,43 @@ def _carry_series(dev, flow):
 # queries that end inside a strip, at a strip edge (496), at a band edge
 # (512, 1024), take several bands (1,100), and an empty slot
 LONG_CARRY_QUERIES = (300, 496, 512, 0, 1024, 1100)
+# (lengths, qlen_pad) of the other query sets: the flow form's bands of
+# 128 rows (4 a thread) and of 512 (16 a thread) in one band
+CARRY_QUERIES = {"long": (LONG_CARRY_QUERIES, 1536),
+                 "q128": ((128, 100, 31, 0), 128),
+                 "q512": ((512, 300, 129, 1), 512)}
 
 
 @pytest.mark.parametrize("flow,form,queries,wide,clamp", [
-    (True, "lanes", "short", False, None),
+    (True, "flow", "short", False, None),
     (False, "rows", "short", False, None),
-    (False, "lanes", "short", False, None),
+    (False, "flow", "short", False, None),
     (False, "rows", "long", False, None),
     (False, "rows", "long", False, 80),
     (False, "rows", "long", True, None),
-    (False, "lanes", "long", True, None)])
+    (False, "flow", "long", False, 80),
+    (True, "flow", "q128", False, 50),
+    (True, "flow", "q512", False, None)])
 def test_carry_kernel_matches_plain(dev, chunk, flow, form, queries, wide,
                                     clamp):
     # every chunk's dump and carried state, the head without carry-in,
-    # the tail without carry-out, with profiles on the flow series; the
-    # entry point picks the row form for the compact series' few pairs,
-    # and the lane form is also called directly there
+    # the tail without carry-out, no block profiles; the entry point
+    # picks the flow form for the flow series (2,048 lanes and drains of
+    # 1,024) and the row form for the compact series' few pairs, where
+    # the flow form is also called directly (256-row bands, and three of
+    # 512 rows with planes between them)
     m8 = chunk[0]
     scale = 100 if wide else 1
     if wide:
         m = ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix * scale
         m8 = torch.from_numpy(sw.build_matrix_wide(m)).to(dev)
     chunks, qc, ql = _carry_series(dev, flow)
-    if queries == "long":
+    if queries in CARRY_QUERIES:
+        lengths, qlen_pad = CARRY_QUERIES[queries]
         rng = np.random.default_rng(12)
         qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
             [rng.integers(1, 26, size=n, dtype=np.int8)
-             for n in LONG_CARRY_QUERIES], 1536))
+             for n in lengths], qlen_pad))
     assert len(chunks) > 3
     width = chunks[0].nseqs if flow else 64
     nq, qlen_pad = qc.shape
@@ -242,8 +252,7 @@ def test_carry_kernel_matches_plain(dev, chunk, flow, form, queries, wide,
         data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
                                              ch.end_block, ch.lane, dev)
         kw = dict(gapopenextend=12 * scale, gapextend=scale, clamp=clamp,
-                  carry_in=i > 0, carry_out=i < len(chunks) - 1,
-                  dprof=sw.build_dprofile_series(m8, data) if flow else None)
+                  carry_in=i > 0, carry_out=i < len(chunks) - 1)
         d1, *got = fn(qc, ql, m8, data, start, *got, **kw)
         d2, *want = sw.sw_scores_stream_carry_plain(qc, ql, m8, data, start,
                                                     *want, **kw)
@@ -251,6 +260,13 @@ def test_carry_kernel_matches_plain(dev, chunk, flow, form, queries, wide,
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert kernel.launches == n + len(chunks)
+    if flow:
+        # the card's K3 reads no block profiles: both forms raise
+        for form_fn in (sw.sw_scores_stream_carry_flow,
+                        sw.sw_scores_stream_carry_rows):
+            with pytest.raises(ValueError, match="block profiles"):
+                form_fn(qc, ql, m8, data, start, *got,
+                        dprof=sw.build_dprofile_series(m8, data), **kw)
 
 
 def test_wavefront_kernel_matches_plain(dev, chunk):
@@ -347,9 +363,9 @@ def test_engine_routes_on_card_match_cpu(dev, route):
         kw["attrs"] = {"SEGMENT_GIANTS": False}
     if route == "carry":
         kw["attrs"] = {"SEGMENT_GIANTS": False, "WAVEFRONT_MAX_GIANTS": 0}
-    # the flow series' launches take K3's lane form, the giants' carry
+    # the flow series' launches take K3's flow form, the giants' carry
     # series (few pairs) its row form
-    counted = {"flow": sw.sw_scores_stream_carry_lanes,
+    counted = {"flow": sw.sw_scores_stream_carry_flow,
                "carry": sw.sw_scores_stream_carry_rows}.get(
                    route, sw.sw_scores_stream)
     n = counted.launches
@@ -463,12 +479,20 @@ def _chip_smoke():
 
 
 # (query index in LONG_CARRY_QUERIES, row x): x is a band's first row plus
-# its strip height.  K3's row form lays its bands from the query's end
-# (512 rows int8, 256 int32), K6 from each tile's top.
+# its strip height.  K3's two forms lay their bands from the query's end
+# (the row form 512 rows int8, 256 int32; the flow form 512 at qlen_pad
+# 1,536, and 256 at qlen_pad 256: FLOW_SHORT_PLANTS), K6 from each
+# tile's top.
 CUT_PLANTS = {("rows", False): [(5, 604), (4, 16)],
               ("rows", True): [(5, 340), (4, 264)],
+              ("flow", False): [(5, 604), (4, 16), (2, 16)],
               (512, False): [(5, 528), (4, 16), (2, 16)],
               (256, False): [(5, 272), (4, 528), (1, 272)]}
+# the flow form's 256-row bands (8 rows a thread): queries of 256 and 250
+# rows at qlen_pad 256, planted at the second strip of the first (rows
+# 0-255) and the third of the second (from row -6)
+FLOW_SHORT_QUERIES = (256, 250, 100, 7, 0)
+FLOW_SHORT_PLANTS = [(0, 8), (1, 10)]
 
 
 @pytest.mark.parametrize("kernel,wide", list(CUT_PLANTS))
@@ -487,39 +511,50 @@ def test_carry_cut_into_a_band_matches_plain(dev, chunk, kernel, wide):
         m8 = torch.from_numpy(sw.build_matrix_wide(m)).to(dev)
     chunks, _, _ = _carry_series(dev, False)
     rng = np.random.default_rng(14)
-    qs, where = cs.plant_cuts(chunks, [
-        rng.integers(1, 26, size=n, dtype=np.int8)
-        for n in LONG_CARRY_QUERIES], CUT_PLANTS[kernel, wide])
-    qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 1536))
-    if kernel == "rows":
-        fn, plain = sw.sw_scores_stream_carry, sw.sw_scores_stream_carry_plain
-        counted, tiles = sw.sw_scores_stream_carry_rows, {}
-        got = sw.make_stream_state(len(qs), 1536, 64, dev)
-    else:
-        fn = sw.sw_scores_stream_carry_long
-        counted, tiles = sw.stream_tile_carry_pass, dict(tile_rows=kernel)
+    runs = [(LONG_CARRY_QUERIES, 1536, CUT_PLANTS[kernel, wide])]
+    if kernel == "flow":
+        runs.append((FLOW_SHORT_QUERIES, 256, FLOW_SHORT_PLANTS))
+    for lengths, qlen_pad, plants in runs:
+        qs, where = cs.plant_cuts(chunks, [
+            rng.integers(1, 26, size=n, dtype=np.int8) for n in lengths],
+            plants)
+        qc, ql = (torch.from_numpy(a).to(dev)
+                  for a in sw.build_qcodes(qs, qlen_pad))
+        if kernel in ("rows", "flow"):
+            # the compact series' 64 lanes take the row form at the entry
+            # point; the flow form is called directly
+            fn = sw.sw_scores_stream_carry if kernel == "rows" \
+                else sw.sw_scores_stream_carry_flow
+            plain, tiles = sw.sw_scores_stream_carry_plain, {}
+            counted = getattr(sw, f"sw_scores_stream_carry_{kernel}")
+            got = sw.make_stream_state(len(qs), qlen_pad, 64, dev)
+        else:
+            fn = sw.sw_scores_stream_carry_long
+            counted, tiles = sw.stream_tile_carry_pass, dict(tile_rows=kernel)
 
-        def plain(*a, **k):
-            return cs.plain_tiles(sw.sw_scores_stream_carry_long, *a, **k)
+            def plain(*a, **k):
+                return cs.plain_tiles(sw.sw_scores_stream_carry_long, *a,
+                                      **k)
 
-        got = sw.make_stream_state_long(len(qs), 1536, 64, kernel, dev)
-    want = tuple(x.clone() for x in got)
-    n, planted = counted.launches, 0
-    for i, ch in enumerate(chunks):
-        data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
-                                             ch.end_block, ch.lane, dev)
-        kw = dict(gapopenextend=12 * scale, gapextend=scale, carry_in=i > 0,
-                  carry_out=i < len(chunks) - 1, **tiles)
-        args = (qc, ql, m8, data, start)
-        if any(c == i for c, _, _ in where):
-            assert cs.cut_matters(plain, where, i, args, want, kw)
-            planted += 1
-        d1, *got = fn(*args, *got, **kw)
-        d2, *want = plain(*args, *want, **kw)
-        assert torch.equal(d1, d2), f"chunk {i}: dumps differ"
-        for g, w in zip(got, want):
-            assert torch.equal(g, w), f"chunk {i}: state differs"
-    assert planted >= 1 and counted.launches > n
+            got = sw.make_stream_state_long(len(qs), qlen_pad, 64, kernel,
+                                            dev)
+        want = tuple(x.clone() for x in got)
+        n, planted = counted.launches, 0
+        for i, ch in enumerate(chunks):
+            data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
+                                                 ch.end_block, ch.lane, dev)
+            kw = dict(gapopenextend=12 * scale, gapextend=scale,
+                      carry_in=i > 0, carry_out=i < len(chunks) - 1, **tiles)
+            args = (qc, ql, m8, data, start)
+            if any(c == i for c, _, _ in where):
+                assert cs.cut_matters(plain, where, i, args, want, kw)
+                planted += 1
+            d1, *got = fn(*args, *got, **kw)
+            d2, *want = plain(*args, *want, **kw)
+            assert torch.equal(d1, d2), f"chunk {i}: dumps differ"
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), f"chunk {i}: state differs"
+        assert planted >= 1 and counted.launches > n
 
 
 @pytest.mark.parametrize("tile_rows,clamp", [(256, None), (256, 50),

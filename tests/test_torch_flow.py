@@ -301,7 +301,7 @@ def test_carry_flags_and_shapes(m62):
     got, *gstate = tsw.sw_scores_stream_carry(qc, ql, t8, data, start, *keep,
                                               carry_out=False, **KW)
     assert all(torch.equal(a, b) for a, b in zip(gstate, junk))
-    assert tsw.sw_scores_stream_carry_lanes.launches == 0
+    assert tsw.sw_scores_stream_carry_flow.launches == 0
     assert tsw.sw_scores_stream_carry_rows.launches == 0
     with pytest.raises(ValueError):
         tsw.sw_scores_stream_carry(qc, ql, t8, data, start,

@@ -108,7 +108,7 @@ def test_giant_routes_match_jax(route, monkeypatch):
     params = dict(gapopen=11 + (gapextend == 0), gapextend=gapextend,
                   descriptions=40, alignments=4, expect=1e9)
     launches = {f: getattr(tsw, f).launches for f in
-                ("sw_scores_stream", "sw_scores_stream_carry_lanes",
+                ("sw_scores_stream", "sw_scores_stream_carry_flow",
                  "sw_scores_stream_carry_rows")}
     (jeng, teng), hits = run_both(fasta, "aa", [q], 1, 3, params,
                                   max_cols=2048, attrs=attrs)

@@ -26,9 +26,22 @@ def _fasta(parts):
     return "".join(f">{d}\n{s}\n" for d, s in parts)
 
 
-def test_flow_route_matches_jax():
+def test_flow_route_matches_jax(monkeypatch):
     # a heavy length tail: the flow series with cut chains and drains,
-    # one sequence spanning several chunks, hits planted in long ones
+    # one sequence spanning several chunks, hits planted in long ones;
+    # the route builds no block profiles, and every chunk takes K3's
+    # flow form (its 1,024 lanes)
+    def no_profiles(*a, **k):
+        raise AssertionError("the flow route built block profiles")
+
+    monkeypatch.setattr(tsw, "build_dprofile_series", no_profiles)
+    forms = (tsw.sw_scores_stream_carry_flow, tsw.sw_scores_stream_carry_rows)
+    took = []
+    for name, fn in zip(("flow", "rows"), forms):
+        def spy(*a, fn=fn, name=name, **k):
+            took.append(name)
+            return fn(*a, **k)
+        monkeypatch.setattr(tsw, f"sw_scores_stream_carry_{name}", spy)
     rng = np.random.default_rng(91)
     q = "".join(rng.choice(list(AA), 60))
     parts = [(f"s{i} rec {i}",
@@ -38,13 +51,13 @@ def test_flow_route_matches_jax():
     parts[17] = ("s17 long", q[5:50] + "".join(rng.choice(list(AA), 900)))
     params = dict(gapopen=11, gapextend=1, descriptions=150, alignments=3,
                   expect=1e9)
-    forms = (tsw.sw_scores_stream_carry_lanes, tsw.sw_scores_stream_carry_rows)
     n = [f.launches for f in forms]
     (jeng, teng), hits = run_both(_fasta(parts), "aa", [q], 1, 3, params,
                                   nseqs=1024,
                                   attrs={"FLOW_MIN_AVG_LANE": 0})
     assert teng._flow_cols(1024) is not None and teng.chunks is not None
     assert len(teng._flow_chunks(1024)) > 3
+    assert took == ["flow"] * len(teng._flow_chunks(1024))
     assert [f.launches for f in forms] == n   # the plain version
     got = {h[0]: h[1] for h in hits[0][0]}
     assert {5, 17} <= set(got)

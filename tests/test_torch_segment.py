@@ -150,13 +150,7 @@ def test_chip_smoke_segment_bound_terms():
     seg_ids' last entry repeats the last block's segment and is no block
     of its own, so a chunk whose last segment is the widest counts its
     width, not one block more."""
-    import importlib.util
-    import os
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_terms", os.path.join(os.path.dirname(__file__),
-                                         os.pardir, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = _chip_smoke_terms()
     m, go, ge = M62
     rng = np.random.default_rng(13)
     queries = _seqs(rng, 3, 10, 60)
@@ -175,6 +169,65 @@ def test_chip_smoke_segment_bound_terms():
     rows, cols = max(len(q) for q in queries), widths.max() * 32
     assert cs._chain("sw_scores_segmented", args, {}) == \
         (rows + cols - 1) * cs.CHAIN_OPS
+
+
+@pytest.mark.parametrize("carry_in,carry_out", [(True, True),
+                                               (False, False)])
+def test_chip_smoke_flow_bound_terms(carry_in, carry_out):
+    """chip_smoke.py's work and critical-path terms of a call of K3's flow
+    form: the cells of the query lengths against the real residues; the
+    bytes of the inputs, the dump and the carried state once for each
+    way it moves (no block profiles); rows + columns - 1 of the longest
+    query against the longest sequence between a lane's start bits."""
+    from swipe_tpu_torch.batching import pack_stream_flow
+    cs = _chip_smoke_terms()
+    rng = np.random.default_rng(17)
+    queries = _seqs(rng, 3, 10, 60)
+    seqs = _seqs(rng, 300, 5, 90) + _seqs(rng, 2, 200, 260)
+    ch = pack_stream_flow(seqs, nseqs=32, max_cols=128, drain_cols=32)[0]
+    data, start, _, _ = tsw.chunk_tensors(ch.data_t, ch.start, ch.end_block,
+                                          ch.lane, "cpu")
+    qc, ql = (_t(a) for a in tsw.build_qcodes(queries, 64))
+    m8 = _t(tsw.build_matrix8(M62[0].matrix))
+    state = tsw.make_stream_state(3, 64, 32)
+    args = (qc, ql, m8, data, start, *state)
+    kw = dict(gapopenextend=12, gapextend=1, carry_in=carry_in,
+              carry_out=carry_out)
+    out = tsw.sw_scores_stream_carry_flow(*args, **kw)
+    nbytes, alu, ops, _ = cs._work("sw_scores_stream_carry_flow", args, kw,
+                                   out)
+    real = int((ch.data_t != 31).sum())
+    cells = sum(len(q) for q in queries) * real
+    assert (alu, ops) == (cells * cs.CELL_OPS[0], cells * cs.CELL_OPS[1])
+    nblocks = ch.data_t.shape[1] // 16
+    inputs = 3 * 64 * 4 + 3 * 4 + 32 * 32 + ch.data_t.size + nblocks * 32
+    dump = 3 * nblocks * 32 * 4
+    state_bytes = (2 * 3 * 64 * 32 + 3 * 32) * 4
+    assert nbytes == inputs + dump + state_bytes * (carry_in + carry_out)
+    # the longest sequence between start bits, lane by lane
+    longest = 0
+    for lane in range(32):
+        run = 0
+        for b in range(ch.start.shape[0]):
+            if ch.start[b, lane]:
+                run = 0
+            run += int((ch.data_t[lane, b * 16:(b + 1) * 16] != 31).sum())
+            longest = max(longest, run)
+    rows = max(len(q) for q in queries)
+    assert cs._chain("sw_scores_stream_carry_flow", args, kw) == \
+        (rows + longest - 1) * cs.CHAIN_OPS
+
+
+def _chip_smoke_terms():
+    """chip_smoke.py as a module, for its bound terms."""
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_terms", os.path.join(os.path.dirname(__file__),
+                                         os.pardir, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
 
 
 def test_tiled_rejects_qlen_off_the_tile():

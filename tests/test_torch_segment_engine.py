@@ -97,7 +97,7 @@ def test_segment_backends_match_jax_lax(backend):
     fasta = _protein_db(rng, queries)
     counts = (ttiled.sw_scores_tiled.launches,
               tseg.sw_scores_segmented.launches,
-              tsw.sw_scores_stream_carry_lanes.launches,
+              tsw.sw_scores_stream_carry_flow.launches,
               tsw.sw_scores_stream_carry_rows.launches)
     calls = []
     real = tseg.sw_scores_segmented_plain
@@ -122,7 +122,7 @@ def test_segment_backends_match_jax_lax(backend):
     assert len(calls) == len(eng.chunks)
     # the plain versions launch nothing
     assert (ttiled.sw_scores_tiled.launches, tseg.sw_scores_segmented.launches,
-            tsw.sw_scores_stream_carry_lanes.launches,
+            tsw.sw_scores_stream_carry_flow.launches,
             tsw.sw_scores_stream_carry_rows.launches) == counts
     top = hits[0][0]
     seqs = [np.asarray(eng.db.get_sequence(i, 1)[0]) for i in range(122)]
