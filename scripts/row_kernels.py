@@ -44,9 +44,10 @@ Inputs come from fixed seeds, built as the engine builds them:
   one-shot    its largest drain, the series' one-shot end at 1,024
               lanes (7,168 columns), and
   drain       one of its titin chain's drains, 1,024 lanes x 128
-              columns;
-  through the entry point (the flow form; with FLOW_CHAIN off too, the
-  dump by every thread's atomicMax), or in a tree with the lane form,
+              columns,
+  and over the whole series in order (the state permuted between
+  chunks), launch by launch, summed by those kinds;
+  through the entry point (the flow form), or in a tree with the lane form,
   the lane form with the block profiles built beforehand (its launch
   alone, as the flow route timed it) and the profile build alone;
 * where K3's forms cross: 16 queries of 200 and of 500 residues
@@ -290,11 +291,11 @@ def segment_shapes(batching, dev):
     return out
 
 
-def flow_shapes(sw, batching, dev):
-    """(name, qcodes, qlens, matrix, db, start) of K3 at the proteome's
-    largest flow chunk, its one-shot drain and one of its 1,024 x 128
-    drains, packed as the engine packs them (SearchEngine._flow_cols,
-    _flow_chunks)."""
+def flow_series(sw, batching, dev):
+    """(chunks, qcodes, qlens, matrix) of the proteome's flow series:
+    20,000 proteome-sized records and a titin-length one packed as the
+    engine packs them (SearchEngine._flow_cols, _flow_chunks), 16 queries
+    of 200 aa at qlen_pad 256."""
     import torch
     from swipe_tpu_torch.matrices import ScoreMatrix
     rng = np.random.default_rng(11)
@@ -303,6 +304,17 @@ def flow_shapes(sw, batching, dev):
     cols = min(max((int(avg_lane) // 2 + 64) // 128 * 128, 256), 8192)
     chunks = batching.pack_stream_flow(recs, nseqs=2048, max_cols=cols,
                                        drain_cols=128)
+    m8 = torch.from_numpy(sw.build_matrix8(
+        ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix)).to(dev)
+    qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
+        seqs_of(rng, [200] * 16, 20), 256))
+    return chunks, qc, ql, m8
+
+
+def flow_shapes(sw, chunks, qc, ql, m8, dev):
+    """(name, qcodes, qlens, matrix, db, start) of K3 at the proteome's
+    largest flow chunk, its one-shot drain and one of its 1,024 x 128
+    drains."""
     def fullest(cs):
         return max(cs, key=lambda c: (c.data_t.size,
                                       int((c.data_t != 31).sum())))
@@ -314,10 +326,6 @@ def flow_shapes(sw, batching, dev):
     oneshot = fullest([c for c in chunks if c.nseqs == 1024])
     drain = next(c for c in chunks if c.nseqs == 1024
                  and c.data_t.shape[1] == 128)
-    m8 = torch.from_numpy(sw.build_matrix8(
-        ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix)).to(dev)
-    qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
-        seqs_of(rng, [200] * 16, 20), 256))
     out = []
     for name, ch in (("flow-chunk", full), ("one-shot", oneshot),
                      ("drain", drain)):
@@ -345,11 +353,6 @@ def time_flow(sw, qc, ql, m8, data, start):
             qc, ql, m8, data, start, *sw.make_stream_state(
                 16, qc.shape[1], nseqs, data.device), **kw))
         ms["flow"] = timed(lambda: call(sw.sw_scores_stream_carry))
-        chain, sw.FLOW_CHAIN = sw.FLOW_CHAIN, False
-        try:
-            ms["flow_atomic"] = timed(lambda: call(sw.sw_scores_stream_carry))
-        finally:
-            sw.FLOW_CHAIN = chain
     else:
         dp = sw.build_dprofile_series(m8, data)
         dig = digest(sw.sw_scores_stream_carry_lanes(
@@ -359,6 +362,50 @@ def time_flow(sw, qc, ql, m8, data, start):
                                          dprof=dp))
         ms["dprofile"] = timed(lambda: sw.build_dprofile_series(m8, data))
     return ms, dig
+
+
+def time_series(sw, chunks, qc, ql, m8, dev):
+    """K3 over the whole flow series in order, as the engine scores it
+    (the state permuted between chunks, no carry-in at the head, no
+    carry-out at the tail): {kind: [launches, summed ms]} by chunk shape
+    (CUDA events around each call, the chunk already on the card), in a
+    tree with the lane form the profile builds apart, and the digest of
+    every dump."""
+    import torch
+    kw = dict(gapopenextend=12, gapextend=1)
+    lanes = not hasattr(sw, "sw_scores_stream_carry_flow")
+    sums, dumps, state = {}, [], None
+
+    def timed_call(key, fn):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        s = sums.setdefault(key, [0, 0.0])
+        s[0] += 1
+        s[1] += a.elapsed_time(b)
+        return out
+
+    for i, ch in enumerate(chunks):
+        data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
+                                             ch.end_block, ch.lane, dev)
+        if i == 0:
+            state = sw.make_stream_state(16, qc.shape[1], data.shape[1], dev)
+        else:
+            state = sw.permute_stream_state(
+                *state, torch.from_numpy(ch.carry_src).to(dev))
+        kind = "full" if ch.nseqs == 2048 else \
+            "drain" if data.shape[0] == 128 else "one-shot"
+        ckw = dict(kw, carry_in=i > 0, carry_out=i < len(chunks) - 1)
+        if lanes:
+            dp = timed_call("dprofile",
+                            lambda: sw.build_dprofile_series(m8, data))
+            ckw["dprof"] = dp
+        out, *state = timed_call(kind, lambda: sw.sw_scores_stream_carry(
+            qc, ql, m8, data, start, *state, **ckw))
+        dumps.append(out)
+    return sums, digest(dumps)
 
 
 def crossover(sw, dev):
@@ -495,10 +542,15 @@ def main() -> int:
         emit(kernel=kernel, shape=name, ms=ms, digest=dig,
              dims=[*qpt.shape[:2], *data.shape], dtype=str(qpt.dtype))
 
-    for name, *a in flow_shapes(sw, batching, dev) if "K3f" in only else ():
-        ms, dig = time_flow(sw, *a)
-        emit(kernel="K3", shape=name, digest=dig,
-             dims=[*a[0].shape, *a[3].shape], **ms)
+    if "K3f" in only:
+        series = flow_series(sw, batching, dev)
+        for name, *a in flow_shapes(sw, *series, dev):
+            ms, dig = time_flow(sw, *a)
+            emit(kernel="K3", shape=name, digest=dig,
+                 dims=[*a[0].shape, *a[3].shape], **ms)
+        sums, dig = time_series(sw, *series, dev)
+        emit(kernel="K3", shape="proteome-series", digest=dig,
+             chunks=len(series[0]), **sums)
 
     for pairs, qlen, ms, dig in crossover(sw, dev) if "forms" in only \
             else ():

@@ -112,7 +112,7 @@ struct Band {
 // RS: rows a thread.  CHAIN: instead of every thread's atomicMax into the
 // dump, each thread hands the column's max over the strips above and its
 // own down the pipeline with H and F, and thread 31 alone stores it (the
-// band without a top plane) or max-merges it (K2).
+// band without a top plane) or max-merges it (K2, K3's flow form).
 template <typename M, bool CLAMP, bool PARTIAL, bool CARRY, int WARPS,
           int RS = Rows<M>::RS, bool CHAIN = false>
 __device__ int walk_band(const Band<M>& b, M* prof, uint8_t* ring,
@@ -462,8 +462,10 @@ stream_rows_kernel(const int32_t* __restrict__ qcodes,
 // state at column 0 and written back at the last column, and thread 0 of
 // the first band starts from the carried S.  bh/bf: the planes between
 // bands, [nq, L, nseqs] (null when no query has more than one band).  The
-// dump is zeroed by the caller (a pair without rows max-merges into it).
-template <int RS, bool CLAMP, bool CHAIN>
+// dump is handed down the pipeline as K2's (timed 4-8% faster than every
+// thread's atomicMax at the proteome's flow shapes, PERF.md) and zeroed
+// by the caller (a pair without rows max-merges into it).
+template <int RS, bool CLAMP>
 __global__ void __launch_bounds__(32 * TILE_WARPS)
 flow_rows_kernel(const int32_t* __restrict__ qcodes,
                  const int32_t* __restrict__ qlens,
@@ -509,7 +511,7 @@ flow_rows_kernel(const int32_t* __restrict__ qcodes,
     if (live) {
       int below;
       sfin = max(sfin,
-                 walk_band<int8_t, CLAMP, false, true, TILE_WARPS, RS, CHAIN>(
+                 walk_band<int8_t, CLAMP, false, true, TILE_WARPS, RS, true>(
                      b, prof, ring, tring, cap, diag0, s, below));
       diag0 = __shfl_sync(FULL, below, 31);
     }
@@ -523,7 +525,7 @@ flow_rows_kernel(const int32_t* __restrict__ qcodes,
   }
 }
 
-template <int RS, bool CLAMP, bool CHAIN>
+template <int RS, bool CLAMP>
 int launch_flow(dim3 grid, cudaStream_t st, const int32_t* qcodes,
                 const int32_t* qlens, const int8_t* m8, const int8_t* db,
                 const int8_t* start, int32_t* out, int32_t* hst,
@@ -531,7 +533,7 @@ int launch_flow(dim3 grid, cudaStream_t st, const int32_t* qcodes,
                 int carry_in, int qlen_pad, int nblocks, int nseqs, int Q,
                 int R, int clamp) {
   const size_t smem = smem_bytes<int8_t, RS>(TILE_WARPS);
-  const auto kernel = flow_rows_kernel<RS, CLAMP, CHAIN>;
+  const auto kernel = flow_rows_kernel<RS, CLAMP>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, 32 * TILE_WARPS, smem, st>>>(
@@ -714,33 +716,27 @@ extern "C" int swipe_stream_rows(const int32_t* qcodes, const int32_t* qlens,
 // [nq, qlen_pad, nseqs] and s_io [nq, nseqs] the carried state, updated in
 // place (with carry_in 0 not read); rs the rows a thread (4, 8 or 16:
 // bands of 128, 256 or 512 rows); bh/bf [nq, L, nseqs] a scratch for the
-// planes between bands (null when qlen_pad fits one band); chain: the
-// dump handed down the pipeline, else every thread's atomicMax.  The
-// int8 matrix only.  Needs Q >= R.
+// planes between bands (null when qlen_pad fits one band).  The int8
+// matrix only.  Needs Q >= R.
 extern "C" int swipe_carry_flow(
     const int32_t* qcodes, const int32_t* qlens, const int8_t* m8,
     const int8_t* db, const int8_t* start, int32_t* out, int32_t* hst,
     int32_t* est, int32_t* s_io, int32_t* bh, int32_t* bf, int carry_in,
     int nq, int qlen_pad, int nblocks, int nseqs, int Q, int R, int rs,
-    int use_clamp, int clamp, int chain, void* stream) {
+    int use_clamp, int clamp, void* stream) {
   if (Q < R || (rs != 4 && rs != 8 && rs != 16))
     return (int)cudaErrorInvalidValue;
   if (qlen_pad > 32 * rs && bh == nullptr) return (int)cudaErrorInvalidValue;
   if (nq <= 0 || nseqs <= 0 || nblocks <= 0) return (int)cudaGetLastError();
   const dim3 grid((nseqs + TILE_WARPS - 1) / TILE_WARPS, nq);
   const cudaStream_t st = (cudaStream_t)stream;
-#define FLOW_LAUNCH(RS, CLAMP, CHAIN)                                       \
-  launch_flow<RS, CLAMP, CHAIN>(grid, st, qcodes, qlens, m8, db, start, out, \
-                                hst, est, s_io, bh, bf, carry_in, qlen_pad,  \
-                                nblocks, nseqs, Q, R, clamp)
+#define FLOW_LAUNCH(RS, CLAMP)                                              \
+  launch_flow<RS, CLAMP>(grid, st, qcodes, qlens, m8, db, start, out, hst,  \
+                         est, s_io, bh, bf, carry_in, qlen_pad, nblocks,    \
+                         nseqs, Q, R, clamp)
 #define FLOW_RS(RS)                                                         \
-  if (rs == RS) {                                                           \
-    if (chain)                                                              \
-      return use_clamp ? FLOW_LAUNCH(RS, true, true)                        \
-                       : FLOW_LAUNCH(RS, false, true);                      \
-    return use_clamp ? FLOW_LAUNCH(RS, true, false)                         \
-                     : FLOW_LAUNCH(RS, false, false);                       \
-  }
+  if (rs == RS)                                                             \
+    return use_clamp ? FLOW_LAUNCH(RS, true) : FLOW_LAUNCH(RS, false);
   FLOW_RS(4)
   FLOW_RS(8)
   FLOW_RS(16)

@@ -155,7 +155,7 @@ _SIGNATURES = {
     "swipe_stream_tile": ("carry_rows", [_P] * 8 + [_I] * 10 + [_P]),
     "swipe_stream_tile_carry": ("carry_rows", [_P] * 12 + [_I] * 10 + [_P]),
     "swipe_carry_rows": ("carry_rows", [_P] * 11 + [_I] * 10 + [_P]),
-    "swipe_carry_flow": ("carry_rows", [_P] * 11 + [_I] * 11 + [_P]),
+    "swipe_carry_flow": ("carry_rows", [_P] * 11 + [_I] * 10 + [_P]),
     "swipe_wavefront": ("wavefront", [_P] * 7 + [_I] * 5 + [_P]),
     "swipe_segment": ("segment", [_P] * 2 + [_I] + [_P] * 5 + [_I] * 8
                       + [_P]),
@@ -685,7 +685,6 @@ def sw_scores_stream_carry_rows(qcodes, qlens, matrix8, db, start, h, e, s,
     return out, h, e, s
 
 
-
 def sw_scores_stream_carry_flow(qcodes, qlens, matrix8, db, start, h, e, s,
                                 *, gapopenextend: int, gapextend: int,
                                 clamp: int | None = None, dprof=None,
@@ -726,13 +725,8 @@ def sw_scores_stream_carry_flow(qcodes, qlens, matrix8, db, start, h, e, s,
                 _ptr(sio[q0:q1]), _ptr(None if bh is None else bh[0]),
                 _ptr(None if bh is None else bh[1]), int(carry_in), q1 - q0,
                 qlen_pad, L // KSEG, nseqs, int(gapopenextend),
-                int(gapextend), band // 32, *_clampv(clamp), int(FLOW_CHAIN))
+                int(gapextend), band // 32, *_clampv(clamp))
     return out, h, e, s
-
-
-# the flow form's dump: handed down the pipeline (thread 31 stores it),
-# else every thread's atomicMax (timed against each other on the card)
-FLOW_CHAIN = True
 
 
 # ---- K5, K6: query-tile passes (queries over one tile) -------------------

@@ -256,10 +256,9 @@ class SearchEngine:
             (nseqs, max_cols or 16384)
         if max_cols is None:
             # stream: 2048 lanes x 8192 columns = 16 MB per chunk (the JAX
-            # engine's);
-            # units up to 65536 columns stay in the plain pack as
-            # oversized chunks.  The
-            # segment backends' giants are units over a chunk's height
+            # engine's); units up to 65536 columns stay in the plain pack
+            # as oversized chunks.  The segment backends' giants are units
+            # over a chunk's height
             max_cols = 8192 if stream else 16384
             self._giant_cols = 65536 if stream else max_cols
         else:
@@ -631,9 +630,9 @@ class SearchEngine:
     def _flow_scores(self, nseqs, qc, ql, m8, qlen_pad):
         """Score a flow series in order (K3, which looks scores up in the
         matrix: no block profiles), the carried state permuted between
-        chunks: yields (dump, end_block, lane, unit
-        ids) for the chunks where units end.  The series' head starts
-        fresh and its tail hands no state on."""
+        chunks: yields (dump, end_block, lane, unit ids) for the chunks
+        where units end.  The series' head starts fresh and its tail
+        hands no state on."""
         from .ops.sw_stream import (make_stream_state, permute_stream_state,
                                     sw_scores_stream_carry)
         p = self.params
