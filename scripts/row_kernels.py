@@ -367,29 +367,28 @@ def time_flow(sw, qc, ql, m8, data, start):
 def time_series(sw, chunks, qc, ql, m8, dev):
     """K3 over the whole flow series in order, as the engine scores it
     (the state permuted between chunks, no carry-in at the head, no
-    carry-out at the tail): {kind: [launches, summed ms]} by chunk shape
-    (CUDA events around each call, the chunk already on the card), in a
+    carry-out at the tail, every chunk on the card beforehand):
+    {kind: [launches, summed ms]} by chunk shape (CUDA events around each
+    call, read after the last, as chip_smoke.py sums a search's), in a
     tree with the lane form the profile builds apart, and the digest of
     every dump."""
     import torch
     kw = dict(gapopenextend=12, gapextend=1)
     lanes = not hasattr(sw, "sw_scores_stream_carry_flow")
-    sums, dumps, state = {}, [], None
+    events, dumps, state = [], [], None
 
     def timed_call(key, fn):
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         out = fn()
         b.record()
-        torch.cuda.synchronize()
-        s = sums.setdefault(key, [0, 0.0])
-        s[0] += 1
-        s[1] += a.elapsed_time(b)
+        events.append((key, a, b))
         return out
 
-    for i, ch in enumerate(chunks):
-        data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
-                                             ch.end_block, ch.lane, dev)
+    tensors = [sw.chunk_tensors(ch.data_t, ch.start, ch.end_block, ch.lane,
+                                dev)[:2] for ch in chunks]
+    torch.cuda.synchronize()
+    for i, (ch, (data, start)) in enumerate(zip(chunks, tensors)):
         if i == 0:
             state = sw.make_stream_state(16, qc.shape[1], data.shape[1], dev)
         else:
@@ -405,6 +404,12 @@ def time_series(sw, chunks, qc, ql, m8, dev):
         out, *state = timed_call(kind, lambda: sw.sw_scores_stream_carry(
             qc, ql, m8, data, start, *state, **ckw))
         dumps.append(out)
+    torch.cuda.synchronize()
+    sums = {}
+    for key, a, b in events:
+        s = sums.setdefault(key, [0, 0.0])
+        s[0] += 1
+        s[1] += a.elapsed_time(b)
     return sums, digest(dumps)
 
 
