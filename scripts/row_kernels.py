@@ -37,19 +37,17 @@ Inputs come from fixed seeds, built as the engine builds them:
   long-segment      600-1,024 aa (K8, qlen_pad 1024: two bands),
                     segment-search's chunk;
 * K3 on the flow series, one launch of 16 queries of 200 aa (qlen_pad
-  256) from a fresh state at
+  256), the carried state read and written, at
   flow-chunk  the proteome's largest flow chunk, 2,048 lanes x 1,792
               columns (pack_stream_flow of 20,000 proteome-sized records
               and a titin-length one at the engine's chunk height),
   one-shot    its largest drain, the series' one-shot end at 1,024
               lanes (7,168 columns), and
   drain       one of its titin chain's drains, 1,024 lanes x 128
-              columns,
-  and over the whole series in order (the state permuted between
-  chunks), launch by launch, summed by those kinds;
-  through the entry point (the flow form), or in a tree with the lane form,
-  the lane form with the block profiles built beforehand (its launch
-  alone, as the flow route timed it) and the profile build alone;
+              columns;
+  through the entry point (the flow form), or in a tree with the lane
+  form, the lane form with the block profiles built beforehand (its
+  launch alone) and the profile build alone;
 * where K3's forms cross: 16 queries of 200 and of 500 residues
   (BLOSUM62, gaps 11/1) against one chunk of 2,048 columns whose 32 to
   2,048 lanes all hold random records (a start bit every 19 blocks on
@@ -59,13 +57,14 @@ Inputs come from fixed seeds, built as the engine builds them:
   dumps and states held equal.
 
 ``--only`` runs some of the groups: K5, K4, K6, K3r, K3f (the flow
-series' shapes), K8, K9, forms (the crossover) and sass.  ``--root`` imports the package from another
-checkout, for instance a parent commit's unpacked into a directory that
-.gitignore lists, to time its kernels on the same inputs (the wrappers'
-contracts are the same).  Each result is one JSON line with the card and
-its power limit: ms a launch (CUDA events over 5 launches after a
-warm-up, 3 for the crossover) and a digest of the outputs of one fresh
-launch, equal across trees when their results are.  Last, for each
+series' shapes), K8, K9, forms (the crossover) and sass.  ``--root``
+imports the package from another checkout, for instance a parent
+commit's unpacked into a directory that .gitignore lists, to time its
+kernels on the same inputs (the wrappers' contracts are the same).
+Each result is one JSON line with the card and its power limit: ms a
+launch (CUDA events over 5 launches after a warm-up, 3 for the
+crossover) and a digest of the outputs of one fresh launch, equal
+across trees when their results are.  Last, for each
 kernel function of the tree's built carry_rows, hint and segment
 libraries (cuobjdump), its registers, SASS instructions and the count of
 each opcode class that the walker's cost turns on.
@@ -291,11 +290,12 @@ def segment_shapes(batching, dev):
     return out
 
 
-def flow_series(sw, batching, dev):
-    """(chunks, qcodes, qlens, matrix) of the proteome's flow series:
-    20,000 proteome-sized records and a titin-length one packed as the
-    engine packs them (SearchEngine._flow_cols, _flow_chunks), 16 queries
-    of 200 aa at qlen_pad 256."""
+def flow_shapes(sw, batching, dev):
+    """(name, qcodes, qlens, matrix, db, start) of K3 at the proteome's
+    largest flow chunk, its one-shot drain and one of its 1,024 x 128
+    drains: 20,000 proteome-sized records and a titin-length one packed
+    as the engine packs them (SearchEngine._flow_cols, _flow_chunks), 16
+    queries of 200 aa at qlen_pad 256."""
     import torch
     from swipe_tpu_torch.matrices import ScoreMatrix
     rng = np.random.default_rng(11)
@@ -308,13 +308,7 @@ def flow_series(sw, batching, dev):
         ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix)).to(dev)
     qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(
         seqs_of(rng, [200] * 16, 20), 256))
-    return chunks, qc, ql, m8
 
-
-def flow_shapes(sw, chunks, qc, ql, m8, dev):
-    """(name, qcodes, qlens, matrix, db, start) of K3 at the proteome's
-    largest flow chunk, its one-shot drain and one of its 1,024 x 128
-    drains."""
     def fullest(cs):
         return max(cs, key=lambda c: (c.data_t.size,
                                       int((c.data_t != 31).sum())))
@@ -362,55 +356,6 @@ def time_flow(sw, qc, ql, m8, data, start):
                                          dprof=dp))
         ms["dprofile"] = timed(lambda: sw.build_dprofile_series(m8, data))
     return ms, dig
-
-
-def time_series(sw, chunks, qc, ql, m8, dev):
-    """K3 over the whole flow series in order, as the engine scores it
-    (the state permuted between chunks, no carry-in at the head, no
-    carry-out at the tail, every chunk on the card beforehand):
-    {kind: [launches, summed ms]} by chunk shape (CUDA events around each
-    call, read after the last, as chip_smoke.py sums a search's), in a
-    tree with the lane form the profile builds apart, and the digest of
-    every dump."""
-    import torch
-    kw = dict(gapopenextend=12, gapextend=1)
-    lanes = not hasattr(sw, "sw_scores_stream_carry_flow")
-    events, dumps, state = [], [], None
-
-    def timed_call(key, fn):
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        out = fn()
-        b.record()
-        events.append((key, a, b))
-        return out
-
-    tensors = [sw.chunk_tensors(ch.data_t, ch.start, ch.end_block, ch.lane,
-                                dev)[:2] for ch in chunks]
-    torch.cuda.synchronize()
-    for i, (ch, (data, start)) in enumerate(zip(chunks, tensors)):
-        if i == 0:
-            state = sw.make_stream_state(16, qc.shape[1], data.shape[1], dev)
-        else:
-            state = sw.permute_stream_state(
-                *state, torch.from_numpy(ch.carry_src).to(dev))
-        kind = "full" if ch.nseqs == 2048 else \
-            "drain" if data.shape[0] == 128 else "one-shot"
-        ckw = dict(kw, carry_in=i > 0, carry_out=i < len(chunks) - 1)
-        if lanes:
-            dp = timed_call("dprofile",
-                            lambda: sw.build_dprofile_series(m8, data))
-            ckw["dprof"] = dp
-        out, *state = timed_call(kind, lambda: sw.sw_scores_stream_carry(
-            qc, ql, m8, data, start, *state, **ckw))
-        dumps.append(out)
-    torch.cuda.synchronize()
-    sums = {}
-    for key, a, b in events:
-        s = sums.setdefault(key, [0, 0.0])
-        s[0] += 1
-        s[1] += a.elapsed_time(b)
-    return sums, digest(dumps)
 
 
 def crossover(sw, dev):
@@ -547,15 +492,10 @@ def main() -> int:
         emit(kernel=kernel, shape=name, ms=ms, digest=dig,
              dims=[*qpt.shape[:2], *data.shape], dtype=str(qpt.dtype))
 
-    if "K3f" in only:
-        series = flow_series(sw, batching, dev)
-        for name, *a in flow_shapes(sw, *series, dev):
-            ms, dig = time_flow(sw, *a)
-            emit(kernel="K3", shape=name, digest=dig,
-                 dims=[*a[0].shape, *a[3].shape], **ms)
-        sums, dig = time_series(sw, *series, dev)
-        emit(kernel="K3", shape="proteome-series", digest=dig,
-             chunks=len(series[0]), **sums)
+    for name, *a in flow_shapes(sw, batching, dev) if "K3f" in only else ():
+        ms, dig = time_flow(sw, *a)
+        emit(kernel="K3", shape=name, digest=dig,
+             dims=[*a[0].shape, *a[3].shape], **ms)
 
     for pairs, qlen, ms, dig in crossover(sw, dev) if "forms" in only \
             else ():

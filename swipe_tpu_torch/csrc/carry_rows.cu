@@ -464,9 +464,13 @@ stream_rows_kernel(const int32_t* __restrict__ qcodes,
 // bands, [nq, L, nseqs] (null when no query has more than one band).  The
 // dump is handed down the pipeline as K2's (timed 4-8% faster than every
 // thread's atomicMax at the proteome's flow shapes, PERF.md) and zeroed
-// by the caller (a pair without rows max-merges into it).
+// by the caller (a pair without rows max-merges into it).  At least 3
+// blocks an SM: left free, ptxas gave the 256-row band 128 registers (2
+// blocks an SM, K2 takes 64); capped at 85 it takes 69-80 without spills
+// and the flow chunk and its drains ran 9-12% faster (4 blocks, 64
+// registers, spilled at 512-row bands; PERF.md).
 template <int RS, bool CLAMP>
-__global__ void __launch_bounds__(32 * TILE_WARPS)
+__global__ void __launch_bounds__(32 * TILE_WARPS, 3)
 flow_rows_kernel(const int32_t* __restrict__ qcodes,
                  const int32_t* __restrict__ qlens,
                  const int8_t* __restrict__ m8, const int8_t* __restrict__ db,
