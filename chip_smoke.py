@@ -131,7 +131,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
               DP's critical path (rows + columns - 1 cells of the longest
               sequence, 3 dependent instructions each at the latency phase
               3 measured);
-9. cli      — ``python -m swipe_tpu_torch -m 8`` on a small FASTA database.
+9. cli      — ``python -m swipe_tpu_torch -m 8`` on a small FASTA database
+              (3,000 records);
+10. several devices and processes — distributed (right after the
+              search phase): parallel/distributed.py's sharded_stream_topk
+              (K2) and sharded_topk_scores (K9) on a mesh of two cells of
+              the one card over a chunk of the Swiss-Prot model, merged
+              top-K and cells equal to one device's over the whole chunk;
+              multihost and multihost-wide: MultiHostEngine in this
+              process over two cells of the card on the CLI database, 8
+              queries, BLOSUM62 (K2, K4) and BLOSUM62 x 100 from a matrix
+              file (K3's row form from a fresh state), hit lists equal to
+              SearchEngine's; multihost-2proc: ``--mh-procs 2`` in two
+              processes on the one card (blastp -m 0 and -m 8 on the CLI
+              database, blastn on a small nt database with a 70,000-nt
+              record, a giant on its owner's route), rank 0's report
+              equal to the single process's but for times and speeds,
+              each rank's wave-2 line printed; dump: ``-N 1`` on the CLI
+              database gives every record back.
 
 Every search phase sets the launch counts to 0 before it runs and reads
 them after; each kernel its route runs must have launched.  Each search
@@ -1919,6 +1936,8 @@ def time_by_search(calls):
 # ---- phase 9: the CLI ------------------------------------------------------
 
 def cli(workdir):
+    """``python -m swipe_tpu_torch -m 8`` on a database of 3,000 records;
+    returns the database's and the queries' paths and the records."""
     rng = np.random.default_rng(3)
     recs = [swissprot_letters(int(n), rng)
             for n in rng.integers(30, 600, size=3000)]
@@ -1938,6 +1957,241 @@ def cli(workdir):
         raise RuntimeError("CLI: the planted hit q1 -> d11 is missing")
     log(f"cli: python -m swipe_tpu_torch -m 8: exit 0, {len(lines)} hit "
         "lines")
+    return db, qf, recs
+
+
+# ---- phase 10: several devices and several processes -----------------------
+
+# the distributed phase: Swiss-Prot records in one chunk of each pack, and
+# each device's top-k
+DIST_SEQS, DIST_K = 20_000, 256
+# lines of a report that differ between two runs: times and speeds
+VOLATILE = ("Search started", "Search completed", "Elapsed", "Speed")
+
+
+def distributed(dev, db, queries, card):
+    """parallel/distributed.py on a mesh of two cells of the one card (two
+    lane shards) over a chunk of the Swiss-Prot model, the search phase's
+    16 queries: the merged top-K and the cells of sharded_stream_topk
+    (K2) and sharded_topk_scores (K9) must equal one device's over the
+    whole chunk.  Returns (launches, stats)."""
+    from swipe_tpu_torch.parallel import distributed as dm
+    seqs = [db.get_sequence(i, 1)[0] for i in range(DIST_SEQS)]
+    qs = [q.aa[0] for q in queries]
+    m = ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix
+    sch = pack_stream(seqs, nseqs=2048, max_cols=8192)[0]
+    pch = pack_database(seqs, nseqs=512, max_cols=16384)[0]
+    qc, ql = sw.build_qcodes(qs, 256)
+    qpt = seg.build_qpt(qs, m, 256)
+    kw = dict(gapopenextend=12, gapextend=1, k=DIST_K)
+
+    def run(n_db):
+        mesh = dm.make_mesh(n_db, 1, [dev] * n_db)
+        st = dm.sharded_stream_topk(
+            mesh, qc, ql, sw.build_matrix8(m), sch.data, sch.start,
+            *dm.shard_stream_chunk(sch, n_db), **kw)
+        sg = dm.sharded_topk_scores(
+            mesh, qpt, pch.data, pch.seg_ids, pch.seqnos.astype(np.int32),
+            nsegs=pch.seqnos.shape[0], **kw)
+        return [(dm.merge_topk(sc, un, DIST_K), cells)
+                for sc, un, cells in (st, sg)]
+
+    got, wall, launches, _ = run_path(
+        "distributed", dev, lambda: run(2),
+        ("sw_scores_stream", "sw_scores_segmented"), {})
+    want = run(1)
+    units = (len(sch.seqnos), int((pch.seqnos >= 0).sum()))
+    for name, n, ((s, u, _), c), ((ws, wu, _), wc) in zip(
+            ("sharded_stream_topk", "sharded_topk_scores"), units, got,
+            want):
+        # ties at the k-th score may keep other members on two shards
+        above = s > s[:, -1:]
+        if c != wc or c != n * len(qs) or not np.array_equal(s, ws) or any(
+                set(u[i][above[i]]) != set(wu[i][above[i]])
+                for i in range(len(qs))):
+            raise RuntimeError(f"distributed: {name} on two lane shards "
+                               "differs from one device's")
+    log(f"distributed: sharded_stream_topk and sharded_topk_scores on a "
+        f"2 x 1 mesh of {dev} over {DIST_SEQS} Swiss-Prot records "
+        f"({sch.n_cols} x {sch.nseqs} and {pch.data.shape[0]} x "
+        f"{pch.nseqs} chunks), {len(qs)} queries, top {DIST_K} a shard: "
+        f"merged top-K and cells equal one device's; {wall:.3f} s [{card}]")
+    return launches, {"wall_s": wall}
+
+
+def cli_in_process(argv) -> str:
+    """The port's CLI in this process; its standard output."""
+    from contextlib import redirect_stdout
+
+    from swipe_tpu_torch.cli import main as cli_main
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        if cli_main(argv) != 0:
+            raise RuntimeError(f"CLI {argv} exited non-zero")
+    return buf.getvalue()
+
+
+def masked(text: str) -> list[str]:
+    return [ln for ln in text.splitlines() if not ln.startswith(VOLATILE)]
+
+
+def multihost(dev, dbpath, recs, workdir, card):
+    """MultiHostEngine in this process (a world of one) over two cells of
+    the one card, on the CLI phase's database: 8 queries (mutated windows
+    of its records) with BLOSUM62 (the lane pack on K2, hints on K4), then
+    with BLOSUM62 scaled by 100 from a matrix file (scores outside int8:
+    the lane pack on K3's row form from a fresh state).  Hit lists and
+    cell counts must equal SearchEngine's.  Returns (launches by run,
+    stats)."""
+    from swipe_tpu_torch.parallel.multihost import MultiHostEngine
+    rng = np.random.default_rng(12)
+    queries = []
+    for i, rec in enumerate(rng.choice(len(recs), 8, replace=False)):
+        q = list(recs[rec][:150])
+        for j in np.flatnonzero(rng.random(len(q)) < 0.2):
+            q[j] = swissprot_letters(1, rng)
+        queries.append(preprocess_query(f"m{i}", "".join(q), 1, 3))
+    src = os.path.join(os.path.dirname(_build.__file__), "data",
+                       "blosum62.mat")
+    wide = os.path.join(workdir, "blosum62x100.mat")
+    with open(src) as f, open(wide, "w") as g:
+        for ln in f:
+            parts = ln.split()
+            if len(parts) > 1 and not ln.startswith("#") and all(
+                    x.lstrip("-").isdigit() for x in parts[1:]):
+                ln = " ".join([parts[0]] + [str(100 * int(x))
+                                            for x in parts[1:]]) + "\n"
+            g.write(ln)
+    db = FastaDatabase(dbpath, "aa", title="cli db")
+    launches, stats = {}, {}
+    for label, matrix, go, ge, expect in (
+            ("multihost", "BLOSUM62", 11, 1,
+             ("sw_scores_stream", "sw_hint_stream")),
+            ("multihost-wide", wide, 1100, 100,
+             ("sw_scores_stream_carry_rows",))):
+        params = SearchParams(symtype=1, matrixname=matrix, gapopen=go,
+                              gapextend=ge)
+        t0 = time.time()
+        eng = MultiHostEngine(db, params, devices=[dev, dev])
+        pack_s = time.time() - t0
+        tm, ts = SearchTimings(), SearchTimings()
+        got, wall, launches[label], _ = run_path(
+            label, dev, lambda: eng.search_batch(queries, tm), expect, {})
+        want = SearchEngine(db, params, device=dev).search_batch(queries,
+                                                                 ts)
+        if hit_keys(got) != hit_keys(want) or tm.compute[7] != \
+                ts.compute[7]:
+            raise RuntimeError(f"{label}: the hit lists differ from "
+                               "SearchEngine's")
+        stats[label] = {"wall_s": wall, "pack_s": pack_s,
+                        "scoring_s": tm.elapsed}
+        log(f"{label}: MultiHostEngine on [{dev}, {dev}] "
+            f"({eng._nseqs_local} lanes), {len(queries)} queries, matrix "
+            f"{os.path.basename(matrix)}: {sum(len(h.hits) for h in got)} "
+            "hits equal SearchEngine's; "
+            f"pack {pack_s:.3f} s, scoring {tm.elapsed:.3f} s, wall "
+            f"{wall:.3f} s [{card}]")
+    return launches, stats
+
+
+def genome_db(workdir, rng):
+    """A small nt database: 200 gene-length records beside one of 70,000
+    nt (a unit over the 65,536-column giant threshold), and a 400-nt
+    query with mutated copies in the long record and in a short one."""
+    nt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    recs = [rng.choice(nt, int(n)) for n in rng.integers(200, 600, 200)]
+    recs.append(rng.choice(nt, 70_000))
+    q = rng.choice(nt, 400)
+    for rec, at in ((200, 41_000), (17, 50)):
+        w = q.copy()
+        pos = rng.random(len(w)) < 0.1
+        w[pos] = rng.choice(nt, int(pos.sum()))
+        recs[rec][at: at + len(w)] = w
+    dbpath = os.path.join(workdir, "nt.fa")
+    qpath = os.path.join(workdir, "nt_q.fa")
+    with open(dbpath, "w") as f:
+        f.writelines(f">g{i} record {i}\n{r.tobytes().decode()}\n"
+                     for i, r in enumerate(recs))
+    with open(qpath, "w") as f:
+        f.write(f">nq planted\n{q.tobytes().decode()}\n")
+    return dbpath, qpath
+
+
+def multihost_procs(dbpath, qpath, workdir, card):
+    """``python -m swipe_tpu_torch --mh-procs 2`` in two processes on the
+    one card (both ranks on cuda:0, a gloo group at a free localhost
+    port): blastp -m 0 and -m 8 on the CLI phase's database, and blastn
+    on genome_db, whose 70,000-nt record takes its owner's giant route.
+    Rank 0's report must equal the single-process run's bytes but for
+    the times and speeds.  Returns stats."""
+    import socket
+    ntdb, ntq = genome_db(workdir, np.random.default_rng(13))
+    cases = {"blastp-m0": ["-i", qpath, "-d", dbpath, "-m", "0"],
+             "blastp-m8": ["-i", qpath, "-d", dbpath, "-m", "8"],
+             "blastn-giant": ["-p", "blastn", "-i", ntq, "-d", ntdb, "-m",
+                              "0"]}
+    t0 = time.time()
+    procs = {}
+    try:
+        for case, args in cases.items():
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            for r in range(2):
+                out = os.path.join(workdir, f"{case}.{r}.txt")
+                procs[case, r] = (out, subprocess.Popen(
+                    [sys.executable, "-m", "swipe_tpu_torch", *args,
+                     "--mh-procs", "2", "--mh-rank", str(r), "--mh-coord",
+                     f"localhost:{port}", "-o", out], cwd=REPO,
+                    stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                    text=True))
+        # the single-process runs, meanwhile
+        single = {case: masked(cli_in_process(args))
+                  for case, args in cases.items()}
+        errs = {key: p.communicate(timeout=600)[1]
+                for key, (_, p) in procs.items()}
+    finally:
+        for _, p in procs.values():
+            p.kill()
+            p.wait()
+    wall = time.time() - t0
+    for (case, r), (out, p) in procs.items():
+        if p.returncode != 0:
+            raise RuntimeError(f"multihost-2proc {case} rank {r} exited "
+                               f"{p.returncode}:\n{errs[case, r][-3000:]}")
+        wave = [ln for ln in errs[case, r].splitlines() if "wave2" in ln]
+        log(f"multihost-2proc {case}: {wave[-1] if wave else 'no wave2 line'}")
+        if not wave:
+            raise RuntimeError(f"multihost-2proc {case} rank {r}: no wave2 "
+                               "line")
+    for case in cases:
+        with open(procs[case, 0][0]) as f:
+            got = masked(f.read())
+        if got != single[case] or len(got) < 10:
+            raise RuntimeError(f"multihost-2proc {case}: rank 0's report "
+                               "differs from the single process's")
+    if not any(ln.startswith("nq\tg200") or "g200 record" in ln
+               for ln in single["blastn-giant"]):
+        raise RuntimeError("multihost-2proc: the long record's hit is "
+                           "missing")
+    log(f"multihost-2proc: {len(cases)} runs of two ranks on one card, "
+        f"rank 0's reports equal the single process's; {wall:.1f} s "
+        f"[{card}]")
+    return {"wall_s": wall}
+
+
+def dump(dbpath, recs, card):
+    """``-N 1`` on the CLI phase's database: every record back, its
+    sequence in 80-column lines.  Host only."""
+    t0 = time.time()
+    text = cli_in_process(["-d", dbpath, "-N", "1"])
+    wall = time.time() - t0
+    back = [r.split("\n", 1) for r in text.split(">")[1:]]
+    if [s.replace("\n", "") for _, s in back] != recs or any(
+            len(ln) > 80 for ln in text.splitlines()):
+        raise RuntimeError("dump: -N 1 did not give the records back")
+    log(f"dump: -N 1 gave {len(back)} records back in {wall:.3f} s [{card}]")
+    return {"wall_s": wall}
 
 
 def main() -> int:
@@ -1971,6 +2225,8 @@ def main() -> int:
         t = time.time()
         (launches["search"], stats["search"], engine, db, lens, queries,
          hitlists) = search(dev, workdir, 570_000, 16, card, calls)
+        launches["distributed"], stats["distributed"] = distributed(
+            dev, db, queries, card)
         launches["long-search"], stats["long-search"] = long_search(
             "long-search", engine, db, lens, 4, 1537, 2048,
             ("stream_tile_pass", "sw_hint_stream"), card, calls, seed=7)
@@ -2022,7 +2278,13 @@ def main() -> int:
         if any(r["mismatches"] for r in report.values()):
             raise RuntimeError("sw_scores_stream over 2,048 rows, or "
                                "sw_wavefront with one query, differs")
-        cli(workdir)
+        dbpath, qpath, recs = cli(workdir)
+        more, st = multihost(dev, dbpath, recs, workdir, card)
+        launches.update(more)
+        stats.update(st)
+        stats["multihost-2proc"] = multihost_procs(dbpath, qpath, workdir,
+                                                   card)
+        stats["dump"] = dump(dbpath, recs, card)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(n[name] for n in launches.values()),

@@ -418,19 +418,26 @@ def main(argv=None) -> int:
     from . import native
     native.tune_malloc()   # host phases allocate multi-GB numpy buffers
     a = parse_args(sys.argv[1:] if argv is None else argv)
-    if a.mh_procs > 1:
-        raise NotImplementedError(
-            "--mh-* multi-host runs are not ported yet (ROADMAP Queue 1 "
-            "item 8)")
     if a.backend not in BACKENDS:
         fatal(f"Unknown backend {a.backend} (one of "
               f"{', '.join(BACKENDS)}).")
-    if a.dump:
-        raise NotImplementedError(
-            "-N database dumps are not ported yet (ROADMAP Queue 1 item 7)")
+    if a.mh_procs > 1:
+        # join the multi-host job first; only rank 0 renders output
+        # (every rank computes identical results)
+        from .parallel.multihost import init_multihost
+        init_multihost(a.mh_coord, a.mh_procs, a.mh_rank)
+        if a.mh_rank != 0:
+            a.outfile = os.devnull
     out = open(a.outfile, "w") if a.outfile else sys.stdout
 
     db = open_database(a)
+
+    if a.dump:
+        from .io.dump import dump_fasta
+        dump_fasta(out, db, a.symtype, split_headers=(a.dump == 2))
+        if a.outfile:
+            out.close()
+        return 0
 
     params = SearchParams(
         symtype=a.symtype, querystrands=a.querystrands,
@@ -454,8 +461,12 @@ def main(argv=None) -> int:
         except OSError:
             fatal("Cannot open query file.")
 
-    backend, device = BACKENDS[a.backend]
-    engine = SearchEngine(db, params, device=device, backend=backend)
+    if a.mh_procs > 1:
+        from .parallel.multihost import MultiHostEngine
+        engine = MultiHostEngine(db, params, backend=a.backend)
+    else:
+        backend, device = BACKENDS[a.backend]
+        engine = SearchEngine(db, params, device=device, backend=backend)
 
     show_begin(out, a.view)
 

@@ -237,16 +237,47 @@ class HitList:
             self._qseq(query, h.qstrand, h.qframe), h.dseq, matrix,
             gapopen, gapextend, hint=hint)
 
-    def align_prepare(self, query, scorelimit_16: int = 1 << 62):
+    def fill_hit(self, i: int, h: Hit, query, matrix: np.ndarray,
+                 gapopen: int, gapextend: int,
+                 scorelimit_16: int = 1 << 62, device=None) -> None:
+        """Fetch display data for hit ``i`` and align it if it is shown.
+
+        Parity target: hits_align (hits.cc:546-618) plus the
+        align-phase hint pass (align_chunk, swipe.cc:339-414): an endpoint
+        hint with search16s tie semantics (ops.align_hint) replaces the
+        forward region pass when bestq > 0 and bestpos != 0 — required for
+        picking the same alignment when several optimal endpoints exist.
+        The hint runs on the hint kernel when ``device`` is CUDA.
+        """
+        from .ops.align_hint import hint_endpoint
+
+        self._fetch_hit(i, h)
+        if i >= self.opt_alignments:
+            return
+        hint = None
+        if self._hintable and h.score < scorelimit_16:
+            score, bestq, bestpos = hint_endpoint(
+                self._qseq(query, h.qstrand, h.qframe), h.dseq, matrix,
+                gapopen, gapextend, device)
+            if bestq > 0 and bestpos:
+                hint = (score, bestq, bestpos)
+        self._align_hit(h, query, matrix, gapopen, gapextend, hint)
+
+    def align_prepare(self, query, scorelimit_16: int = 1 << 62,
+                      seqnos: tuple[int, int] | None = None):
         """Phase 1 of the align phase: fetch headers/sequences for every
         kept hit and bin the shown hits needing an endpoint hint by
         (qstrand, qframe) — the reference's align_threads_init binning
         (swipe.cc:527-577).  Returns (shown, bins) where bins is a list
         of (qseq, [(i, hit)]); a multi-query batch concatenates all
         lists' bins into ONE device hint dispatch
-        (ops.align_hint.hint_endpoints_grid)."""
+        (ops.align_hint.hint_endpoints_grid).  ``seqnos`` = (lo, hi)
+        takes only the hits of sequences in [lo, hi): a multi-host
+        run's owned shard (parallel.multihost)."""
         shown = []
         for i, h in enumerate(self.hits):
+            if seqnos is not None and not seqnos[0] <= h.seqno < seqnos[1]:
+                continue
             self._fetch_hit(i, h)
             if i < self.opt_alignments:
                 shown.append((i, h))
@@ -279,3 +310,30 @@ class HitList:
         else:
             for item in shown:
                 work(item)
+
+    def align_all(self, query, matrix: np.ndarray, gapopen: int,
+                  gapextend: int, scorelimit_16: int = 1 << 62,
+                  threads: int = 1, device=None) -> None:
+        """Fetch headers for all kept hits; align those that are shown.
+
+        The align phase mirrors the reference's structure (align_threads,
+        swipe.cc:527-647): the hint pass runs VECTORIZED across all shown
+        hits of a (qstrand, qframe) bin (ops.align_hint.hint_endpoints_many
+        — the kernel-batched analog of search16s over a bin), and the
+        gapped tracebacks fan out over ``threads`` workers.  Single-list
+        convenience over align_prepare/align_finish; batch callers hoist
+        the hint pass across lists (pipeline.SearchEngine.search_batch).
+        """
+        from .ops.align_hint import hint_endpoints_many
+
+        shown, bins = self.align_prepare(query, scorelimit_16)
+        hints: dict[int, tuple[int, int, int]] = {}
+        for qseq, items in bins:
+            res = hint_endpoints_many(
+                qseq, [h.dseq for _, h in items],
+                matrix, gapopen, gapextend, device)
+            for (i, h), (score, bestq, bestpos) in zip(items, res):
+                if bestq > 0 and bestpos:
+                    hints[i] = (score, bestq, bestpos)
+        self.align_finish(query, matrix, gapopen, gapextend, shown, hints,
+                          threads)

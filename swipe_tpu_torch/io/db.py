@@ -128,6 +128,23 @@ class Database:
                 codes, _ = self.get_sequence(seqno, symtype, 0, 0)
                 yield SearchUnit(seqno, 0, 0, codes)
 
+    def unit_metas(self, symtype: int) -> np.ndarray:
+        """[n, 3] (seqno, dstrand, dframe) for every scoring unit, in
+        search_units order, WITHOUT decoding sequence data — every host
+        of a multi-host run derives the same global unit numbering from
+        this."""
+        metas = []
+        translated = symtype in (3, 4)
+        for seqno in range(self.seqcount()):
+            if not self.check_inclusion(seqno):
+                continue
+            if translated:
+                for dstrand in range(2):
+                    for dframe in range(3):
+                        metas.append((seqno, dstrand, dframe))
+            else:
+                metas.append((seqno, 0, 0))
+        return np.array(metas, dtype=np.int64).reshape(len(metas), 3)
 
 
 class _FlatSeqs:

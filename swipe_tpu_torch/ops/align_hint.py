@@ -41,7 +41,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["GIANT_HINT_MIN", "hint_endpoints_many", "hint_endpoints_grid"]
+__all__ = ["GIANT_HINT_MIN", "hint_endpoint", "hint_endpoints_many",
+           "hint_endpoints_grid"]
 
 # int32 is provably sufficient for the batched passes: scores are
 # bounded by qlen * max(matrix) << 2^31, and the sentinel leaves E after
@@ -95,6 +96,22 @@ def _fits_kernel(mat: np.ndarray, m: int) -> bool:
     """The grid's domain, the JAX package's: int8 scores, at most 1024
     query rows."""
     return _fits_int8(mat) and 0 < m <= 1024
+
+
+def hint_endpoint(qseq: np.ndarray, dseq: np.ndarray, matrix: np.ndarray,
+                  gapopen: int, gapextend: int, device=None
+                  ) -> tuple[int, int, int]:
+    """Return (score, bestq, bestpos) of one subject with search16s tie
+    semantics: one lane of the hint kernel when ``device`` is CUDA (a
+    chromosome-scale subject in overlapped pieces, as
+    hint_endpoints_many cuts it), the NumPy pass on the CPU."""
+    d = np.asarray(dseq)
+    if _on_cuda(device) and len(qseq) and 0 < len(d) <= GIANT_HINT_MIN:
+        mat = np.asarray(matrix, dtype=np.int64).reshape(32, 32)
+        return _hint_launch([(np.asarray(qseq), [d])], mat,
+                            gapopen + gapextend, gapextend, device)[0][0]
+    return hint_endpoints_many(qseq, [d], matrix, gapopen, gapextend,
+                               device)[0]
 
 
 def hint_endpoints_many(qseq: np.ndarray, dseqs: list[np.ndarray],

@@ -380,19 +380,7 @@ class SearchEngine:
         slot group; returns one finalized and aligned HitList per query,
         in order."""
         p = self.params
-        hitlists = []
-        for query in queries:
-            evmodel = EvalueModel(
-                p.symtype, query.length, self.db.seqcount_masked(),
-                self.db.symcount_masked(),
-                matrixname=p.matrixname if p.symtype != 0 else None,
-                matchscore=p.matchscore, mismatchscore=p.mismatchscore,
-                gapopen=p.gapopen, gapextend=p.gapextend,
-                effdbsize=p.effdbsize)
-            hitlists.append(
-                HitList(p.descriptions, p.alignments, p.minscore,
-                        p.maxscore, p.minexpect, p.expect, evmodel, self.db,
-                        p.symtype, p.querystrands))
+        hitlists = self._hitlists(queries)
 
         # flat (hitlist, qstrand, qframe, codes) slots across the batch
         slots = []
@@ -418,15 +406,41 @@ class SearchEngine:
                 timings.end_batch(self.db.symcount_masked(), queries,
                                   p.symtype, p.querystrands)
 
-        # align phase: the hint pass runs across the whole batch, all
-        # (query, qstrand, qframe) bins in one set of kernel launches
+        for hits in hitlists:
+            hits.finalize()
+        self._align_phase(queries, hitlists)
+        return hitlists
+
+    def _hitlists(self, queries: list[Query]) -> list[HitList]:
+        """One empty HitList per query, with its E-value model."""
+        p = self.params
+        hitlists = []
+        for query in queries:
+            evmodel = EvalueModel(
+                p.symtype, query.length, self.db.seqcount_masked(),
+                self.db.symcount_masked(),
+                matrixname=p.matrixname if p.symtype != 0 else None,
+                matchscore=p.matchscore, mismatchscore=p.mismatchscore,
+                gapopen=p.gapopen, gapextend=p.gapextend,
+                effdbsize=p.effdbsize)
+            hitlists.append(
+                HitList(p.descriptions, p.alignments, p.minscore,
+                        p.maxscore, p.minexpect, p.expect, evmodel, self.db,
+                        p.symtype, p.querystrands))
+        return hitlists
+
+    def _align_phase(self, queries, hitlists, seqnos=None):
+        """Fetch and align the finalized hit lists' hits (all, or with
+        ``seqnos`` = (lo, hi) those of sequences in [lo, hi)): the hint
+        pass runs across the whole batch, all (query, qstrand, qframe)
+        bins in one set of kernel launches, then the tracebacks."""
         from .ops.align_hint import hint_endpoints_grid
+        p = self.params
         prepared = []
         jobs = []
         for query, hits in zip(queries, hitlists):
-            hits.finalize()
             shown, bins = hits.align_prepare(
-                query, self.matrix.scorelimit_16)
+                query, self.matrix.scorelimit_16, seqnos)
             prepared.append((query, hits, shown, bins))
             for qseq, items in bins:
                 jobs.append((qseq, [h.dseq for _, h in items]))
@@ -443,7 +457,6 @@ class SearchEngine:
             hits.align_finish(query, self.matrix.matrix, p.gapopen,
                               p.gapextend, shown, hints,
                               threads=p.threads)
-        return hitlists
 
     def _slot_groups(self, slots):
         """Slots sorted by length and grouped by (qlen bucket, lanes,

@@ -1,6 +1,6 @@
 """The port end to end on the CPU against the JAX package: packs, engine
-hit lists, CLI bytes, the device rule, unported routes and the import
-rule (the port imports neither jax nor swipe_tpu)."""
+hit lists, CLI bytes, the device rule and the import rule (the port
+imports neither jax nor swipe_tpu)."""
 
 import io
 import os
@@ -22,7 +22,6 @@ from swipe_tpu.pipeline import SearchEngine as JaxSearchEngine
 from swipe_tpu.pipeline import SearchParams as JaxSearchParams
 from swipe_tpu.pipeline import SearchTimings as JaxSearchTimings
 from swipe_tpu_torch import native as torch_native
-from swipe_tpu_torch.cli import main as torch_cli_main
 from swipe_tpu_torch.batching import pack_stream
 from swipe_tpu_torch.io.db import FastaDatabase
 from swipe_tpu_torch.io.fasta import preprocess_query
@@ -208,27 +207,6 @@ def test_engine_needs_cuda_unless_cpu(monkeypatch):
         "cpu"
 
 
-# what the port still raises on, each naming its ROADMAP item: CLI options
-UNPORTED = {
-    "dump_N": ("item 7", ["-N", "1"]),
-    "mh_procs": ("item 8", ["--mh-procs", "2"]),
-}
-
-
-@pytest.mark.parametrize("route", sorted(UNPORTED))
-def test_unported_routes_raise(route, tmp_path):
-    # queries over 1024 rows, flow-routed databases, units over the giant
-    # threshold, the segment backends and score matrices outside int8 run
-    # now (tests/test_torch_long*.py, test_torch_routes.py,
-    # test_torch_giants.py, test_torch_segment*.py)
-    item, argv = UNPORTED[route]
-    match = f"ROADMAP Queue 1 {item}"
-    (tmp_path / "q.fa").write_text(">q\nACDEFGHIK\n")
-    with pytest.raises(NotImplementedError, match=match):
-        torch_cli_main(["-i", str(tmp_path / "q.fa"), "-d",
-                        str(tmp_path / "db"), *argv])
-
-
 def test_import_rule():
     """Every port module and chip_smoke.py import with jax and swipe_tpu
     blocked."""
@@ -237,9 +215,14 @@ import importlib, importlib.util, os, pkgutil, sys
 for name in ("jax", "jaxlib", "swipe_tpu"):
     sys.modules[name] = None
 import swipe_tpu_torch
-for m in pkgutil.walk_packages(swipe_tpu_torch.__path__, "swipe_tpu_torch."):
-    if m.name != "swipe_tpu_torch.__main__":
-        importlib.import_module(m.name)
+names = {m.name for m in pkgutil.walk_packages(swipe_tpu_torch.__path__,
+                                               "swipe_tpu_torch.")}
+# the host-only modules and both multi-device modules are walked too
+assert {"swipe_tpu_torch.io.dump", "swipe_tpu_torch.io.blastdb_writer",
+        "swipe_tpu_torch.parallel.distributed",
+        "swipe_tpu_torch.parallel.multihost"} <= names, names
+for name in sorted(names - {"swipe_tpu_torch.__main__"}):
+    importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "swipe_tpu")
