@@ -777,3 +777,87 @@ def test_engine_pallas_on_card_matches_stream(dev):
         assert (tiled.sw_scores_tiled.launches > n) == (backend == "pallas")
         hits.append([(h.seqno, h.score, h.alignment) for h in hl.hits])
     assert hits[0] == hits[1] and hits[0][0][0] == 3000
+
+
+def test_hint_endpoint_on_card_matches_host_pass(dev):
+    """hint_endpoint on the card (one lane of the hint kernel, int8 and
+    int32 matrices) against its NumPy pass, ties planted."""
+    from swipe_tpu_torch.ops.align_hint import hint_endpoint
+    rng = np.random.default_rng(16)
+    m = ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix
+    q = rng.integers(1, 24, size=300, dtype=np.int8)
+    n = sw.sw_hint_stream.launches
+    for i in range(6):
+        d = rng.integers(1, 24, size=int(rng.integers(1, 3000)),
+                         dtype=np.int8)
+        if i % 2:
+            d = np.concatenate([d[:40], q[20:90], d[40:80], q[20:90]])
+        for mat, go, ge in ((m, 11, 1), (m * 100, 1100, 100)):
+            assert hint_endpoint(q, d, mat, go, ge, dev) == \
+                hint_endpoint(q, d, mat, go, ge)
+    assert sw.sw_hint_stream.launches == n + 12
+
+
+def test_lax_lane_pack_on_card_matches_plain(dev, chunk):
+    """The multi-host "lax" route on the card: K2 for an int8 matrix and
+    K3's row form from a fresh state for an int32 one, against the
+    plain versions; for the int8 matrix the row form gives K2's dump."""
+    from swipe_tpu_torch.parallel.multihost import _scores_lax
+    m8, data, start = chunk
+    rng = np.random.default_rng(17)
+    qs = [rng.integers(1, 24, size=n, dtype=np.int8) for n in (7, 130, 300)]
+    qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 384))
+    m = ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix
+    for mat, kw in ((m8, dict(gapopenextend=12, gapextend=1)),
+                    (torch.from_numpy(sw.build_matrix_wide(m * 100)).to(dev),
+                     dict(gapopenextend=1200, gapextend=100))):
+        got = _scores_lax(qc, ql, mat, data, start, **kw)
+        want = _scores_lax(qc.cpu(), ql.cpu(), mat.cpu(), data.cpu(),
+                           start.cpu(), **kw)
+        assert torch.equal(got.cpu(), want)
+    h, e, s = sw.make_stream_state(3, 384, data.shape[1], dev)
+    rows = sw.sw_scores_stream_carry_rows(
+        qc, ql, m8, data, start, h, e, s, carry_in=False, carry_out=False,
+        gapopenextend=12, gapextend=1)[0]
+    assert torch.equal(rows, sw.sw_scores_stream(
+        qc, ql, m8, data, start, gapopenextend=12, gapextend=1))
+
+
+def test_mesh_and_multihost_engine_on_card(dev):
+    """parallel.distributed on two cells of the card against the CPU's
+    plain versions, and a one-rank MultiHostEngine on two cells of the
+    card against SearchEngine (hit lists and alignments)."""
+    from swipe_tpu_torch.parallel import distributed as dm
+    from swipe_tpu_torch.parallel.multihost import MultiHostEngine
+    rng = np.random.default_rng(18)
+    seqs = [rng.integers(1, 24, size=int(n), dtype=np.int8)
+            for n in rng.integers(5, 300, size=2000)]
+    qs = [rng.integers(1, 24, size=int(n), dtype=np.int8)
+          for n in (40, 120, 200, 250)]
+    m = ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix
+    ch = pack_stream(seqs, nseqs=512)[0]
+    qc, ql = sw.build_qcodes(qs, 256)
+    kw = dict(gapopenextend=12, gapextend=1, k=32)
+    got, want = (dm.sharded_stream_topk(
+        dm.make_mesh(2, 2, [d] * 4), qc, ql, sw.build_matrix8(m), ch.data,
+        ch.start, *dm.shard_stream_chunk(ch, 2), **kw)
+        for d in (dev, torch.device("cpu")))
+    assert all(np.array_equal(a, b) for a, b in zip(got[:2], want[:2]))
+    assert got[2] == want[2] == len(seqs) * len(qs)
+
+    aa = list("ARNDCQEGHILKMFPSTWYV")
+    recs = ["".join(rng.choice(aa, int(n)))
+            for n in rng.integers(20, 400, size=1500)]
+    q = "".join(rng.choice(aa, 150))
+    recs[9] = q[10:120]
+    fasta = "".join(f">s{i}\n{s}\n" for i, s in enumerate(recs))
+    params = SearchParams(descriptions=60, alignments=20)
+    queries = [preprocess_query(f"q{i}", q[i:], 1, 3) for i in range(6)]
+    hits = []
+    for eng in (MultiHostEngine(FastaDatabase(io.StringIO(fasta), "aa"),
+                                params, devices=[dev, dev]),
+                SearchEngine(FastaDatabase(io.StringIO(fasta), "aa"), params,
+                             device=dev)):
+        hits.append([[(h.seqno, h.score, h.alignment) for h in hl.hits]
+                     for hl in eng.search_batch(queries)])
+    assert hits[0] == hits[1] and hits[0][0][0][0] == 9
