@@ -147,7 +147,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               database, blastn on a small nt database with a 70,000-nt
               record, a giant on its owner's route), rank 0's report
               equal to the single process's but for times and speeds,
-              each rank's wave-2 line printed; dump: ``-N 1`` on the CLI
+              each rank's wave-2 line and launch counts printed (K2 on
+              each rank, a giant route's kernel on the long record's
+              owner); dump: ``-N 1`` on the CLI
               database gives every record back.
 
 Every search phase sets the launch counts to 0 before it runs and reads
@@ -2117,13 +2119,47 @@ def genome_db(workdir, rng):
     return dbpath, qpath
 
 
+# a rank's launch counts, on a line of its standard error
+RANK_LAUNCHES = "chip_smoke rank launches "
+
+
+def mh_rank(argv) -> int:
+    """One rank of the multihost-2proc phase: the port's CLI with the
+    launch counts set to 0 before it, then the counts of the whole run
+    and of the owner's giant route (MultiHostEngine._mh_score_giants,
+    with the giants this rank owns) printed to standard error."""
+    from swipe_tpu_torch import cli as port_cli
+    from swipe_tpu_torch.parallel.multihost import MultiHostEngine
+    for n, (mod, _, _) in KERNELS.items():
+        getattr(mod, n).launches = 0
+    giants = {"owned": 0, "launches": dict.fromkeys(KERNELS, 0)}
+    score_giants = MultiHostEngine._mh_score_giants
+
+    def counted(self, *a, **k):
+        before = launch_counts()
+        try:
+            return score_giants(self, *a, **k)
+        finally:
+            giants["owned"] = int(self._giant_ids.size)
+            for n, v in launch_counts().items():
+                giants["launches"][n] += v - before[n]
+
+    MultiHostEngine._mh_score_giants = counted
+    rc = port_cli.main(argv)
+    print(RANK_LAUNCHES + json.dumps({"run": launch_counts(),
+                                      "giants": giants}), file=sys.stderr)
+    return rc
+
+
 def multihost_procs(dbpath, qpath, workdir, card):
     """``python -m swipe_tpu_torch --mh-procs 2`` in two processes on the
     one card (both ranks on cuda:0, a gloo group at a free localhost
-    port): blastp -m 0 and -m 8 on the CLI phase's database, and blastn
-    on genome_db, whose 70,000-nt record takes its owner's giant route.
-    Rank 0's report must equal the single-process run's bytes but for
-    the times and speeds.  Returns stats."""
+    port), each through mh_rank: blastp -m 0 and -m 8 on the CLI phase's
+    database, and blastn on genome_db, whose 70,000-nt record takes its
+    owner's giant route.  Rank 0's report must equal the single-process
+    run's bytes but for the times and speeds; each rank must have
+    launched K2, and in blastn-giant the rank that owns the long record
+    a giant route's kernel there.  Returns stats."""
     import socket
     ntdb, ntq = genome_db(workdir, np.random.default_rng(13))
     cases = {"blastp-m0": ["-i", qpath, "-d", dbpath, "-m", "0"],
@@ -2140,7 +2176,8 @@ def multihost_procs(dbpath, qpath, workdir, card):
             for r in range(2):
                 out = os.path.join(workdir, f"{case}.{r}.txt")
                 procs[case, r] = (out, subprocess.Popen(
-                    [sys.executable, "-m", "swipe_tpu_torch", *args,
+                    [sys.executable, "-c", "import sys, chip_smoke; "
+                     "sys.exit(chip_smoke.mh_rank(sys.argv[1:]))", *args,
                      "--mh-procs", "2", "--mh-rank", str(r), "--mh-coord",
                      f"localhost:{port}", "-o", out], cwd=REPO,
                     stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
@@ -2155,15 +2192,37 @@ def multihost_procs(dbpath, qpath, workdir, card):
             p.kill()
             p.wait()
     wall = time.time() - t0
+    counts = {}
     for (case, r), (out, p) in procs.items():
         if p.returncode != 0:
             raise RuntimeError(f"multihost-2proc {case} rank {r} exited "
                                f"{p.returncode}:\n{errs[case, r][-3000:]}")
-        wave = [ln for ln in errs[case, r].splitlines() if "wave2" in ln]
+        lines = errs[case, r].splitlines()
+        wave = [ln for ln in lines if "wave2" in ln]
         log(f"multihost-2proc {case}: {wave[-1] if wave else 'no wave2 line'}")
         if not wave:
             raise RuntimeError(f"multihost-2proc {case} rank {r}: no wave2 "
                                "line")
+        got = [json.loads(ln[len(RANK_LAUNCHES):]) for ln in lines
+               if ln.startswith(RANK_LAUNCHES)]
+        if not got:
+            raise RuntimeError(f"multihost-2proc {case} rank {r}: no launch "
+                               "counts")
+        counts[case, r] = got[0]
+        log(f"multihost-2proc {case} rank {r}: launches "
+            f"{json.dumps(got[0])}")
+        if got[0]["run"]["sw_scores_stream"] <= 0:
+            raise RuntimeError(f"multihost-2proc {case} rank {r}: "
+                               "sw_scores_stream was not launched")
+    owners = [r for r in range(2)
+              if counts["blastn-giant", r]["giants"]["owned"]]
+    if len(owners) != 1 or not any(
+            counts["blastn-giant", owners[0]]["giants"]["launches"][n] > 0
+            for n in ("sw_scores_stream", "sw_wavefront",
+                      "sw_scores_stream_carry_rows",
+                      "stream_tile_carry_pass")):
+        raise RuntimeError("multihost-2proc blastn-giant: no rank scored "
+                           "the long record on a giant route's kernel")
     for case in cases:
         with open(procs[case, 0][0]) as f:
             got = masked(f.read())
@@ -2175,9 +2234,11 @@ def multihost_procs(dbpath, qpath, workdir, card):
         raise RuntimeError("multihost-2proc: the long record's hit is "
                            "missing")
     log(f"multihost-2proc: {len(cases)} runs of two ranks on one card, "
-        f"rank 0's reports equal the single process's; {wall:.1f} s "
-        f"[{card}]")
-    return {"wall_s": wall}
+        f"rank 0's reports equal the single process's; the long record "
+        f"scored by rank {owners[0]}; {wall:.1f} s [{card}]")
+    return {"wall_s": wall,
+            "launches": {f"{case}.{r}": c["run"]
+                         for (case, r), c in counts.items()}}
 
 
 def dump(dbpath, recs, card):

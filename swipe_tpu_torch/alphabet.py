@@ -7,7 +7,8 @@ the NCBI conventions (parity target: query.cc:31-179,368-506):
 * ``ncbi_nt16``: 16-symbol IUPAC nucleotide alphabet (bitmask of ACGT), used for
   queries and uncompressed db sequences.
 * ``ncbi_nt4`` : 2-bit nucleotide alphabet used inside BLAST db files.
-* ``sound``    : 31-symbol experimental alphabet (symtype 5).
+* ``sound``    : 31-symbol experimental alphabet (symtype 5), ``e`` at
+  code 0 (the reference's 31 is the kernels' padding code).
 
 Everything here is pure host-side NumPy: these tables are built once per
 process and then baked into device-side constant tensors by the kernels.
@@ -46,7 +47,7 @@ SYM_NCBI_NT4 = "acgt############################"
 SYM_NCBI_NT16 = "-acmgrsvtwyhkdbn################"
 SYM_NCBI_NT16U = "-ACMGRSVTWYHKDBN################"
 SYM_NCBI_AA = "-ABCDEFGHIKLMNPQRSTVWXYZU*OJ####"
-SYM_SOUND = "-ABCDEFGHIJKLMNOPQRSTUVWXYZabcde"
+SYM_SOUND = "eABCDEFGHIJKLMNOPQRSTUVWXYZabcd#"
 
 
 def _build_map(pairs: dict[str, int], fold_case: bool = True) -> np.ndarray:
@@ -80,9 +81,14 @@ MAP_NCBI_NT16 = _build_map(
 
 MAP_NCBI_NT4 = _build_map({"A": 0, "C": 1, "G": 2, "T": 3, "U": 3})
 
-# Sound alphabet (symtype 5): uppercase A-Z -> 1..26, a-e -> 27..31.
+# Sound alphabet (symtype 5): uppercase A-Z -> 1..26, a-d -> 27..30 and
+# e -> 0.  The reference's table puts e at 31, the code that pads every
+# lane and query of the kernels (batching.PAD_SYMBOL, whose matrix row and
+# column are forced to the type's minimum), where an e would score as
+# padding; code 0, which no sound letter takes there, holds it instead.
 _sound_pairs: dict[str, int] = {chr(ord("A") + i): 1 + i for i in range(26)}
-_sound_pairs.update({chr(ord("a") + i): 27 + i for i in range(5)})
+_sound_pairs.update({chr(ord("a") + i): 27 + i for i in range(4)})
+_sound_pairs["e"] = 0
 MAP_SOUND = _build_map(_sound_pairs, fold_case=False)
 
 # Complement of an nt16 bitmask: swap A<->T bits and C<->G bits.

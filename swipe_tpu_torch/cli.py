@@ -461,11 +461,15 @@ def main(argv=None) -> int:
         except OSError:
             fatal("Cannot open query file.")
 
+    backend, device = BACKENDS[a.backend]
     if a.mh_procs > 1:
         from .parallel.multihost import MultiHostEngine
-        engine = MultiHostEngine(db, params, backend=a.backend)
+        # a CPU backend scores on the CPU, any other on every visible
+        # CUDA device
+        engine = MultiHostEngine(
+            db, params, backend=a.backend,
+            devices=[device] if device == "cpu" else None)
     else:
-        backend, device = BACKENDS[a.backend]
         engine = SearchEngine(db, params, device=device, backend=backend)
 
     show_begin(out, a.view)

@@ -102,16 +102,10 @@ def hint_endpoint(qseq: np.ndarray, dseq: np.ndarray, matrix: np.ndarray,
                   gapopen: int, gapextend: int, device=None
                   ) -> tuple[int, int, int]:
     """Return (score, bestq, bestpos) of one subject with search16s tie
-    semantics: one lane of the hint kernel when ``device`` is CUDA (a
-    chromosome-scale subject in overlapped pieces, as
-    hint_endpoints_many cuts it), the NumPy pass on the CPU."""
-    d = np.asarray(dseq)
-    if _on_cuda(device) and len(qseq) and 0 < len(d) <= GIANT_HINT_MIN:
-        mat = np.asarray(matrix, dtype=np.int64).reshape(32, 32)
-        return _hint_launch([(np.asarray(qseq), [d])], mat,
-                            gapopen + gapextend, gapextend, device)[0][0]
-    return hint_endpoints_many(qseq, [d], matrix, gapopen, gapextend,
-                               device)[0]
+    semantics: hint_endpoints_many of that subject alone, so its rules
+    pick the hint kernel or the NumPy pass."""
+    return hint_endpoints_many(qseq, [np.asarray(dseq)], matrix, gapopen,
+                               gapextend, device)[0]
 
 
 def hint_endpoints_many(qseq: np.ndarray, dseqs: list[np.ndarray],

@@ -288,9 +288,6 @@ class MultiHostEngine(SearchEngine):
     headers, alignments); rank 0 typically renders.
     """
 
-    # backends that score on the CPU (the plain versions) unless the
-    # caller passes devices; every other one takes the CUDA devices
-    CPU_BACKENDS = ("lax", "stream_interpret", "pallas_interpret")
     # first-wave share of each host's static shard: measured while timed,
     # the remainder is reassigned by measured speed (assign_ranges)
     WAVE1_FRAC = 0.25
@@ -299,20 +296,13 @@ class MultiHostEngine(SearchEngine):
     REBALANCE_TOL = 1.15
     # fresh speeds whose relative shape stays within this factor of the
     # speeds that produced the cached assignment reuse that assignment
-    # (keeps the wave-2 pack cache hot under measurement noise).  The
-    # JAX package's test hook SWIPE_TPU_SPEED_DRIFT widens it on
-    # oversubscribed test hosts; a malformed value keeps the default
-    try:
-        SPEED_DRIFT = float(os.environ.get("SWIPE_TPU_SPEED_DRIFT", 1.10))
-    except ValueError:
-        SPEED_DRIFT = 1.10
+    # (keeps the wave-2 pack cache hot under measurement noise)
+    SPEED_DRIFT = 1.10
 
     def __init__(self, db, params, *, devices=None, nseqs: int | None = None,
                  max_cols: int | None = None, backend: str = "stream"):
         self._pid, self._nproc = _rank_world()
         self.backend = "stream" if backend == "auto" else backend
-        if devices is None and self.backend in self.CPU_BACKENDS:
-            devices = ["cpu"]
         self._devices = local_devices(devices)
         self._n_local = len(self._devices)
         # the giant routes and the align phase run on the first device

@@ -780,22 +780,24 @@ def test_engine_pallas_on_card_matches_stream(dev):
 
 
 def test_hint_endpoint_on_card_matches_host_pass(dev):
-    """hint_endpoint on the card (one lane of the hint kernel, int8 and
-    int32 matrices) against its NumPy pass, ties planted."""
-    from swipe_tpu_torch.ops.align_hint import hint_endpoint
+    """hint_endpoint on the card against its NumPy pass, ties planted: a
+    subject over DEVICE_CELLS cells takes one launch of the hint kernel
+    (int8 and int32 matrices), a small one the host pass."""
+    from swipe_tpu_torch.ops.align_hint import DEVICE_CELLS, hint_endpoint
     rng = np.random.default_rng(16)
     m = ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix
-    q = rng.integers(1, 24, size=300, dtype=np.int8)
+    q = rng.integers(1, 24, size=1000, dtype=np.int8)
+    big = DEVICE_CELLS // len(q) + 1000
     n = sw.sw_hint_stream.launches
-    for i in range(6):
-        d = rng.integers(1, 24, size=int(rng.integers(1, 3000)),
-                         dtype=np.int8)
-        if i % 2:
-            d = np.concatenate([d[:40], q[20:90], d[40:80], q[20:90]])
+    for i, size in enumerate((big, big, 2000)):
+        d = rng.integers(1, 24, size=size, dtype=np.int8)
+        if i != 1:
+            # the same window twice: tied endpoints
+            d[100:300] = d[size - 400:size - 200] = q[20:220]
         for mat, go, ge in ((m, 11, 1), (m * 100, 1100, 100)):
             assert hint_endpoint(q, d, mat, go, ge, dev) == \
                 hint_endpoint(q, d, mat, go, ge)
-    assert sw.sw_hint_stream.launches == n + 12
+    assert sw.sw_hint_stream.launches == n + 4
 
 
 def test_lax_lane_pack_on_card_matches_plain(dev, chunk):

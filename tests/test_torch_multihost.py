@@ -29,6 +29,7 @@ from swipe_tpu.pipeline import SearchParams as JaxSearchParams
 from swipe_tpu.pipeline import SearchTimings as JaxSearchTimings
 from swipe_tpu.stats import EvalueModel as JaxEvalueModel
 from swipe_tpu_torch.batching import pack_stream
+from swipe_tpu_torch.cli import BACKENDS
 from swipe_tpu_torch.hits import HitList
 from swipe_tpu_torch.io.blastdb import BlastDatabase
 from swipe_tpu_torch.io.blastdb_writer import make_deflines
@@ -283,7 +284,7 @@ def mh_fasta():
     return qp, fasta(recs, "s")
 
 
-@pytest.mark.parametrize("backend,devices", [("lax", None),
+@pytest.mark.parametrize("backend,devices", [("lax", ["cpu"]),
                                              ("stream", CPU2),
                                              ("lax", ["cpu"] * 3)])
 def test_one_rank_blastp(mh_fasta, backend, devices):
@@ -294,7 +295,7 @@ def test_one_rank_blastp(mh_fasta, backend, devices):
                        devices=devices)
     assert {h.seqno for h in got[0].hits[:2]} == {17, 93}
     assert mh._nseqs_local == (2048 if backend == "stream" else 513
-                               if len(devices or ()) == 3 else 512)
+                               if len(devices) == 3 else 512)
 
 
 def test_one_rank_wide_matrix_and_giant():
@@ -356,7 +357,8 @@ def test_work_curve_and_wave2_cache():
     params = SearchParams(symtype=1, gapopen=11, gapextend=1,
                           descriptions=40, alignments=0, expect=1e9)
     eng = tmh.MultiHostEngine(FastaDatabase(io.StringIO(fasta(recs)), "aa"),
-                              params, max_cols=2048, backend="lax")
+                              params, max_cols=2048, backend="lax",
+                              devices=["cpu"])
     lens = np.array([len(s) for s in recs])
     assert int(eng._cum_work[-1]) == int(np.where(lens > 2048, 0,
                                                   lens).sum())
@@ -393,14 +395,15 @@ def test_work_curve_and_wave2_cache():
 
 
 def test_engine_devices(monkeypatch):
-    """CUDA devices unless a CPU backend or the caller asks for the CPU;
-    without a card that raises."""
+    """CUDA devices unless the caller asks for the CPU, as the CLI does
+    for a CPU backend (cli.BACKENDS); without a card that raises."""
     fa = ">a x\nACDEFGHIKL\n"
     eng = tmh.MultiHostEngine(FastaDatabase(io.StringIO(fa), "aa"),
-                              SearchParams(), backend="stream_interpret")
+                              SearchParams(), backend="stream_interpret",
+                              devices=[BACKENDS["stream_interpret"][1]])
     assert eng._devices == [torch.device("cpu")]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for backend in ("auto", "stream", "pallas"):
+    for backend in ("auto", "stream", "pallas", "lax"):
         with pytest.raises(RuntimeError, match="CUDA"):
             tmh.MultiHostEngine(FastaDatabase(io.StringIO(fa), "aa"),
                                 SearchParams(), backend=backend)
