@@ -1,0 +1,9 @@
+"""Milliseconds a query spends in the align phase
+(``SearchEngine._align_phase``: fetch, endpoint hints, tracebacks): the
+benchmark's host-clock span around each call, summed over the window and
+divided by the queries served."""
+
+
+def read(run):
+    n = sum(r.queries for r in run.requests)
+    return 1e3 * sum(r.align_s for r in run.requests) / n if n else None
