@@ -174,7 +174,7 @@ import time
 import numpy as np
 import torch
 
-from swipe_tpu_torch import _build
+from swipe_tpu_torch import _build, trace
 from swipe_tpu_torch.alphabet import GENETIC_CODES, SYM_NCBI_AA
 from swipe_tpu_torch.hits import HitList
 from swipe_tpu_torch.batching import (PAD_SYMBOL, SEG_BLK, pack_database,
@@ -271,6 +271,16 @@ KERNELS = {   # wrapper -> (its module, source, TPU kernel it replaces)
     "peak_chain": (peak, "swipe_tpu_torch/csrc/peak.cu",
                    "tools/mfu_stream.py:50"),
 }
+# each wrapper's C entry, whose launches count in trace.launched(entry)
+ENTRIES = {"build_dprofile_series": "swipe_dprofile",
+           "sw_scores_stream": "swipe_stream_rows",
+           "sw_scores_stream_carry_flow": "swipe_carry_flow",
+           "sw_scores_stream_carry_rows": "swipe_carry_rows",
+           "sw_hint_stream": "swipe_hint", "sw_wavefront": "swipe_wavefront",
+           "stream_tile_pass": "swipe_stream_tile",
+           "stream_tile_carry_pass": "swipe_stream_tile_carry",
+           "sw_scores_tiled": "swipe_segment_tiled",
+           "sw_scores_segmented": "swipe_segment", "peak_chain": "swipe_peak"}
 # plain versions not named <wrapper>_plain in the wrapper's module (K8
 # shares K9's)
 PLAIN = {"sw_scores_tiled": seg.sw_scores_segmented_plain,
@@ -699,9 +709,9 @@ def check_carry(dev, m8, mw, qc, ql, rng, report):
                                     i, (*q, mat, data, start), want, kw):
                 raise RuntimeError(f"check: chunk {i}'s planted cuts "
                                    "do not reach its dump")
-            n = form.launches
+            n = trace.launched(ENTRIES[form.__name__])
             d1, *got = fn(*q, mat, data, start, *got, **kw)
-            if form.launches != n + 1:
+            if trace.launched(ENTRIES[form.__name__]) != n + 1:
                 raise RuntimeError(f"check: {form.__name__} did not take "
                                    "the K3 launch")
             d2, *want = sw.sw_scores_stream_carry_plain(
@@ -914,8 +924,11 @@ def time_steps(split, dev):
     return originals
 
 
-def launch_counts():
-    return {n: getattr(mod, n).launches for n, (mod, _, _) in KERNELS.items()}
+def launch_counts(since: dict | None = None):
+    """Each wrapper's launches so far, or since the counts ``since``."""
+    since = since or {}
+    return {n: trace.launched(ENTRIES[n]) - since.get(n, 0)
+            for n in KERNELS}
 
 
 def sync(dev) -> None:
@@ -924,12 +937,11 @@ def sync(dev) -> None:
 
 
 def run_path(label, device, fn, expect, calls):
-    """Run ``fn()`` (a path through the port's entry points) with the
-    launch counts set to 0 before it and read after it; every kernel in
-    ``expect`` must have launched.  Returns (fn's result, wall seconds,
-    launch counts, the align phase's host seconds by step)."""
-    for n, (mod, _, _) in KERNELS.items():
-        getattr(mod, n).launches = 0
+    """Run ``fn()`` (a path through the port's entry points) and count
+    its launches; every kernel in ``expect`` must have launched.  Returns
+    (fn's result, wall seconds, launch counts, the align phase's host
+    seconds by step)."""
+    base = launch_counts()
     originals = record_calls(label, calls)
     split: dict = {}
     steps = time_steps(split, device)
@@ -944,7 +956,7 @@ def run_path(label, device, fn, expect, calls):
             setattr(ALIGN_STEPS[s][0], ALIGN_STEPS[s][1], f)
         for n, f in originals.items():
             setattr(KERNELS[n][0], n, f)
-    launches = launch_counts()
+    launches = launch_counts(base)
     log(f"{label}: launches {json.dumps(launches)}; align phase by step "
         f"{json.dumps(split)}")
     for n in expect:
@@ -1518,13 +1530,12 @@ def track_hints(split):
     run, and the largest query of a launch is kept in split["k4_rows"].
     Returns the original."""
     orig = align_hint._hint_batch
-    kernel = sw.sw_hint_stream      # its count, whatever wraps it later
 
     def checked(q, dseqs, *a, **k):
-        n = kernel.launches
+        n = trace.launched("swipe_hint")
         out = orig(q, dseqs, *a, **k)
         cells = len(q) * len(dseqs) * max(len(d) for d in dseqs)
-        if kernel.launches > n:
+        if trace.launched("swipe_hint") > n:
             split["k4_rows"] = max(split.get("k4_rows", 0), len(q))
         elif cells > align_hint.DEVICE_CELLS:
             raise RuntimeError(f"a hint batch of {cells} cells ({len(q)} "
@@ -2124,14 +2135,13 @@ RANK_LAUNCHES = "chip_smoke rank launches "
 
 
 def mh_rank(argv) -> int:
-    """One rank of the multihost-2proc phase: the port's CLI with the
-    launch counts set to 0 before it, then the counts of the whole run
-    and of the owner's giant route (MultiHostEngine._mh_score_giants,
-    with the giants this rank owns) printed to standard error."""
+    """One rank of the multihost-2proc phase: the port's CLI, then the
+    launch counts of the whole run and of the owner's giant route
+    (MultiHostEngine._mh_score_giants, with the giants this rank owns)
+    printed to standard error."""
     from swipe_tpu_torch import cli as port_cli
     from swipe_tpu_torch.parallel.multihost import MultiHostEngine
-    for n, (mod, _, _) in KERNELS.items():
-        getattr(mod, n).launches = 0
+    base = launch_counts()
     giants = {"owned": 0, "launches": dict.fromkeys(KERNELS, 0)}
     score_giants = MultiHostEngine._mh_score_giants
 
@@ -2146,7 +2156,7 @@ def mh_rank(argv) -> int:
 
     MultiHostEngine._mh_score_giants = counted
     rc = port_cli.main(argv)
-    print(RANK_LAUNCHES + json.dumps({"run": launch_counts(),
+    print(RANK_LAUNCHES + json.dumps({"run": launch_counts(base),
                                       "giants": giants}), file=sys.stderr)
     return rc
 

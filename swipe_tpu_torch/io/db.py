@@ -198,33 +198,34 @@ class FastaDatabase(Database):
 
     def __init__(self, path_or_fp, dbtype: str, db_gencode: int = 1,
                  title: str | None = None, threads: int = 1):
-        from .. import native
-        native.tune_malloc()
-        self.dbtype = dbtype
-        self.db_gencode = db_gencode
-        charmap = {"nt": MAP_NCBI_NT16, "aa": MAP_NCBI_AA,
-                   "sound": MAP_SOUND}[dbtype]
-        self._seqs: list[np.ndarray] | _FlatSeqs = []
-        self._headers: list[str] = []
-        self._lens: np.ndarray | None = None
-        if isinstance(path_or_fp, str):
-            self.title = title if title is not None else path_or_fp
-            if not self._ingest_path(path_or_fp, charmap, max(threads, 1)):
-                # NUL / overlong-line / non-ASCII input: the exact
-                # fgets-semantics reader (see scan_fasta_bytes)
-                import io as _io
-                with open(path_or_fp, "rb") as fb:
-                    blob = fb.read()
-                self._ingest_records(
-                    _io.StringIO(blob.decode("latin-1")), charmap)
-        else:
-            self.title = title or ""
-            self._ingest_records(path_or_fp, charmap)
-        if self._lens is None:
-            self._lens = np.array([len(s) for s in self._seqs],
-                                  dtype=np.int64)
-        self._symcount = int(self._lens.sum())
-        self.time_str = ""
+        from .. import native, trace
+        with trace.span("setup.db", dbtype=dbtype):
+            native.tune_malloc()
+            self.dbtype = dbtype
+            self.db_gencode = db_gencode
+            charmap = {"nt": MAP_NCBI_NT16, "aa": MAP_NCBI_AA,
+                       "sound": MAP_SOUND}[dbtype]
+            self._seqs: list[np.ndarray] | _FlatSeqs = []
+            self._headers: list[str] = []
+            self._lens: np.ndarray | None = None
+            if isinstance(path_or_fp, str):
+                self.title = title if title is not None else path_or_fp
+                if not self._ingest_path(path_or_fp, charmap, max(threads, 1)):
+                    # NUL / overlong-line / non-ASCII input: the exact
+                    # fgets-semantics reader (see scan_fasta_bytes)
+                    import io as _io
+                    with open(path_or_fp, "rb") as fb:
+                        blob = fb.read()
+                    self._ingest_records(
+                        _io.StringIO(blob.decode("latin-1")), charmap)
+            else:
+                self.title = title or ""
+                self._ingest_records(path_or_fp, charmap)
+            if self._lens is None:
+                self._lens = np.array([len(s) for s in self._seqs],
+                                      dtype=np.int64)
+            self._symcount = int(self._lens.sum())
+            self.time_str = ""
 
     def _ingest_records(self, fp, charmap: np.ndarray) -> None:
         """Record-by-record ingestion through the exact fgets reader

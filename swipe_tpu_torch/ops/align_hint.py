@@ -320,6 +320,7 @@ def _hint_launch(bins, mat, Q, R, device, starts=None):
     import torch
 
     from ..batching import PAD_SYMBOL
+    from ..trace import to_device, to_host
     from .sw_stream import (build_matrix8, build_matrix_wide, build_qcodes,
                             sw_hint_stream)
 
@@ -334,11 +335,11 @@ def _hint_launch(bins, mat, Q, R, device, starts=None):
     if starts is not None:
         st[0, :len(starts)] = starts
     dev = torch.device("cpu" if device is None else device)
-    S, bq, bp = (t.cpu().numpy() for t in sw_hint_stream(
-        torch.from_numpy(qc).to(dev), torch.from_numpy(ql).to(dev),
-        torch.from_numpy((build_matrix8 if _fits_int8(mat)
-                          else build_matrix_wide)(mat)).to(dev),
-        torch.from_numpy(dense).to(dev), torch.from_numpy(st).to(dev),
+    S, bq, bp = (to_host(t).numpy() for t in sw_hint_stream(
+        to_device(qc, dev), to_device(ql, dev),
+        to_device((build_matrix8 if _fits_int8(mat)
+                   else build_matrix_wide)(mat), dev),
+        to_device(dense, dev), to_device(st, dev),
         gapopenextend=int(Q), gapextend=int(R)))
     return [[(int(S[b, i]), int(bq[b, i]), int(bp[b, i]))
              for i in range(len(ds))] for b, (_, ds) in enumerate(bins)]

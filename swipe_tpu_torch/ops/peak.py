@@ -6,10 +6,11 @@ Port of ``tools/mfu_stream.py`` ``measure_vpu_peak``: chains of
 by slope between two iteration counts (fixed launch costs cancel).
 ``peak_chain`` runs ``csrc/peak.cu`` for CUDA tensors and its plain
 version ``peak_chain_plain`` for CPU tensors, and counts its launches in
-``peak_chain.launches``.  ``measure_peak`` times the plain and the DPX
-form (``__viaddmax_s32``) at 8 chains a thread on every SM (issue-bound)
-and at one chain a thread, one warp an SM (latency-bound), and reads the
-instructions each form compiled to from the SASS (``cuobjdump``).
+``trace.launched("swipe_peak")``.  ``measure_peak`` times the plain and
+the DPX form (``__viaddmax_s32``) at 8 chains a thread on every SM
+(issue-bound) and at one chain a thread, one warp an SM (latency-bound),
+and reads the instructions each form compiled to from the SASS
+(``cuobjdump``).
 """
 
 from __future__ import annotations
@@ -61,9 +62,6 @@ def peak_chain(x: torch.Tensor, iters: int, *, dpx: bool = False,
                 int(dpx), threads, block, int(iters), 1)
     return out
 
-
-_sw._COUNTED["swipe_peak"] = peak_chain
-peak_chain.launches = 0
 
 
 def sass_opcodes() -> dict[str, Counter] | None:

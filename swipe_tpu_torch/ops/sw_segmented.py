@@ -14,7 +14,7 @@ segment ends: ``out[q, segment, lane]``.
 CUDA tensors and the plain column loop ``sw_scores_segmented_plain`` for
 CPU tensors; a failed launch raises.  It takes an int8 profile or, for
 matrices outside int8, an int32 one (the route of the JAX package's
-lax twin).  Its launches count in ``sw_scores_segmented.launches``.
+lax twin).  Its launches count in ``trace.launched("swipe_segment")``.
 
 On the card both segmented entry points (this one and
 ``ops.sw_tiled.sw_scores_tiled``) run one kernel on the band walker of
@@ -198,7 +198,3 @@ def sw_scores_segmented(qpt: torch.Tensor, db: torch.Tensor,
     return segment_launch("swipe_segment", qpt, db, seg_ids, nsegs,
                           gapopenextend, gapextend,
                           int(qpt.dtype == torch.int32))
-
-
-_sw._COUNTED["swipe_segment"] = sw_scores_segmented
-sw_scores_segmented.launches = 0

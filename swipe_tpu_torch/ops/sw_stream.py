@@ -32,9 +32,8 @@ The carry and hint kernels also take an int32 matrix
 
 Each wrapper takes its kernel for CUDA tensors and its plain version
 (``*_plain``, same module) for CPU tensors, and nothing else: a failed
-launch raises.  Each counts its kernel launches in ``.launches``
-(``sw_scores_stream_carry`` launches nothing itself: its two forms
-count apart).
+launch raises.  Each launch counts in ``trace``'s counter
+``launch.<C entry>`` (``trace.launched``).
 
 The recurrence, shared by all of them (Q = gapopen + gapextend,
 R = gapextend):
@@ -52,7 +51,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
 from ..batching import NEG_INF, PAD_SYMBOL
 
 __all__ = ["KSEG", "build_matrix8", "build_matrix_wide", "build_qcodes",
@@ -136,12 +135,13 @@ def chunk_tensors(data_t: np.ndarray, start: np.ndarray,
     with neighbouring lanes at neighbouring addresses.  Returns
     (data [L, NSEQS] int8, start [L // KSEG, NSEQS] int8,
     end_block [n] int64, lane [n] int64)."""
-    data = torch.from_numpy(np.ascontiguousarray(data_t, dtype=np.int8))
-    data = data.to(device).t().contiguous()
-    st = torch.from_numpy(np.ascontiguousarray(start, dtype=np.int8))
-    eb = torch.from_numpy(np.asarray(end_block, dtype=np.int64))
-    ln = torch.from_numpy(np.asarray(lane, dtype=np.int64))
-    return data, st.to(device), eb.to(device), ln.to(device)
+    data = trace.to_device(np.ascontiguousarray(data_t, dtype=np.int8),
+                           device).t().contiguous()
+    return (data,
+            trace.to_device(np.ascontiguousarray(start, dtype=np.int8),
+                            device),
+            trace.to_device(np.asarray(end_block, dtype=np.int64), device),
+            trace.to_device(np.asarray(lane, dtype=np.int64), device))
 
 
 # ---- binding ---------------------------------------------------------------
@@ -178,7 +178,7 @@ def _kernel(fn: str):
 
 
 def _launch(fn: str, device: torch.device, *args) -> None:
-    _COUNTED[fn].launches += 1
+    trace.count("launch." + fn)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _kernel(fn)(*args, stream)
@@ -1163,18 +1163,3 @@ def sw_hint_stream(qcodes: torch.Tensor, qlens: torch.Tensor,
             _ptr(planes), nq, qlen_pad, L // KSEG, nseqs,
             int(gapopenextend), int(gapextend))
     return tuple(outs)
-
-
-# each wrapper's launch count, a plain int raised by _launch where the
-# kernel launches (held here, so a caller that wraps a wrapper still
-# counts on the original; ops.sw_wavefront adds its own)
-_COUNTED = {"swipe_dprofile": build_dprofile_series,
-            "swipe_stream_rows": sw_scores_stream,
-            "swipe_carry_rows": sw_scores_stream_carry_rows,
-            "swipe_carry_flow": sw_scores_stream_carry_flow,
-            "swipe_hint": sw_hint_stream,
-            "swipe_stream_tile": stream_tile_pass,
-            "swipe_stream_tile_carry": stream_tile_carry_pass}
-for _f in _COUNTED.values():
-    _f.launches = 0
-del _f

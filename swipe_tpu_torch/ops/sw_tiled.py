@@ -11,14 +11,13 @@ design serves both.  It needs gapopenextend >= gapextend.  CPU tensors
 take the plain column loop shared with K9.
 Unlike the TPU kernel, which leaves the segments no block names
 unwritten, the port zeroes them as K9 does.  Launches count in
-``sw_scores_tiled.launches``.
+``trace.launched("swipe_segment_tiled")``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import sw_stream as _sw
 from .sw_segmented import (check_segment_args, segment_launch,
                            sw_scores_segmented_plain)
 
@@ -41,7 +40,3 @@ def sw_scores_tiled(qpt: torch.Tensor, db: torch.Tensor,
         return sw_scores_segmented_plain(qpt, db, seg_ids, **kw)
     return segment_launch("swipe_segment_tiled", qpt, db, seg_ids, nsegs,
                           gapopenextend, gapextend)
-
-
-_sw._COUNTED["swipe_segment_tiled"] = sw_scores_tiled
-sw_scores_tiled.launches = 0

@@ -21,7 +21,7 @@ TPU edge ring (wavefront_state_from_jax converts).
 
 ``sw_wavefront`` takes its kernel for CUDA tensors and its plain version
 (``sw_wavefront_plain``) for CPU tensors, and counts its launches in
-``.launches``.
+``trace.launched("swipe_wavefront")``.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..batching import NEG_INF, PAD_SYMBOL
 from . import sw_stream as _sw
 
@@ -185,12 +186,8 @@ def sw_wavefront_scores(mq: torch.Tensor, seq: np.ndarray, *,
         return state[2]
     padded = np.full(segs[-1][0] + segs[-1][1], PAD_SYMBOL, np.int8)
     padded[:len(seq)] = seq
-    dbd = torch.from_numpy(padded).to(mq.device)
+    dbd = trace.to_device(padded, mq.device)
     for pos, width in segs:
         state = sw_wavefront(mq, dbd[pos:pos + width], *state,
                              gapopenextend=gapopenextend, gapextend=gapextend)
     return state[2]
-
-
-_sw._COUNTED["swipe_wavefront"] = sw_wavefront
-sw_wavefront.launches = 0

@@ -49,6 +49,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from . import trace
 from .batching import (PAD_SYMBOL, StreamChunk, pack_database, pack_stream,
                        pack_stream_carry, pack_stream_flow, round_up)
 from .hits import HitList
@@ -275,7 +276,8 @@ class SearchEngine:
             p.matrixname, p.gapopen, p.gapextend, symtype=p.symtype)
 
     def _pack(self, nseqs: int) -> None:
-        units = list(self.db.search_units(self.params.symtype))
+        with trace.span("setup.units"):
+            units = list(self.db.search_units(self.params.symtype))
         self._unit_seqs = [u.codes for u in units]
         self.unit_meta = np.array(
             [(u.seqno, u.dstrand, u.dframe) for u in units], dtype=np.int64
@@ -332,18 +334,24 @@ class SearchEngine:
         once; giants excluded)."""
         key = (nseqs, max_cols or self._max_cols)
         if key not in self._stream_packs:
-            self._stream_packs[key] = pack_stream(
-                [self._unit_seqs[i] for i in self._normal_ids],
-                nseqs=key[0], max_cols=key[1], seqnos=self._normal_ids)
+            seqs = [self._unit_seqs[i] for i in self._normal_ids]
+            with trace.span("setup.pack", route="stream", lanes=key[0],
+                            cols=key[1]):
+                self._stream_packs[key] = pack_stream(
+                    seqs, nseqs=key[0], max_cols=key[1],
+                    seqnos=self._normal_ids)
         return self._stream_packs[key]
 
     def _flow_chunks(self, nseqs: int):
         """Flow-series chunks at a lane count (built once)."""
         if nseqs not in self._flow_packs:
-            self._flow_packs[nseqs] = pack_stream_flow(
-                [self._unit_seqs[i] for i in self._normal_ids],
-                nseqs=nseqs, max_cols=self._flow_cols(nseqs),
-                drain_cols=128, seqnos=self._normal_ids)
+            seqs = [self._unit_seqs[i] for i in self._normal_ids]
+            cols = self._flow_cols(nseqs)
+            with trace.span("setup.pack", route="flow", lanes=nseqs,
+                            cols=cols):
+                self._flow_packs[nseqs] = pack_stream_flow(
+                    seqs, nseqs=nseqs, max_cols=cols, drain_cols=128,
+                    seqnos=self._normal_ids)
         return self._flow_packs[nseqs]
 
     def _segment_chunks(self):
@@ -351,9 +359,12 @@ class SearchEngine:
         (built once)."""
         if self._seg_chunks is None:
             nseqs, max_cols = self._seg_shape
-            self._seg_chunks = pack_database(
-                [self._unit_seqs[i] for i in self._normal_ids],
-                nseqs=nseqs, max_cols=max_cols, seqnos=self._normal_ids)
+            seqs = [self._unit_seqs[i] for i in self._normal_ids]
+            with trace.span("setup.pack", route="segment", lanes=nseqs,
+                            cols=max_cols):
+                self._seg_chunks = pack_database(
+                    seqs, nseqs=nseqs, max_cols=max_cols,
+                    seqnos=self._normal_ids)
         return self._seg_chunks
 
     def _carry_chunks(self, nseqs: int):
@@ -361,9 +372,11 @@ class SearchEngine:
         streams whole giants through chunks of at most max_cols columns,
         with H/E/S carried between them."""
         if nseqs not in self._carry_packs:
-            self._carry_packs[nseqs] = pack_stream_carry(
-                self._giant_seqs, nseqs=nseqs, max_cols=self._max_cols,
-                seqnos=self._giant_ids)
+            with trace.span("setup.pack", route="carry", lanes=nseqs,
+                            cols=self._max_cols):
+                self._carry_packs[nseqs] = pack_stream_carry(
+                    self._giant_seqs, nseqs=nseqs, max_cols=self._max_cols,
+                    seqnos=self._giant_ids)
         return self._carry_packs[nseqs]
 
     def query_frames(self, query: Query) -> list[tuple[int, int, np.ndarray]]:
@@ -379,37 +392,40 @@ class SearchEngine:
         """Search a batch of queries, one kernel pass per db chunk and
         slot group; returns one finalized and aligned HitList per query,
         in order."""
-        p = self.params
-        hitlists = self._hitlists(queries)
-
-        # flat (hitlist, qstrand, qframe, codes) slots across the batch
-        slots = []
-        for query, hits in zip(queries, hitlists):
-            for qstrand, qframe, codes in self.query_frames(query):
-                slots.append((hits, qstrand, qframe, codes))
-
-        if slots:
-            if timings is not None:
-                timings.begin()
-            if self._segment_route:
-                self._search_segments(slots, timings)
-            else:
-                for (qlen_pad, nseqs, long), group in self._slot_groups(
-                        slots):
-                    # a tail group pads to its own power of two
-                    step = self.SLOT_BATCH_LONG if long else self.SLOT_BATCH
-                    for i in range(0, len(group), step):
-                        self._search_stream_group(group[i:i + step],
-                                                  qlen_pad, nseqs, timings,
-                                                  long)
-            if timings is not None:
-                timings.end_batch(self.db.symcount_masked(), queries,
-                                  p.symtype, p.querystrands)
-
-        for hits in hitlists:
-            hits.finalize()
-        self._align_phase(queries, hitlists)
+        with trace.request(queries=len(queries)):
+            hitlists = self._hitlists(queries)
+            # flat (hitlist, qstrand, qframe, codes) slots across the batch
+            slots = []
+            for query, hits in zip(queries, hitlists):
+                for qstrand, qframe, codes in self.query_frames(query):
+                    slots.append((hits, qstrand, qframe, codes))
+            if slots:
+                with trace.span("scoring", slots=len(slots)):
+                    self._scoring_phase(queries, slots, timings)
+            with trace.span("finalize"):
+                for hits in hitlists:
+                    hits.finalize()
+            self._align_phase(queries, hitlists)
         return hitlists
+
+    def _scoring_phase(self, queries, slots, timings) -> None:
+        """Score every slot and enter the hits, between the GCUPS meter's
+        begin and end_batch."""
+        p = self.params
+        if timings is not None:
+            timings.begin()
+        if self._segment_route:
+            self._search_segments(slots, timings)
+        else:
+            for (qlen_pad, nseqs, long), group in self._slot_groups(slots):
+                # a tail group pads to its own power of two
+                step = self.SLOT_BATCH_LONG if long else self.SLOT_BATCH
+                for i in range(0, len(group), step):
+                    self._search_stream_group(group[i:i + step], qlen_pad,
+                                              nseqs, timings, long)
+        if timings is not None:
+            timings.end_batch(self.db.symcount_masked(), queries,
+                              p.symtype, p.querystrands)
 
     def _hitlists(self, queries: list[Query]) -> list[HitList]:
         """One empty HitList per query, with its E-value model."""
@@ -435,28 +451,34 @@ class SearchEngine:
         pass runs across the whole batch, all (query, qstrand, qframe)
         bins in one set of kernel launches, then the tracebacks."""
         from .ops.align_hint import hint_endpoints_grid
-        p = self.params
-        prepared = []
-        jobs = []
-        for query, hits in zip(queries, hitlists):
-            shown, bins = hits.align_prepare(
-                query, self.matrix.scorelimit_16, seqnos)
-            prepared.append((query, hits, shown, bins))
-            for qseq, items in bins:
-                jobs.append((qseq, [h.dseq for _, h in items]))
-        res = hint_endpoints_grid(jobs, self.matrix.matrix, p.gapopen,
-                                  p.gapextend, device=self.device)
-        k = 0
-        for query, hits, shown, bins in prepared:
-            hints: dict[int, tuple[int, int, int]] = {}
-            for qseq, items in bins:
-                for (i, h), (score, bestq, bestpos) in zip(items, res[k]):
-                    if bestq > 0 and bestpos:
-                        hints[i] = (score, bestq, bestpos)
-                k += 1
-            hits.align_finish(query, self.matrix.matrix, p.gapopen,
-                              p.gapextend, shown, hints,
-                              threads=p.threads)
+        with trace.span("align", queries=len(queries)):
+            p = self.params
+            prepared = []
+            jobs = []
+            with trace.span("align.fetch"):
+                for query, hits in zip(queries, hitlists):
+                    shown, bins = hits.align_prepare(
+                        query, self.matrix.scorelimit_16, seqnos)
+                    prepared.append((query, hits, shown, bins))
+                    for qseq, items in bins:
+                        jobs.append((qseq, [h.dseq for _, h in items]))
+            with trace.span("align.hint", bins=len(jobs)):
+                res = hint_endpoints_grid(jobs, self.matrix.matrix, p.gapopen,
+                                          p.gapextend, device=self.device)
+            with trace.span("align.traceback",
+                            shown=sum(len(x[2]) for x in prepared)):
+                k = 0
+                for query, hits, shown, bins in prepared:
+                    hints: dict[int, tuple[int, int, int]] = {}
+                    for qseq, items in bins:
+                        for (i, h), (score, bestq, bestpos) in zip(items,
+                                                                   res[k]):
+                            if bestq > 0 and bestpos:
+                                hints[i] = (score, bestq, bestpos)
+                        k += 1
+                    hits.align_finish(query, self.matrix.matrix, p.gapopen,
+                                      p.gapextend, shown, hints,
+                                      threads=p.threads)
 
     def _slot_groups(self, slots):
         """Slots sorted by length and grouped by (qlen bucket, lanes,
@@ -500,7 +522,9 @@ class SearchEngine:
                    else c.data.size for c in packs)
         if size <= self.DEVICE_CACHE_BYTES:
             if key not in cache:
-                cache[key] = [prep(c) for c in packs]
+                with trace.span("setup.upload", chunks=len(packs),
+                                bytes=size):
+                    cache[key] = [prep(c) for c in packs]
             yield from cache[key]
         else:
             for c in packs:
@@ -515,8 +539,8 @@ class SearchEngine:
         data, start, eb, ln = chunk_tensors(
             c.data_t, c.start, c.end_block[order], c.lane[order],
             self.device)
-        ud = torch.from_numpy(c.seqnos[order].astype(np.int32))
-        return data, start, eb, ln, ud.to(self.device)
+        ud = c.seqnos[order].astype(np.int32)
+        return data, start, eb, ln, trace.to_device(ud, self.device)
 
     def _dev_stream_chunks(self, nseqs: int, max_cols: int | None = None):
         """Device tensors per plain-pack chunk (_prep_chunk)."""
@@ -530,8 +554,9 @@ class SearchEngine:
         carry_src."""
         def prep(c):
             data, start, eb, ln, ud = self._prep_chunk(c)
-            src = torch.from_numpy(c.carry_src.astype(np.int64))
-            return data, start, src.to(self.device), eb, ln, ud
+            src = trace.to_device(c.carry_src.astype(np.int64),
+                                  self.device)
+            return data, start, src, eb, ln, ud
 
         return self._dev_chunks(self._flow_chunks(nseqs), self._dev_flow,
                                 nseqs, prep)
@@ -551,33 +576,51 @@ class SearchEngine:
         score = sw_scores_tiled if self.backend == "pallas" and not wide \
             else sw_scores_segmented
         qlen_pad = max(64, round_up(max(len(s[3]) for s in slots), 64))
-        qpt = torch.from_numpy(build_qpt(
-            [s[3] for s in slots], self.matrix.matrix, qlen_pad,
-            dtype=np.int32 if wide else np.int8)).to(self.device)
+        dev = self.device
 
         def prep(c):
-            return (torch.from_numpy(c.data).to(self.device),
-                    torch.from_numpy(c.seg_ids).to(self.device), c)
+            return (trace.to_device(c.data, dev),
+                    trace.to_device(c.seg_ids, dev), c)
 
-        for data, seg_ids, chunk in self._dev_chunks(
-                self._segment_chunks(), self._dev_segpack, 0, prep):
-            out = score(qpt, data, seg_ids, nsegs=chunk.nsegs,
-                        gapopenextend=p.gapopenextend,
-                        gapextend=p.gapextend).cpu().numpy()
-            unit_idx = chunk.seqnos.ravel()
-            valid = unit_idx >= 0
-            meta = self.unit_meta[unit_idx[valid]]
-            flats = []
-            for fi, (hits, qstrand, qframe, _) in enumerate(slots):
-                flat = out[fi].reshape(-1)[valid]
-                flats.append(flat)
-                hits.enter_batch(meta[:, 0], flat, qstrand, qframe,
-                                 meta[:, 1], meta[:, 2])
-            self._count_tiers(timings, np.stack(flats), len(slots))
+        with trace.span("scoring.group", qlen_pad=qlen_pad,
+                        nseqs=self._seg_shape[0],
+                        long=qlen_pad > self.ROW_CAP,
+                        slots=len(slots), route="segment"):
+            qpt = trace.to_device(build_qpt(
+                [s[3] for s in slots], self.matrix.matrix, qlen_pad,
+                dtype=np.int32 if wide else np.int8), dev)
+            for data, seg_ids, chunk in self._dev_chunks(
+                    self._segment_chunks(), self._dev_segpack, 0, prep):
+                out = trace.to_host(score(
+                    qpt, data, seg_ids, nsegs=chunk.nsegs,
+                    gapopenextend=p.gapopenextend,
+                    gapextend=p.gapextend)).numpy()
+                unit_idx = chunk.seqnos.ravel()
+                valid = unit_idx >= 0
+                meta = self.unit_meta[unit_idx[valid]]
+                with trace.span("scoring.enter"):
+                    flats = []
+                    for fi, (hits, qstrand, qframe, _) in enumerate(slots):
+                        flat = out[fi].reshape(-1)[valid]
+                        flats.append(flat)
+                        hits.enter_batch(meta[:, 0], flat, qstrand, qframe,
+                                         meta[:, 1], meta[:, 2])
+                    self._count_tiers(timings, np.stack(flats), len(slots))
         self._score_carry_series(slots, qlen_pad, timings, lax=True)
 
     def _search_stream_group(self, slots, qlen_pad, nseqs, timings,
                              long=False):
+        """Score one slot group on its plain pack, flow series or (long)
+        tile passes and enter its hits; then the giants."""
+        route = "long" if long else "flow" \
+            if self._flow_cols(nseqs) is not None else "stream"
+        with trace.span("scoring.group", qlen_pad=qlen_pad, nseqs=nseqs,
+                        long=long, slots=len(slots), route=route):
+            self._score_stream_group(slots, qlen_pad, nseqs, timings, route)
+        # chromosome-scale units follow on the giant routes
+        self._score_carry_series(slots, qlen_pad, timings)
+
+    def _score_stream_group(self, slots, qlen_pad, nseqs, timings, route):
         from .ops.sw_stream import build_matrix8, build_qcodes
         qc, ql = build_qcodes([s[3] for s in slots], qlen_pad)
         # pad the slot count to a power of two, as the JAX engine does;
@@ -591,17 +634,17 @@ class SearchEngine:
             ql = np.concatenate(
                 [ql, np.zeros(nslots_pad - nslots, ql.dtype)], axis=0)
         dev = self.device
-        qc = torch.from_numpy(qc).to(dev)
-        ql = torch.from_numpy(ql).to(dev)
-        m8 = torch.from_numpy(build_matrix8(self.matrix.matrix)).to(dev)
+        qc = trace.to_device(qc, dev)
+        ql = trace.to_device(ql, dev)
+        m8 = trace.to_device(build_matrix8(self.matrix.matrix), dev)
         # dead padding slots get INT32_MAX thresholds: they count no
         # hits and mask nothing
         pad_hi = [2**31 - 1] * (nslots_pad - nslots)
 
         def thresholds(attr):
-            return torch.tensor(
+            return trace.to_device(torch.tensor(
                 [max(min(getattr(s[0], attr), 2**31 - 1), -2**31)
-                 for s in slots] + pad_hi, dtype=torch.int32, device=dev)
+                 for s in slots] + pad_hi, dtype=torch.int32), dev)
 
         init_thr = thresholds("init_threshold")
         # upper cutoff (-u/-k): chunk_reduce masks scores above it
@@ -609,11 +652,11 @@ class SearchEngine:
         kbase = max(s[0].keephits for s in slots) + 64
         # long groups take the plain pack in tile passes; otherwise heavy
         # length tails over small databases take the flow series
-        if long:
+        if route == "long":
             scored = self._stream_scores(
                 self._dev_stream_chunks(nseqs, self.LONG_MAX_COLS), qc, ql,
                 m8, long=True)
-        elif self._flow_cols(nseqs) is not None:
+        elif route == "flow":
             scored = self._flow_scores(nseqs, qc, ql, m8, qlen_pad)
         else:
             scored = self._stream_scores(self._dev_stream_chunks(nseqs), qc,
@@ -621,8 +664,6 @@ class SearchEngine:
         packed, n_units = self._walk(scored, init_thr, upper_thr, kbase)
         if n_units:
             self._enter_packed(slots, packed, n_units, timings)
-        # chromosome-scale units follow on the giant routes
-        self._score_carry_series(slots, qlen_pad, timings)
 
     def _stream_scores(self, chunks, qc, ql, m8, long=False):
         """Score plain-pack chunks (K2; a long group: K5's tile passes),
@@ -700,30 +741,31 @@ class SearchEngine:
         packed = torch.cat(
             [V, U, totalh[:, None], obvious[:, None],
              n16.expand(nq, 1), n63.expand(nq, 1)], dim=1)
-        return packed.cpu().numpy(), n_units
+        return trace.to_host(packed).numpy(), n_units
 
     def _enter_packed(self, slots, packed, n_units, timings):
         """Unpack one [nq, 2K+4] walk result and enter all hits."""
-        K = (packed.shape[1] - 4) // 2
-        V, U = packed[:, :K], packed[:, K:2 * K]
-        totalh = packed[:, 2 * K]
-        obvious = packed[:, 2 * K + 1]
-        n16, n63 = int(packed[0, 2 * K + 2]), int(packed[0, 2 * K + 3])
-        for fi, (hits, qstrand, qframe, _) in enumerate(slots):
-            sel = V[fi] >= 0
-            meta = self.unit_meta[U[fi][sel]]
-            hits.enter_batch(meta[:, 0], V[fi][sel], qstrand, qframe,
-                             meta[:, 1], meta[:, 2],
-                             counts=(int(totalh[fi]), int(obvious[fi])))
-        if timings is not None:
-            timings.compute[7] += n_units * len(slots)
-            timings.compute[16] += n16
-            timings.compute[63] += n63
-            timings.rounds[7] += len(slots)
-            if n16:
-                timings.rounds[16] += len(slots)
-            if n63:
-                timings.rounds[63] += len(slots)
+        with trace.span("scoring.enter"):
+            K = (packed.shape[1] - 4) // 2
+            V, U = packed[:, :K], packed[:, K:2 * K]
+            totalh = packed[:, 2 * K]
+            obvious = packed[:, 2 * K + 1]
+            n16, n63 = int(packed[0, 2 * K + 2]), int(packed[0, 2 * K + 3])
+            for fi, (hits, qstrand, qframe, _) in enumerate(slots):
+                sel = V[fi] >= 0
+                meta = self.unit_meta[U[fi][sel]]
+                hits.enter_batch(meta[:, 0], V[fi][sel], qstrand, qframe,
+                                 meta[:, 1], meta[:, 2],
+                                 counts=(int(totalh[fi]), int(obvious[fi])))
+            if timings is not None:
+                timings.compute[7] += n_units * len(slots)
+                timings.compute[16] += n16
+                timings.compute[63] += n63
+                timings.rounds[7] += len(slots)
+                if n16:
+                    timings.rounds[16] += len(slots)
+                if n63:
+                    timings.rounds[63] += len(slots)
 
     # ---- giant units --------------------------------------------------------
 
@@ -740,8 +782,12 @@ class SearchEngine:
             group = slots[i:i + step]
             scored = self._iter_carry_series(group, qlen_pad, lax=True) \
                 if lax else self._iter_carry_scores(group, qlen_pad)
-            for units, sc in scored:
-                self._enter_chunk(group, units, sc, timings)
+            with trace.span("scoring.group", qlen_pad=qlen_pad,
+                            nseqs=len(self._giant_ids),
+                            long=qlen_pad > self.ROW_CAP,
+                            slots=len(group), route="giants"):
+                for units, sc in scored:
+                    self._enter_chunk(group, units, sc, timings)
 
     def _iter_carry_scores(self, slots, qlen_pad):
         """Route the giants (the JAX engine's rules) and yield (unit ids,
@@ -770,8 +816,8 @@ class SearchEngine:
         dev = self.device
         mat = (build_matrix8 if self.matrix.fits_int8
                else build_matrix_wide)(self.matrix.matrix)
-        return (torch.from_numpy(qc).to(dev), torch.from_numpy(ql).to(dev),
-                torch.from_numpy(mat).to(dev))
+        return (trace.to_device(qc, dev), trace.to_device(ql, dev),
+                trace.to_device(mat, dev))
 
     def _iter_carry_series(self, slots, qlen_pad, lax=False):
         """The carry series on K3 (long groups: K6's tile passes; with
@@ -808,7 +854,8 @@ class SearchEngine:
                                 carry_in=i > 0, carry_out=i < len(chunks) - 1,
                                 **kw)
             if len(ch.seqnos):
-                yield ch.seqnos, gather_scores(out, eb, ln).cpu().numpy()
+                yield ch.seqnos, trace.to_host(
+                    gather_scores(out, eb, ln)).numpy()
 
     def _overlap_bound(self, qlen_pad: int) -> int:
         """Upper bound on the db-span of any positive-score local
@@ -840,7 +887,7 @@ class SearchEngine:
             out = sw_scores_stream(qc, ql, m8, data, start,
                                    gapopenextend=p.gapopenextend,
                                    gapextend=p.gapextend)
-            sc = gather_scores(out, eb, ln).cpu().numpy()
+            sc = trace.to_host(gather_scores(out, eb, ln)).numpy()
             np.maximum.at(best, (slice(None), owner[snos]), sc)
         yield self._giant_ids, best
 
@@ -861,10 +908,13 @@ class SearchEngine:
                 for pos in range(0, max(len(seq) - V, 1), S):
                     pieces.append(seq[pos: pos + S + V])
                     owner.append(gi)
-            self._seg_packs[key] = (
-                np.asarray(owner, dtype=np.int64),
-                pack_stream(pieces, nseqs=nseqs, max_cols=self._max_cols,
-                            seqnos=np.arange(len(pieces), dtype=np.int64)))
+            with trace.span("setup.pack", route="pieces", lanes=nseqs,
+                            cols=self._max_cols):
+                self._seg_packs[key] = (
+                    np.asarray(owner, dtype=np.int64),
+                    pack_stream(pieces, nseqs=nseqs, max_cols=self._max_cols,
+                                seqnos=np.arange(len(pieces),
+                                                 dtype=np.int64)))
         owner, chunks = self._seg_packs[key]
 
         def prep(ch):
@@ -879,7 +929,9 @@ class SearchEngine:
         if key in self._dev_seg or \
                 cached + total <= self.DEVICE_CACHE_BYTES:
             if key not in self._dev_seg:
-                self._dev_seg[key] = [prep(c) for c in chunks]
+                with trace.span("setup.upload", chunks=len(chunks),
+                                bytes=total):
+                    self._dev_seg[key] = [prep(c) for c in chunks]
             return owner, self._dev_seg[key]
         return owner, (prep(c) for c in chunks)
 
@@ -890,20 +942,22 @@ class SearchEngine:
         from .ops.sw_wavefront import build_mq, sw_wavefront_scores
         p = self.params
         qc, _ = build_qcodes([s[3] for s in slots], qlen_pad)
-        mq = torch.from_numpy(build_mq(
-            qc, build_matrix8(self.matrix.matrix))).to(self.device)
+        mq = trace.to_device(build_mq(
+            qc, build_matrix8(self.matrix.matrix)), self.device)
         for gid, seq in zip(self._giant_ids, self._giant_seqs):
             sc = sw_wavefront_scores(mq, seq, gapopenextend=p.gapopenextend,
                                      gapextend=p.gapextend)
-            yield np.array([gid], dtype=np.int64), sc.cpu().numpy()[:, None]
+            yield (np.array([gid], dtype=np.int64),
+                   trace.to_host(sc).numpy()[:, None])
 
     def _enter_chunk(self, slots, units, sc, timings):
         """Enter the giants' host scores [nslots, n] of ``units``."""
         meta = self.unit_meta[units]
-        for fi, (hits, qstrand, qframe, _) in enumerate(slots):
-            hits.enter_batch(meta[:, 0], sc[fi], qstrand, qframe,
-                             meta[:, 1], meta[:, 2])
-        self._count_tiers(timings, sc, len(slots))
+        with trace.span("scoring.enter"):
+            for fi, (hits, qstrand, qframe, _) in enumerate(slots):
+                hits.enter_batch(meta[:, 0], sc[fi], qstrand, qframe,
+                                 meta[:, 1], meta[:, 2])
+            self._count_tiers(timings, sc, len(slots))
 
     def _count_tiers(self, timings, scores, nq: int) -> None:
         """Cascade-compatibility counters (compute*/rounds*,

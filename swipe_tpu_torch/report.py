@@ -18,6 +18,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from . import trace
 from .alphabet import SYM_NCBI_AA, SYM_NCBI_NT16, SYM_SOUND
 from .hits import Hit, HitList
 
@@ -896,15 +897,16 @@ class Reporter:
 
     def show(self, hl: HitList, databasename: str = "",
              paralign: ParalignInfo | None = None) -> None:
-        if self.view == 0:
-            self.show_plain(hl)
-        elif self.view == 7:
-            self.show_xml(hl)
-        elif self.view in (8, 9):
-            self.show_tsv(hl, self.view == 9, databasename)
-        elif self.view == 99:
-            self.show_xml_paralign(hl, paralign or ParalignInfo(
-                databasename=databasename))
+        with trace.span("report", view=self.view):
+            if self.view == 0:
+                self.show_plain(hl)
+            elif self.view == 7:
+                self.show_xml(hl)
+            elif self.view in (8, 9):
+                self.show_tsv(hl, self.view == 9, databasename)
+            elif self.view == 99:
+                self.show_xml_paralign(hl, paralign or ParalignInfo(
+                    databasename=databasename))
 
 
 def show_begin(out, view: int) -> None:

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from swipe_tpu.ops import sw_stream as jsw
+from swipe_tpu_torch import trace
 from swipe_tpu_torch.batching import pack_stream_carry
 from swipe_tpu_torch.matrices import ScoreMatrix
 from swipe_tpu_torch.ops import sw_stream as tsw
@@ -215,12 +216,12 @@ def test_cpu_takes_the_plain_version_of_both_forms(series):
     want = tsw.sw_scores_stream_carry_plain(
         qc, ql, m8, data, start, *tsw.make_stream_state(5, QLEN_PAD, width),
         **kw)
-    n = (tsw.sw_scores_stream_carry_flow.launches,
-         tsw.sw_scores_stream_carry_rows.launches)
+    n = (trace.launched("swipe_carry_flow"),
+         trace.launched("swipe_carry_rows"))
     for fn in (tsw.sw_scores_stream_carry, tsw.sw_scores_stream_carry_flow,
                tsw.sw_scores_stream_carry_rows):
         got = fn(qc, ql, m8, data, start,
                  *tsw.make_stream_state(5, QLEN_PAD, width), **kw)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert (tsw.sw_scores_stream_carry_flow.launches,
-            tsw.sw_scores_stream_carry_rows.launches) == n
+    assert (trace.launched("swipe_carry_flow"),
+            trace.launched("swipe_carry_rows")) == n

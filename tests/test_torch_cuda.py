@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import torch_row_cases as rc
+from swipe_tpu_torch import trace
 from swipe_tpu_torch.batching import pack_stream
 from swipe_tpu_torch.io.db import FastaDatabase
 from swipe_tpu_torch.io.fasta import preprocess_query
@@ -47,9 +48,9 @@ def chunk(dev):
 
 def test_dprofile_kernel_matches_plain(chunk):
     m8, data, _ = chunk
-    n = sw.build_dprofile_series.launches
+    n = trace.launched("swipe_dprofile")
     got = sw.build_dprofile_series(m8, data)
-    assert sw.build_dprofile_series.launches == n + 1
+    assert trace.launched("swipe_dprofile") == n + 1
     assert torch.equal(got, sw.build_dprofile_series_plain(m8, data))
 
 
@@ -61,9 +62,9 @@ def test_stream_kernel_matches_plain(dev, chunk, clamp):
     qs = [rng.integers(1, 26, size=n, dtype=np.int8) for n in (5, 64, 130)]
     qc, ql = (torch.from_numpy(a).to(dev) for a in sw.build_qcodes(qs, 160))
     kw = dict(gapopenextend=12, gapextend=1, clamp=clamp)
-    n = sw.sw_scores_stream.launches
+    n = trace.launched("swipe_stream_rows")
     got = sw.sw_scores_stream(qc, ql, m8, data, start, **kw)
-    assert sw.sw_scores_stream.launches == n + 1
+    assert trace.launched("swipe_stream_rows") == n + 1
     assert torch.equal(got, sw.sw_scores_stream_plain(qc, ql, m8, data,
                                                       start, **kw))
     with pytest.raises(ValueError):
@@ -126,9 +127,9 @@ def test_hint_grid_route_on_card_matches_host_pass(dev):
                          dtype=np.int8)
         jobs.append((q, [rng.integers(1, 26, size=int(n), dtype=np.int8)
                          for n in rng.integers(1, 900, size=nsub)]))
-    n = sw.sw_hint_stream.launches
+    n = trace.launched("swipe_hint")
     got = align_hint.hint_endpoints_grid(jobs, m, 11, 1, device=dev)
-    assert sw.sw_hint_stream.launches > n
+    assert trace.launched("swipe_hint") > n
     assert got == [align_hint.hint_endpoints_many(q, subs, m, 11, 1)
                    for q, subs in jobs]
 
@@ -150,9 +151,9 @@ def test_hint_bin_over_scratch_cap_on_card_matches_host_pass(
     monkeypatch.setattr(align_hint, "DEVICE_CELLS", 0)
     cap = align_hint._scratch_bytes([(q, [max(subs, key=len)])], m)
     monkeypatch.setattr(align_hint, "_SCRATCH_BYTES", cap)
-    n = sw.sw_hint_stream.launches
+    n = trace.launched("swipe_hint")
     got = align_hint.hint_endpoints_many(q, subs, m, 5, 2, device=dev)
-    assert sw.sw_hint_stream.launches - n > 1
+    assert trace.launched("swipe_hint") - n > 1
     assert got == align_hint.hint_endpoints_many(q, subs, m, 5, 2)
 
 
@@ -243,7 +244,7 @@ def test_carry_kernel_matches_plain(dev, chunk, flow, form, queries, wide,
     want = tuple(x.clone() for x in got)
     kernel = getattr(sw, f"sw_scores_stream_carry_{form}")
     fn = sw.sw_scores_stream_carry if flow or form == "rows" else kernel
-    n = kernel.launches
+    n = trace.launched(f"swipe_carry_{form}")
     for i, ch in enumerate(chunks):
         if flow and i:
             src = torch.from_numpy(ch.carry_src).to(dev)
@@ -259,7 +260,7 @@ def test_carry_kernel_matches_plain(dev, chunk, flow, form, queries, wide,
         assert torch.equal(d1, d2)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-    assert kernel.launches == n + len(chunks)
+    assert trace.launched(f"swipe_carry_{form}") == n + len(chunks)
     if flow:
         # the card's K3 reads no block profiles: both forms raise
         for form_fn in (sw.sw_scores_stream_carry_flow,
@@ -281,7 +282,7 @@ def test_wavefront_kernel_matches_plain(dev, chunk):
     seq[8160:8310] = qs[1][150:]
     mq = torch.from_numpy(wf.build_mq(sw.build_qcodes(qs, 1024)[0],
                                       m8)).to(dev)
-    n = wf.sw_wavefront.launches
+    n = trace.launched("swipe_wavefront")
     old = wf.SEG_STRIPS
     wf.SEG_STRIPS = 4
     try:
@@ -289,7 +290,7 @@ def test_wavefront_kernel_matches_plain(dev, chunk):
         got = wf.sw_wavefront_scores(mq, seq, gapopenextend=12, gapextend=1)
     finally:
         wf.SEG_STRIPS = old
-    assert wf.sw_wavefront.launches == n + 3
+    assert trace.launched("swipe_wavefront") == n + 3
     state = wf.make_wavefront_state(3, 1024, dev)
     segs = torch.from_numpy(seq).to(dev)
     plain = wf.sw_wavefront_plain(mq, segs, *state, gapopenextend=12,
@@ -365,12 +366,11 @@ def test_engine_routes_on_card_match_cpu(dev, route):
         kw["attrs"] = {"SEGMENT_GIANTS": False, "WAVEFRONT_MAX_GIANTS": 0}
     # the flow series' launches take K3's flow form, the giants' carry
     # series (few pairs) its row form
-    counted = {"flow": sw.sw_scores_stream_carry_flow,
-               "carry": sw.sw_scores_stream_carry_rows}.get(
-                   route, sw.sw_scores_stream)
-    n = counted.launches
+    counted = {"flow": "swipe_carry_flow",
+               "carry": "swipe_carry_rows"}.get(route, "swipe_stream_rows")
+    n = trace.launched(counted)
     eng, on_card = _engine_hits(fasta, "aa", q, 1, params, dev, **kw)
-    assert counted.launches > n
+    assert trace.launched(counted) > n
     if route == "flow":
         assert eng._flow_cols(1024) is not None
     else:
@@ -391,13 +391,13 @@ def test_tile_kernel_matches_plain(dev, chunk, clamp):
     kw = dict(gapopenextend=12, gapextend=1, tile_rows=512, clamp=clamp)
     got = sw._tile_planes(4, data.shape[0], data.shape[1], dev)
     want = tuple(x.clone() for x in got)
-    n = sw.stream_tile_pass.launches
+    n = trace.launched("swipe_stream_tile")
     for t in range(3):
         sw.stream_tile_pass(qc, ql, t, m8, data, start, *got, **kw)
         sw.stream_tile_pass_plain(qc, ql, t, m8, data, start, *want, **kw)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-    assert sw.stream_tile_pass.launches == n + 3
+    assert trace.launched("swipe_stream_tile") == n + 3
     # one pass over all rows (K2) gives the same dump
     kw2 = {k: v for k, v in kw.items() if k != "tile_rows"}
     assert torch.equal(got[2], sw.sw_scores_stream(qc, ql, m8, data, start,
@@ -424,13 +424,13 @@ def test_tile_kernel_at_strip_and_tile_edges_matches_plain(dev, chunk,
     kw = dict(gapopenextend=12, gapextend=1, tile_rows=512, clamp=clamp)
     got = sw._tile_planes(len(qs), data.shape[0], data.shape[1], dev)
     want = tuple(x.clone() for x in got)
-    n = sw.stream_tile_pass.launches
+    n = trace.launched("swipe_stream_tile")
     for t in range(4):
         sw.stream_tile_pass(qc, ql, t, m8, data, start, *got, **kw)
         sw.stream_tile_pass_plain(qc, ql, t, m8, data, start, *want, **kw)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-    assert sw.stream_tile_pass.launches == n + 4
+    assert trace.launched("swipe_stream_tile") == n + 4
     assert int(got[2].max()) == clamp if clamp else int(got[2].max()) > 150
 
 
@@ -451,9 +451,9 @@ def test_hint_kernel_on_hard_bins_matches_plain(dev, case):
         *sw.build_qcodes([q for q, _ in bins], max(lengths)), m,
         rc.hint_dense(bins, cols, 64), starts)]
     kw = dict(gapopenextend=go + ge, gapextend=ge)
-    n = sw.sw_hint_stream.launches
+    n = trace.launched("swipe_hint")
     got = sw.sw_hint_stream(*args, **kw)
-    assert sw.sw_hint_stream.launches == n + 1
+    assert trace.launched("swipe_hint") == n + 1
     for g, w in zip(got, sw.sw_hint_stream_plain(*args, **kw)):
         assert torch.equal(g, w)
     assert (got[1] == -1).any() and (got[1] >= 512).any() == (
@@ -526,11 +526,12 @@ def test_carry_cut_into_a_band_matches_plain(dev, chunk, kernel, wide):
             fn = sw.sw_scores_stream_carry if kernel == "rows" \
                 else sw.sw_scores_stream_carry_flow
             plain, tiles = sw.sw_scores_stream_carry_plain, {}
-            counted = getattr(sw, f"sw_scores_stream_carry_{kernel}")
+            counted = f"swipe_carry_{kernel}"
             got = sw.make_stream_state(len(qs), qlen_pad, 64, dev)
         else:
             fn = sw.sw_scores_stream_carry_long
-            counted, tiles = sw.stream_tile_carry_pass, dict(tile_rows=kernel)
+            counted, tiles = "swipe_stream_tile_carry", dict(
+                tile_rows=kernel)
 
             def plain(*a, **k):
                 return cs.plain_tiles(sw.sw_scores_stream_carry_long, *a,
@@ -539,7 +540,7 @@ def test_carry_cut_into_a_band_matches_plain(dev, chunk, kernel, wide):
             got = sw.make_stream_state_long(len(qs), qlen_pad, 64, kernel,
                                             dev)
         want = tuple(x.clone() for x in got)
-        n, planted = counted.launches, 0
+        n, planted = trace.launched(counted), 0
         for i, ch in enumerate(chunks):
             data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
                                                  ch.end_block, ch.lane, dev)
@@ -554,7 +555,7 @@ def test_carry_cut_into_a_band_matches_plain(dev, chunk, kernel, wide):
             assert torch.equal(d1, d2), f"chunk {i}: dumps differ"
             for g, w in zip(got, want):
                 assert torch.equal(g, w), f"chunk {i}: state differs"
-        assert planted >= 1 and counted.launches > n
+        assert planted >= 1 and trace.launched(counted) > n
 
 
 @pytest.mark.parametrize("tile_rows,clamp", [(256, None), (256, 50),
@@ -575,7 +576,7 @@ def test_tile_carry_kernel_matches_plain(dev, chunk, tile_rows, clamp):
               for a in sw.build_qcodes(qs, qlen_pad))
     got = sw.make_stream_state_long(len(qs), qlen_pad, 64, tile_rows, dev)
     want = tuple(x.clone() for x in got)
-    n = sw.stream_tile_carry_pass.launches
+    n = trace.launched("swipe_stream_tile_carry")
     saved = sw.stream_tile_carry_pass
     for i, ch in enumerate(chunks):
         data, start, _, _ = sw.chunk_tensors(ch.data_t, ch.start,
@@ -593,7 +594,7 @@ def test_tile_carry_kernel_matches_plain(dev, chunk, tile_rows, clamp):
         assert torch.equal(d1, d2)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-    assert sw.stream_tile_carry_pass.launches == n + 3 * len(chunks)
+    assert trace.launched("swipe_stream_tile_carry") == n + 3 * len(chunks)
 
 
 @pytest.mark.parametrize("route", ["plain_pack", "giant"])
@@ -614,11 +615,11 @@ def test_engine_long_query_on_card_matches_cpu(dev, route):
     fasta = "".join(f">s{i}\n{s}\n" for i, s in enumerate(recs))
     params = dict(descriptions=30, alignments=5)
     kw = dict(max_cols=2048) if route == "giant" else {}
-    counted = (sw.stream_tile_carry_pass if route == "giant"
-               else sw.stream_tile_pass)
-    n = counted.launches
+    counted = ("swipe_stream_tile_carry" if route == "giant"
+               else "swipe_stream_tile")
+    n = trace.launched(counted)
     eng, on_card = _engine_hits(fasta, "aa", q, 1, params, dev, **kw)
-    assert counted.launches > n
+    assert trace.launched(counted) > n
     assert eng._giant_ids.size == (route == "giant")
     _, on_cpu = _engine_hits(fasta, "aa", q, 1, params, "cpu", **kw)
     assert on_card == on_cpu and on_card[0][0] == 30
@@ -676,9 +677,10 @@ def test_segment_kernels_match_plain(dev, kernel, case):
     args, kw = _segment_chunk(dev, kernel == "segmented_int32", case)
     fn = tiled.sw_scores_tiled if kernel == "tiled" \
         else seg.sw_scores_segmented
-    n = fn.launches
+    entry = "swipe_segment_tiled" if kernel == "tiled" else "swipe_segment"
+    n = trace.launched(entry)
     got = fn(*args, **kw)
-    assert fn.launches == n + 1
+    assert trace.launched(entry) == n + 1
     assert torch.equal(got, seg.sw_scores_segmented_plain(*args, **kw))
     # the walker needs a gap open penalty of at least 0
     with pytest.raises(ValueError, match="negative gap open"):
@@ -697,9 +699,10 @@ def test_segment_kernels_split_queries_over_launches(dev, kernel,
     monkeypatch.setattr(sw, "_STREAM_PLANE_BYTES", 8 * args[1].numel())
     fn = tiled.sw_scores_tiled if kernel == "tiled" \
         else seg.sw_scores_segmented
-    n = fn.launches
+    entry = "swipe_segment_tiled" if kernel == "tiled" else "swipe_segment"
+    n = trace.launched(entry)
     got = fn(*args, **kw)
-    assert fn.launches == n + 2
+    assert trace.launched(entry) == n + 2
     assert torch.equal(got, seg.sw_scores_segmented_plain(*args, **kw))
 
 
@@ -737,9 +740,9 @@ def test_wide_carry_and_hint_kernels_match_plain(dev):
     hargs = [torch.from_numpy(a).to(dev)
              for a in (*sw.build_qcodes(qs[1:2], 128), db, starts)]
     hargs.insert(2, mw)
-    n = sw.sw_hint_stream.launches
+    n = trace.launched("swipe_hint")
     got = sw.sw_hint_stream(*hargs, gapopenextend=600, gapextend=200)
-    assert sw.sw_hint_stream.launches == n + 1
+    assert trace.launched("swipe_hint") == n + 1
     for g, w in zip(got, sw.sw_hint_stream_plain(*hargs, gapopenextend=600,
                                                   gapextend=200)):
         assert torch.equal(g, w)
@@ -772,9 +775,10 @@ def test_engine_pallas_on_card_matches_stream(dev):
         eng = SearchEngine(FastaDatabase(io.StringIO(fasta), "aa", title="t"),
                            SearchParams(descriptions=100, alignments=20),
                            device=dev, backend=backend)
-        n = tiled.sw_scores_tiled.launches
+        n = trace.launched("swipe_segment_tiled")
         hl = eng.search(preprocess_query("q", q, 1, 3))
-        assert (tiled.sw_scores_tiled.launches > n) == (backend == "pallas")
+        assert (trace.launched("swipe_segment_tiled") > n) \
+            == (backend == "pallas")
         hits.append([(h.seqno, h.score, h.alignment) for h in hl.hits])
     assert hits[0] == hits[1] and hits[0][0][0] == 3000
 
@@ -788,7 +792,7 @@ def test_hint_endpoint_on_card_matches_host_pass(dev):
     m = ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix
     q = rng.integers(1, 24, size=1000, dtype=np.int8)
     big = DEVICE_CELLS // len(q) + 1000
-    n = sw.sw_hint_stream.launches
+    n = trace.launched("swipe_hint")
     for i, size in enumerate((big, big, 2000)):
         d = rng.integers(1, 24, size=size, dtype=np.int8)
         if i != 1:
@@ -797,7 +801,7 @@ def test_hint_endpoint_on_card_matches_host_pass(dev):
         for mat, go, ge in ((m, 11, 1), (m * 100, 1100, 100)):
             assert hint_endpoint(q, d, mat, go, ge, dev) == \
                 hint_endpoint(q, d, mat, go, ge)
-    assert sw.sw_hint_stream.launches == n + 4
+    assert trace.launched("swipe_hint") == n + 4
 
 
 def test_lax_lane_pack_on_card_matches_plain(dev, chunk):

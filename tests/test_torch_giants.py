@@ -19,11 +19,10 @@ from swipe_tpu.ops.sw_ref import sw_numpy_many
 from swipe_tpu.pipeline import SearchEngine as JaxSearchEngine
 from swipe_tpu.pipeline import SearchParams as JaxSearchParams
 from swipe_tpu.pipeline import SearchTimings as JaxSearchTimings
+from swipe_tpu_torch import trace
 from swipe_tpu_torch.io.db import FastaDatabase
 from swipe_tpu_torch.io.fasta import preprocess_query
 from swipe_tpu_torch.ops import align_hint as tah
-from swipe_tpu_torch.ops import sw_stream as tsw
-from swipe_tpu_torch.ops import sw_wavefront as tsw_wave
 from swipe_tpu_torch.pipeline import SearchEngine, SearchParams, SearchTimings
 
 AA = "ARNDCQEGHILKMFPSTWYV"
@@ -107,9 +106,9 @@ def test_giant_routes_match_jax(route, monkeypatch):
     fasta, q, parts = _giant_db(rng)
     params = dict(gapopen=11 + (gapextend == 0), gapextend=gapextend,
                   descriptions=40, alignments=4, expect=1e9)
-    launches = {f: getattr(tsw, f).launches for f in
-                ("sw_scores_stream", "sw_scores_stream_carry_flow",
-                 "sw_scores_stream_carry_rows")}
+    launches = {e: trace.launched(e) for e in
+                ("swipe_stream_rows", "swipe_carry_flow",
+                 "swipe_carry_rows")}
     (jeng, teng), hits = run_both(fasta, "aa", [q], 1, 3, params,
                                   max_cols=2048, attrs=attrs)
     assert teng._giant_ids.size == 2
@@ -128,8 +127,8 @@ def test_giant_routes_match_jax(route, monkeypatch):
         assert h[1] == want[h[0]]
         assert i >= params["alignments"] or h[6] == h[1]   # re-walks
     # every kernel wrapper of the route took its plain version
-    assert all(getattr(tsw, f).launches == n for f, n in launches.items())
-    assert tsw_wave.sw_wavefront.launches == 0
+    assert all(trace.launched(e) == n for e, n in launches.items())
+    assert trace.launched("swipe_wavefront") == 0
 
 
 def test_giant_blastn_both_strands():

@@ -10,6 +10,7 @@ import torch_row_cases as rc
 from swipe_tpu.matrices import ScoreMatrix
 from swipe_tpu.ops import align_hint as jah
 from swipe_tpu.ops import sw_stream as jsw
+from swipe_tpu_torch import trace
 from swipe_tpu_torch.ops import align_hint as tah
 from swipe_tpu_torch.ops import sw_stream as tsw
 
@@ -86,7 +87,7 @@ def test_hint_plain_matches_jax_kernel():
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), w)
     assert (starts[0] > 0).any() and (got[1].numpy() == -1).any()
-    assert tsw.sw_hint_stream.launches == 0
+    assert trace.launched("swipe_hint") == 0
 
 
 @pytest.mark.parametrize("lengths", [(15, 40), (16, 17)])

@@ -15,6 +15,7 @@ from swipe_tpu.matrices import ScoreMatrix
 from swipe_tpu.ops import align_hint as jah
 from swipe_tpu.ops import sw_stream as jsw
 from swipe_tpu.ops.sw_ref import sw_numpy_many
+from swipe_tpu_torch import trace
 from swipe_tpu_torch.ops import align_hint as tah
 from swipe_tpu_torch.ops import sw_stream as tsw
 
@@ -90,7 +91,7 @@ def test_tile_pass_matches_jax_pass_by_pass(tiled, clamp):
         assert full.any() or t == 3
         for g, w in zip(got[1:], want[1:]):
             assert torch.equal(g[full], w[full])
-    assert tsw.stream_tile_pass.launches == 0       # CPU: plain version
+    assert trace.launched("swipe_stream_tile") == 0   # CPU: plain version
 
 
 def test_tile_pass_matches_jax_at_strip_and_tile_edges(tiled):
@@ -231,7 +232,7 @@ def test_stream_carry_long_fresh_head_and_compact_width(m62):
     want = np.stack([sw_numpy_many(queries[0], seqs, m62.matrix, 11, 1),
                      np.zeros(len(seqs), np.int64)])
     assert np.array_equal(got, want)
-    assert tsw.stream_tile_carry_pass.launches == 0
+    assert trace.launched("swipe_stream_tile_carry") == 0
 
 
 def _nt_hint_jobs(rng, giant):

@@ -10,6 +10,7 @@ import torch
 from test_torch_giants import AA, NT, run_both
 
 from swipe_tpu.ops.sw_ref import sw_numpy_many
+from swipe_tpu_torch import trace
 from swipe_tpu_torch.io.fasta import preprocess_query
 from swipe_tpu_torch.ops import sw_stream as tsw
 
@@ -51,14 +52,15 @@ def test_flow_route_matches_jax(monkeypatch):
     parts[17] = ("s17 long", q[5:50] + "".join(rng.choice(list(AA), 900)))
     params = dict(gapopen=11, gapextend=1, descriptions=150, alignments=3,
                   expect=1e9)
-    n = [f.launches for f in forms]
+    entries = ("swipe_carry_flow", "swipe_carry_rows")
+    n = [trace.launched(e) for e in entries]
     (jeng, teng), hits = run_both(_fasta(parts), "aa", [q], 1, 3, params,
                                   nseqs=1024,
                                   attrs={"FLOW_MIN_AVG_LANE": 0})
     assert teng._flow_cols(1024) is not None and teng.chunks is not None
     assert len(teng._flow_chunks(1024)) > 3
     assert took == ["flow"] * len(teng._flow_chunks(1024))
-    assert [f.launches for f in forms] == n   # the plain version
+    assert [trace.launched(e) for e in entries] == n   # the plain version
     got = {h[0]: h[1] for h in hits[0][0]}
     assert {5, 17} <= set(got)
 

@@ -21,6 +21,7 @@ from swipe_tpu.ops import align_hint as jah
 from swipe_tpu.ops import sw_pallas as jsp
 from swipe_tpu.ops import sw_stream as jsw
 from swipe_tpu.ops.sw_ref import sw_numpy_many
+from swipe_tpu_torch import trace
 from swipe_tpu_torch.batching import pack_database, pack_stream_carry
 from swipe_tpu_torch.ops import align_hint as tah
 from swipe_tpu_torch.ops import peak
@@ -321,7 +322,7 @@ def test_wide_hint_pieces_match_jax(monkeypatch):
     monkeypatch.setattr(tah, "DEVICE_CELLS", 0)
     monkeypatch.setattr(tah, "_on_cuda", lambda device: True)
     real = tsw.sw_hint_stream
-    calls = real.launches
+    calls = trace.launched("swipe_hint")
     seen = []
 
     def spy(qc, ql, mat, *a, **k):
@@ -334,7 +335,8 @@ def test_wide_hint_pieces_match_jax(monkeypatch):
     want = jah.hint_endpoints_many(q, subjects, m.matrix, go, ge)
     assert got == [tuple(w) for w in want]
     assert seen == [torch.int32, torch.int32]   # the others, the pieces
-    assert real.launches == calls   # the plain version launches nothing
+    # the plain version launches nothing
+    assert trace.launched("swipe_hint") == calls
     assert got[0][0] > 0 and got[3][0] > 0
 
 

@@ -25,10 +25,10 @@ from swipe_tpu.ops.sw_ref import sw_numpy_many
 from swipe_tpu.pipeline import SearchEngine as JaxSearchEngine
 from swipe_tpu.pipeline import SearchParams as JaxSearchParams
 from swipe_tpu.pipeline import SearchTimings as JaxSearchTimings
+from swipe_tpu_torch import trace
 from swipe_tpu_torch.io.db import FastaDatabase
 from swipe_tpu_torch.io.fasta import preprocess_query
 from swipe_tpu_torch.ops import sw_segmented as tseg
-from swipe_tpu_torch.ops import sw_stream as tsw
 from swipe_tpu_torch.ops import sw_tiled as ttiled
 from swipe_tpu_torch.pipeline import SearchEngine, SearchParams, SearchTimings
 
@@ -95,10 +95,10 @@ def test_segment_backends_match_jax_lax(backend):
     rng = np.random.default_rng(41)
     queries = ["".join(rng.choice(list(AA), n)) for n in (70, 130, 95)]
     fasta = _protein_db(rng, queries)
-    counts = (ttiled.sw_scores_tiled.launches,
-              tseg.sw_scores_segmented.launches,
-              tsw.sw_scores_stream_carry_flow.launches,
-              tsw.sw_scores_stream_carry_rows.launches)
+    counts = (trace.launched("swipe_segment_tiled"),
+              trace.launched("swipe_segment"),
+              trace.launched("swipe_carry_flow"),
+              trace.launched("swipe_carry_rows"))
     calls = []
     real = tseg.sw_scores_segmented_plain
 
@@ -121,9 +121,10 @@ def test_segment_backends_match_jax_lax(backend):
     assert calls and set(calls) == {(3, 192, 32)}
     assert len(calls) == len(eng.chunks)
     # the plain versions launch nothing
-    assert (ttiled.sw_scores_tiled.launches, tseg.sw_scores_segmented.launches,
-            tsw.sw_scores_stream_carry_flow.launches,
-            tsw.sw_scores_stream_carry_rows.launches) == counts
+    assert (trace.launched("swipe_segment_tiled"),
+            trace.launched("swipe_segment"),
+            trace.launched("swipe_carry_flow"),
+            trace.launched("swipe_carry_rows")) == counts
     top = hits[0][0]
     seqs = [np.asarray(eng.db.get_sequence(i, 1)[0]) for i in range(122)]
     want = sw_numpy_many(preprocess_query("q", queries[0], 1, 3).aa[0],

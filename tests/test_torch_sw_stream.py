@@ -12,6 +12,7 @@ from swipe_tpu.matrices import ScoreMatrix
 from swipe_tpu.ops import sw_stream as jsw
 from swipe_tpu.ops.sw_ref import sw_numpy_many
 from swipe_tpu.pipeline import _chunk_reduce_impl
+from swipe_tpu_torch import trace
 from swipe_tpu_torch.ops import sw_stream as tsw
 from swipe_tpu_torch.pipeline import chunk_reduce
 
@@ -51,7 +52,7 @@ def test_dprofile_plain_matches_jax(m62):
     assert got.shape == (4, 32, KSEG, 1024) and got.dtype == torch.int32
     # the port's [nb, 32, KSEG, NSEQS] is the JAX array's memory order
     assert np.array_equal(got.numpy(), want.reshape(got.shape))
-    assert tsw.build_dprofile_series.launches == 0   # CPU: plain version
+    assert trace.launched("swipe_dprofile") == 0   # CPU: plain version
 
 
 def test_matrix_and_qcodes_match_jax(m62):
@@ -114,7 +115,7 @@ def test_stream_plain_matches_jax(m62, case):
         oracle = np.minimum(oracle, clamp)
         assert (got == clamp).any()
     assert np.array_equal(got, oracle)
-    assert tsw.sw_scores_stream.launches == 0
+    assert trace.launched("swipe_stream_rows") == 0
 
 
 @pytest.mark.parametrize("clamp", [None, 60])

@@ -19,6 +19,7 @@ import swipe_tpu.ops.sw_wavefront as JW
 from swipe_tpu.matrices import ScoreMatrix
 from swipe_tpu.ops.sw_ref import sw_numpy_many
 from swipe_tpu.ops.sw_stream import build_matrix8, build_qcodes
+from swipe_tpu_torch import trace
 from swipe_tpu_torch.ops import sw_wavefront as TW
 
 KW = dict(gapopenextend=12, gapextend=1)
@@ -63,7 +64,7 @@ def _check(queries, seq, m, qlen_pad):
     scores = TW.sw_wavefront_scores(tmq, seq, **KW)
     assert np.array_equal(scores.numpy(),
                           np.asarray(jstate[2]).max(axis=(1, 2)))
-    assert TW.sw_wavefront.launches == 0
+    assert trace.launched("swipe_wavefront") == 0
     return scores.numpy()
 
 
