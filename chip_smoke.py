@@ -510,8 +510,8 @@ def check_hint_bands(dev, m62, rng, report):
     int8 matrix at gaps 11/1 and 150/2 and BLOSUM62 scaled by 100 at 255-
     300 rows (the wide instantiation's 256-row bands).  Then both routes
     that launch it, against the host pass: the grid on the bins up to
-    1,024 rows, and the per-bin route (hint_endpoints_many, its cell
-    threshold lifted) on those over 1,100 rows and the wide ones."""
+    1,024 rows, and the per-bin route (hint_endpoints_many) on those over
+    1,100 rows and the wide ones."""
     mat = m62.matrix.astype(np.int64)
     for lengths, go, ge, scale in rc.HINT_CASES.values():
         bins, tails = rc.hint_bins(rng, lengths, nsub=60, maxlen=600)
@@ -531,13 +531,8 @@ def check_hint_bands(dev, m62, rng, report):
             got = align_hint.hint_endpoints_grid(bins, mat, go, ge,
                                                  device=dev)
         else:
-            cells, align_hint.DEVICE_CELLS = align_hint.DEVICE_CELLS, 0
-            try:
-                got = [align_hint.hint_endpoints_many(
-                    q, ss, mat * scale, go, ge, device=dev)
-                    for q, ss in bins]
-            finally:
-                align_hint.DEVICE_CELLS = cells
+            got = [align_hint.hint_endpoints_many(
+                q, ss, mat * scale, go, ge, device=dev) for q, ss in bins]
         _compare("sw_hint_stream", _hint_tensor(got), _hint_tensor(host),
                  report)
 
@@ -1526,20 +1521,20 @@ def check_carry_forms(label, launches, nchunks, form="rows"):
 
 def track_hints(split):
     """Wrap align_hint._hint_batch (the per-bin hint pass) so that a
-    batch over DEVICE_CELLS cells that launched no hint kernel fails the
-    run, and the largest query of a launch is kept in split["k4_rows"].
-    Returns the original."""
+    batch that took the NumPy host pass on the card fails the run, and
+    the largest query of a launch is kept in split["k4_rows"].  Returns
+    the original."""
     orig = align_hint._hint_batch
 
     def checked(q, dseqs, *a, **k):
-        n = trace.launched("swipe_hint")
+        n, host = trace.launched("swipe_hint"), trace.counter(
+            "hint.lanes_host")
         out = orig(q, dseqs, *a, **k)
-        cells = len(q) * len(dseqs) * max(len(d) for d in dseqs)
+        if trace.counter("hint.lanes_host") > host:
+            raise RuntimeError(f"a hint batch of {len(dseqs)} subjects "
+                               f"({len(q)} rows) ran on the host")
         if trace.launched("swipe_hint") > n:
             split["k4_rows"] = max(split.get("k4_rows", 0), len(q))
-        elif cells > align_hint.DEVICE_CELLS:
-            raise RuntimeError(f"a hint batch of {cells} cells ({len(q)} "
-                               "rows) ran on the host")
         return out
 
     align_hint._hint_batch = checked
@@ -1584,8 +1579,8 @@ def long_genome(engine, db, chrom, genes, frames, card, calls, seed=6):
         f"{groups}; scoring {tim.elapsed:.3f} s ({tim.speed / 1e9:.1f} "
         f"GCUPS by the reference's meter), align phase "
         f"{wall - tim.elapsed:.3f} s, wall {wall:.3f} s; hint kernel at "
-        f"{hints['k4_rows']} rows, no hint batch over "
-        f"{align_hint.DEVICE_CELLS} cells on the host; {n} chromosome "
+        f"{hints['k4_rows']} rows, no hint batch on the host; {n} "
+        f"chromosome "
         f"window and the genes equal their oracles [{card}]")
     return launches, stats
 

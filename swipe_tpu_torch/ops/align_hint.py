@@ -22,24 +22,29 @@ parity when several optimal endpoints exist.
 
 The align phase's grid keeps the JAX package's domain (int8 matrices,
 queries up to 1024 rows, bins up to 1024 subjects); other bins go to
-hint_endpoints_many, which sends a batch over DEVICE_CELLS cells to the
-hint kernel too, whatever its query length, as the JAX package sends it
-to its accelerator.  A matrix outside int8 leaves the grid, as in the
-JAX package, and its batches over DEVICE_CELLS run on the hint kernel's
-wide instantiation (an int32 matrix, build_matrix_wide).  Only small
-batches and launches over the byte caps take the NumPy host pass.
-Results are exact on either route.  A failure of the kernel raises;
-nothing falls back.
+hint_endpoints_many.  When the engine's device is CUDA every hint runs
+on the hint kernel, whatever its size: a launch costs microseconds
+there, a NumPy column pass milliseconds.  A matrix outside int8 runs on
+the kernel's wide instantiation (an int32 matrix, build_matrix_wide).
+The NumPy host pass is the route on a CPU device, and on the card only
+for what is over the byte caps (a bin's padded subjects over
+_BIN_LAUNCH_BYTES, or one warp's scratch over _SCRATCH_BYTES).  The
+counters ``hint.lanes_kernel`` and ``hint.lanes_host`` count the lanes
+each route takes.  Results are exact on either route.  A failure of the
+kernel raises; nothing falls back.
 
 Chromosome-scale subjects (over GIANT_HINT_MIN columns) are cut into
-overlapped pieces that ride the hint kernel as lanes of one launch, each
-piece tracking only the columns it owns; subjects that cannot be cut
-(free gap extension, an all-negative matrix) take one lane alone.
+overlapped pieces that ride the hint kernel as lanes beside their bin's
+other subjects, each piece tracking only the columns it owns; subjects
+that cannot be cut (free gap extension, an all-negative matrix) take
+one lane whole.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .. import trace
 
 __all__ = ["GIANT_HINT_MIN", "hint_endpoint", "hint_endpoints_many",
            "hint_endpoints_grid"]
@@ -48,11 +53,6 @@ __all__ = ["GIANT_HINT_MIN", "hint_endpoint", "hint_endpoints_many",
 # bounded by qlen * max(matrix) << 2^31, and the sentinel leaves E after
 # the first column (E >= H - Q >= -Q), whatever the subject's length
 NEG32 = -(1 << 28)
-
-# batched workloads above this many DP cells run on the hint kernel when
-# the engine's device is CUDA (the NumPy pass would dominate the align
-# phase for -b 100 against long db sequences)
-DEVICE_CELLS = 50_000_000
 
 # subjects of one hint-kernel bin at most (the kernel's domain, as in the
 # JAX package); a bin's lanes round up to whole warps and its columns to
@@ -98,6 +98,38 @@ def _fits_kernel(mat: np.ndarray, m: int) -> bool:
     return _fits_int8(mat) and 0 < m <= 1024
 
 
+def _segmentable(n: int, V: int | None) -> bool:
+    """Whether a subject of ``n`` columns is hinted in overlapped pieces
+    (chromosome-scale, and over four span bounds ``V``)."""
+    return n > GIANT_HINT_MIN and V is not None and n > 4 * V
+
+
+def _cut(d: np.ndarray, V: int):
+    """A chromosome-scale subject's overlapped pieces, [(piece, first
+    tracked column, offset in the subject)]: each piece owns its columns
+    from V on (from 0 in the first), where every colmax is the true
+    one."""
+    N = len(d)
+    stride = max(2 * V, -(-N // 1024), 2048)
+    stride = -(-stride // 256) * 256
+    return [(d[pos: pos + stride + V], 0 if pos == 0 else V, pos)
+            for pos in range(0, max(N - V, 1), stride)]
+
+
+def _merge(res, owners, offsets, out: list) -> None:
+    """Fold lane results [(S, bestq, bestpos)] into their subjects'
+    (``out[owner]``), lanes in ascending offset within a subject: the
+    larger S, on a tie the smaller global column."""
+    best: dict[int, tuple[int, int, int]] = {}
+    for (s, bq, bp), i, pos in zip(res, owners, offsets):
+        cur = best.get(i)
+        if cur is None or s > cur[0] or (s == cur[0] and 0 <= bq
+                                         and pos + bp < cur[2]):
+            best[i] = (s, bq, pos + bp) if bq >= 0 else (s, bq, bp)
+    for i, r in best.items():
+        out[i] = r
+
+
 def hint_endpoint(qseq: np.ndarray, dseq: np.ndarray, matrix: np.ndarray,
                   gapopen: int, gapextend: int, device=None
                   ) -> tuple[int, int, int]:
@@ -116,8 +148,8 @@ def hint_endpoints_many(qseq: np.ndarray, dseqs: list[np.ndarray],
     One vectorized pass over [nhits, qlen] state — the reference runs
     its hint kernel on the whole displayed-hit bin per thread
     (align_chunk, swipe.cc:339-414): the first column attaining the
-    final max, the smallest row within it.  Large batches run on the
-    hint kernel when ``device`` is CUDA; small ones stay in NumPy.
+    final max, the smallest row within it.  Each batch runs on the hint
+    kernel when ``device`` is CUDA, at any query length (_hint_batch).
 
     Chromosome-scale subjects segment into overlapped pieces that run
     as parallel lanes (EXACT: a positive-score alignment spans at most
@@ -126,8 +158,6 @@ def hint_endpoints_many(qseq: np.ndarray, dseqs: list[np.ndarray],
     true colmax; ownership partitions the columns, so merging by
     (max S, then smallest global column) reproduces the unsegmented
     first-improving-column/smallest-row tie semantics bit-for-bit).
-    Batches over DEVICE_CELLS cells run on the hint kernel when
-    ``device`` is CUDA, at any query length (_hint_batch).
     """
     if not dseqs:
         return []
@@ -140,11 +170,9 @@ def hint_endpoints_many(qseq: np.ndarray, dseqs: list[np.ndarray],
     V = _span_bound(m, int(mat.max()), R)
     giants, solos = [], []
     for i, d in enumerate(dseqs):
-        if len(d) <= GIANT_HINT_MIN:
-            continue
-        if V is not None and len(d) > 4 * V:
+        if _segmentable(len(d), V):
             giants.append(i)
-        elif V is None:
+        elif len(d) > GIANT_HINT_MIN and V is None:
             # unsegmentable chromosome-scale subject (free gap extension
             # or an all-negative matrix): batching it would pad every
             # lane of the bin to its length — it runs alone
@@ -167,27 +195,12 @@ def hint_endpoints_many(qseq: np.ndarray, dseqs: list[np.ndarray],
     if not giants:
         return results
 
-    pieces, starts, owner, gpos = [], [], [], []
-    for i in giants:
-        d = np.asarray(dseqs[i])
-        N = len(d)
-        stride = max(2 * V, -(-N // 1024), 2048)
-        stride = -(-stride // 256) * 256
-        for pos in range(0, max(N - V, 1), stride):
-            pieces.append(d[pos: pos + stride + V])
-            starts.append(0 if pos == 0 else V)
-            owner.append(i)
-            gpos.append(pos)
-    res = _hint_batch(q, pieces, mat, Q, R, device,
+    lanes = [(piece, st, i, pos) for i in giants
+             for piece, st, pos in _cut(np.asarray(dseqs[i]), V)]
+    pieces, starts, owners, offsets = zip(*lanes)
+    res = _hint_batch(q, list(pieces), mat, Q, R, device,
                       np.asarray(starts, dtype=np.int64))
-    best: dict[int, tuple[int, int, int]] = {}
-    for (s, bq, bp), i, pos in zip(res, owner, gpos):
-        cur = best.get(i)
-        if cur is None or s > cur[0] or (s == cur[0] and 0 <= bq
-                                         and pos + bp < cur[2]):
-            best[i] = (s, bq, pos + bp) if bq >= 0 else (s, bq, bp)
-    for i in giants:
-        results[i] = best[i]
+    _merge(res, owners, offsets, results)
     return results
 
 
@@ -239,6 +252,19 @@ def _lane_groups(q, dseqs, mat):
     return groups
 
 
+def _bin_lanes(q, dseqs, mat, R):
+    """A grid bin's lanes: (subjects and pieces, first tracked columns,
+    owners, offsets).  A subject is one lane from column 0; a
+    segmentable chromosome-scale one is its overlapped pieces (_cut)."""
+    V = _span_bound(len(q), int(mat.max()), R)
+    lanes = []
+    for i, d in enumerate(dseqs):
+        d = np.asarray(d)
+        lanes += [(piece, st, i, pos) for piece, st, pos in (
+            _cut(d, V) if _segmentable(len(d), V) else [(d, 0, 0)])]
+    return tuple(list(x) for x in zip(*lanes))
+
+
 def hint_endpoints_grid(jobs, matrix, gapopen: int, gapextend: int,
                         device=None, force_device: bool = False):
     """hint_endpoints_many for MANY (query, subject-list) bins at once.
@@ -246,15 +272,15 @@ def hint_endpoints_grid(jobs, matrix, gapopen: int, gapextend: int,
     ``jobs`` is a list of (qseq, dseqs) — one bin per (query, qstrand,
     qframe) of an align phase.  When ``device`` is CUDA, every bin in the
     kernel's domain rides the hint kernel's query axis
-    (ops.sw_stream.sw_hint_stream): bins are sorted by subject length and
-    cut into launches under a footprint cap.  A couple of small bins (at
-    most 4, at most DEVICE_CELLS cells) stay on the host, where a launch
-    would cost more than the pass.  Bins outside the domain (non-int8
-    matrices, queries over 1024 rows, over MAX_BIN_SUBJECTS subjects,
-    over the footprint cap alone) take hint_endpoints_many, which runs a
-    batch over DEVICE_CELLS on the kernel as well.
-    ``force_device`` takes the kernel route whatever the size and
-    device — on a CPU ``device`` that is the kernel's plain version.
+    (ops.sw_stream.sw_hint_stream), whatever its size: a chromosome-scale
+    subject is cut into its overlapped pieces, lanes beside the bin's
+    other subjects, and bins are sorted by their longest lane and cut
+    into launches under a footprint cap.  Bins outside the domain
+    (non-int8 matrices, queries over 1024 rows, over MAX_BIN_SUBJECTS
+    subjects, over the footprint cap alone) take hint_endpoints_many,
+    which runs them on the kernel as well.  ``force_device`` takes the
+    kernel route whatever the device — on a CPU ``device`` that is the
+    kernel's plain version.
 
     Returns a list of per-bin result lists, aligned with ``jobs``.
     """
@@ -263,86 +289,77 @@ def hint_endpoints_grid(jobs, matrix, gapopen: int, gapextend: int,
         return results
     mat = np.asarray(matrix, dtype=np.int64).reshape(32, 32)
     on_dev = force_device or _on_cuda(device)
-    batch = []
-    total_cells = 0
+    lanes = {}
     for bi, (q, dseqs) in enumerate(jobs):
-        if (on_dev and _fits_kernel(mat, len(q))
-                and 0 < len(dseqs) <= MAX_BIN_SUBJECTS
-                and max(len(d) for d in dseqs) <= GIANT_HINT_MIN
-                and _launch_bytes([(q, dseqs)]) <= _LAUNCH_BYTES):
-            batch.append(bi)
-            total_cells += len(q) * sum(len(d) for d in dseqs)
-        else:
-            results[bi] = hint_endpoints_many(np.asarray(q), dseqs,
-                                              matrix, gapopen, gapextend,
-                                              device)
-    if not batch:
-        return results
-    if not force_device and total_cells <= DEVICE_CELLS \
-            and len(batch) <= 4:
-        # a couple of small bins: the launch would dominate
-        for bi in batch:
-            q, dseqs = jobs[bi]
-            results[bi] = hint_endpoints_many(np.asarray(q), dseqs,
-                                              matrix, gapopen, gapextend,
-                                              device)
+        if on_dev and _fits_kernel(mat, len(q)) \
+                and 0 < len(dseqs) <= MAX_BIN_SUBJECTS:
+            got = _bin_lanes(q, dseqs, mat, gapextend)
+            if _launch_bytes([(q, got[0])]) <= _LAUNCH_BYTES:
+                lanes[bi] = got
+                continue
+        results[bi] = hint_endpoints_many(np.asarray(q), dseqs, matrix,
+                                          gapopen, gapextend, device)
+    if not lanes:
         return results
 
-    # bins of like subject lengths share a launch, so a short bin is not
+    # bins of like lane lengths share a launch, so a short bin is not
     # padded to a long one's columns; in this order a bin added to a
     # group is the group's widest yet
     def launch(group):
-        out = _hint_launch([jobs[i] for i in group], mat,
-                           gapopen + gapextend, gapextend, device)
-        for i, r in zip(group, out):
-            results[i] = r
+        out = _hint_launch([(jobs[i][0], lanes[i][0]) for i in group], mat,
+                           gapopen + gapextend, gapextend, device,
+                           [lanes[i][1] for i in group])
+        for i, res in zip(group, out):
+            results[i] = [None] * len(jobs[i][1])
+            _merge(res, lanes[i][2], lanes[i][3], results[i])
 
-    batch.sort(key=lambda bi: max(len(d) for d in jobs[bi][1]))
+    batch = sorted(lanes, key=lambda bi: max(map(len, lanes[bi][0])))
     group: list[int] = []
-    lanes = 0
+    width = 0
     for bi in batch:
-        cols, n = _launch_dims([jobs[bi]])
-        if group and (len(group) + 1) * cols * max(lanes, n) \
+        cols, n = _launch_dims([(jobs[bi][0], lanes[bi][0])])
+        if group and (len(group) + 1) * cols * max(width, n) \
                 > _LAUNCH_BYTES:
             launch(group)
-            group, lanes = [], 0
+            group, width = [], 0
         group.append(bi)
-        lanes = max(lanes, n)
+        width = max(width, n)
     launch(group)
     return results
 
 
-def _hint_launch(bins, mat, Q, R, device, starts=None):
+def _hint_launch(bins, mat, Q, R, device, starts):
     """One hint-kernel launch over ``bins`` [(qseq, subjects)]: bin b's
-    subject i in lane (b, i), PAD-padded to _launch_dims.  ``starts``
-    (one bin only) is each subject's first tracked column, zeros when
-    None.  Returns each bin's [(S, bestq, bestpos)]."""
+    subject i in lane (b, i), PAD-padded to _launch_dims, from its first
+    tracked column ``starts[b][i]``.  The subjects are laid lane by lane
+    and turned column-major on the device; the three results come back
+    in one copy.  Returns each bin's [(S, bestq, bestpos)]."""
     import torch
 
     from ..batching import PAD_SYMBOL
-    from ..trace import to_device, to_host
     from .sw_stream import (build_matrix8, build_matrix_wide, build_qcodes,
                             sw_hint_stream)
 
     cols, lanes = _launch_dims(bins)
     qc, ql = build_qcodes([np.asarray(q) for q, _ in bins],
                           max(len(q) for q, _ in bins))
-    dense = np.full((len(bins), cols, lanes), PAD_SYMBOL, dtype=np.int8)
+    dense = np.full((len(bins), lanes, cols), PAD_SYMBOL, dtype=np.int8)
+    st = np.zeros((len(bins), lanes), dtype=np.int32)
     for b, (_, ds) in enumerate(bins):
         for i, d in enumerate(ds):
-            dense[b, : len(d), i] = np.asarray(d, dtype=np.int8)
-    st = np.zeros((len(bins), lanes), dtype=np.int32)
-    if starts is not None:
-        st[0, :len(starts)] = starts
+            dense[b, i, : len(d)] = np.asarray(d, dtype=np.int8)
+        st[b, :len(ds)] = starts[b]
+    trace.count("hint.lanes_kernel", sum(len(ds) for _, ds in bins))
     dev = torch.device("cpu" if device is None else device)
-    S, bq, bp = (to_host(t).numpy() for t in sw_hint_stream(
-        to_device(qc, dev), to_device(ql, dev),
-        to_device((build_matrix8 if _fits_int8(mat)
-                   else build_matrix_wide)(mat), dev),
-        to_device(dense, dev), to_device(st, dev),
-        gapopenextend=int(Q), gapextend=int(R)))
-    return [[(int(S[b, i]), int(bq[b, i]), int(bp[b, i]))
-             for i in range(len(ds))] for b, (_, ds) in enumerate(bins)]
+    db = trace.to_device(dense, dev).transpose(1, 2).contiguous()
+    out = trace.to_host(torch.stack(sw_hint_stream(
+        trace.to_device(qc, dev), trace.to_device(ql, dev),
+        trace.to_device((build_matrix8 if _fits_int8(mat)
+                         else build_matrix_wide)(mat), dev),
+        db, trace.to_device(st, dev),
+        gapopenextend=int(Q), gapextend=int(R)))).tolist()
+    return [list(zip(*(x[b][:len(ds)] for x in out)))
+            for b, (_, ds) in enumerate(bins)]
 
 
 def _hint_batch(q, dseqs, mat, Q, R, device=None, starts=None):
@@ -356,24 +373,25 @@ def _hint_batch(q, dseqs, mat, Q, R, device=None, starts=None):
     if starts is None:
         starts = np.zeros(n, dtype=np.int64)
 
-    # the kernel route, at any query length and for any matrix (the wide
-    # instantiation outside int8): one launch holds the bin, or several
-    # its lanes where the scratch between a long query's bands would pass
-    # its cap.  A chromosome-scale subject (over 512 MB of padded lanes,
-    # or over the scratch cap in a warp alone) stays on the host instead
+    # on the card, the kernel route at any size, query length and matrix
+    # (the wide instantiation outside int8): one launch holds the batch,
+    # or several its lanes where the scratch between a long query's bands
+    # would pass its cap.  A batch over 512 MB of padded lanes, or over
+    # the scratch cap in a warp alone, stays on the host instead
     groups = None
-    if (n * maxlen * m > DEVICE_CELLS and _on_cuda(device) and m > 0
+    if (_on_cuda(device) and m > 0
             and _launch_bytes([(q, dseqs)]) <= _BIN_LAUNCH_BYTES):
         groups = _lane_groups(q, dseqs, mat)
     if groups is not None:
         out = [None] * n
         for g in groups:
             res = _hint_launch([(q, [dseqs[i] for i in g])], mat, Q, R,
-                               device, starts[g])[0]
+                               device, [starts[g]])[0]
             for i, r in zip(g, res):
                 out[i] = r
         return out
 
+    trace.count("hint.lanes_host", n)
     QP = mat[q, :].T.astype(np.int32)                 # (32, m)
     dense = np.zeros((n, maxlen), dtype=np.int8)
     for i, d in enumerate(dseqs):

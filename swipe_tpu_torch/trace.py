@@ -17,7 +17,9 @@ counter over its interval (``Span.counts``).  ``count(name, n)`` adds to
 one process-wide table of counters: kernel launches (``launch.<C
 entry>``, raised by ``ops.sw_stream._launch``), the host-to-device and
 device-to-host copies of ``to_device`` and ``to_host`` (``h2d_copies``,
-``h2d_bytes``, ``d2h_copies``, ``d2h_bytes``) and ``trace.dropped``.
+``h2d_bytes``, ``d2h_copies``, ``d2h_bytes``), the hint pass's lanes by
+route (``hint.lanes_kernel``, ``hint.lanes_host``: ops.align_hint) and
+``trace.dropped``.
 
 Spans live in a ring of ``RING`` records, with no I/O: a span opened
 when the ring is full takes the oldest record's place and raises

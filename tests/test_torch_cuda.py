@@ -122,7 +122,7 @@ def test_hint_grid_route_on_card_matches_host_pass(dev):
     rng = np.random.default_rng(4)
     m = ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix
     jobs = []
-    for nsub in (1, 5, 33, 70, 16, 2):       # over 4 bins: the kernel route
+    for nsub in (1, 5, 33, 70, 16, 2):
         q = rng.integers(1, 26, size=int(rng.integers(20, 200)),
                          dtype=np.int8)
         jobs.append((q, [rng.integers(1, 26, size=int(n), dtype=np.int8)
@@ -148,7 +148,6 @@ def test_hint_bin_over_scratch_cap_on_card_matches_host_pass(
     for i in range(0, 70, 7):
         a, b = sorted(rng.integers(0, 700, size=2))
         subs[i] = np.concatenate([subs[i], q[a:b + 1]])
-    monkeypatch.setattr(align_hint, "DEVICE_CELLS", 0)
     cap = align_hint._scratch_bytes([(q, [max(subs, key=len)])], m)
     monkeypatch.setattr(align_hint, "_SCRATCH_BYTES", cap)
     n = trace.launched("swipe_hint")
@@ -784,24 +783,79 @@ def test_engine_pallas_on_card_matches_stream(dev):
 
 
 def test_hint_endpoint_on_card_matches_host_pass(dev):
-    """hint_endpoint on the card against its NumPy pass, ties planted: a
-    subject over DEVICE_CELLS cells takes one launch of the hint kernel
-    (int8 and int32 matrices), a small one the host pass."""
-    from swipe_tpu_torch.ops.align_hint import DEVICE_CELLS, hint_endpoint
+    """hint_endpoint on the card against its NumPy pass, ties planted:
+    each subject, small as it is, takes one launch of the hint kernel
+    (int8 and int32 matrices) and no lane the host pass."""
+    from swipe_tpu_torch.ops.align_hint import hint_endpoint
     rng = np.random.default_rng(16)
     m = ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix
     q = rng.integers(1, 24, size=1000, dtype=np.int8)
-    big = DEVICE_CELLS // len(q) + 1000
-    n = trace.launched("swipe_hint")
-    for i, size in enumerate((big, big, 2000)):
+    for i, size in enumerate((3000, 3000, 2000)):
         d = rng.integers(1, 24, size=size, dtype=np.int8)
         if i != 1:
             # the same window twice: tied endpoints
             d[100:300] = d[size - 400:size - 200] = q[20:220]
         for mat, go, ge in ((m, 11, 1), (m * 100, 1100, 100)):
-            assert hint_endpoint(q, d, mat, go, ge, dev) == \
-                hint_endpoint(q, d, mat, go, ge)
-    assert trace.launched("swipe_hint") == n + 4
+            n, host = (trace.launched("swipe_hint"),
+                       trace.counter("hint.lanes_host"))
+            got = hint_endpoint(q, d, mat, go, ge, dev)
+            assert trace.launched("swipe_hint") == n + 1
+            assert trace.counter("hint.lanes_host") == host
+            assert got == hint_endpoint(q, d, mat, go, ge)
+
+
+def test_hint_grid_takes_every_bin_to_the_card(dev):
+    """hint_endpoints_grid on the card, one launch a call whatever the
+    bins' size: bins of 1, 4 and 100 subjects (the last at single-query
+    blastp's shape: 333 rows, subjects of 60-5,000 with planted ties), a
+    blastn bin that mixes a chromosome-scale subject (over GIANT_HINT_MIN:
+    its overlapped pieces) with genes, and two such bins in one call.
+    Equal to the NumPy pass; no lane takes the host pass."""
+    from swipe_tpu_torch.ops import align_hint
+    rng = np.random.default_rng(31)
+    aa = ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix
+    nt = ScoreMatrix.nucleotide(1, -3, 5, 2).matrix
+
+    def subject(q, n, hi):
+        d = rng.integers(1, hi, size=n, dtype=np.int8)
+        w = min(len(q) // 2, n // 3)
+        if w >= 10 and rng.random() < 0.5:
+            # the same window twice: tied endpoints
+            d[5:5 + w] = d[n - w - 5:n - 5] = q[:w]
+        return d
+
+    def aa_bin(nsub, qlen):
+        q = rng.integers(1, 24, size=qlen, dtype=np.int8)
+        return q, [subject(q, int(n), 24)
+                   for n in rng.integers(60, 5001, size=nsub)]
+
+    def nt_bin(n):
+        q = rng.integers(1, 5, size=500, dtype=np.int8)
+        giant = rng.integers(1, 5, size=n, dtype=np.int8)
+        for pos in (2048 * 50 + 10, 2048 * 120 + 300):  # piece heads
+            giant[pos:pos + 500] = q
+        return q, [subject(q, int(k), 5)
+                   for k in rng.integers(200, 3001, size=6)] + [giant]
+
+    assert align_hint.GIANT_HINT_MIN < 400_000
+    nt1, nt2 = nt_bin(400_000), nt_bin(450_000)
+    cases = [([aa_bin(1, 200)], aa, 11, 1), ([aa_bin(4, 120)], aa, 11, 1),
+             ([aa_bin(100, 333)], aa, 11, 1), ([nt1], nt, 5, 2),
+             ([nt1, nt2], nt, 5, 2)]
+    want = {}
+    for bins, mat, go, ge in cases:
+        n, host = (trace.launched("swipe_hint"),
+                   trace.counter("hint.lanes_host"))
+        got = align_hint.hint_endpoints_grid(bins, mat, go, ge, device=dev)
+        assert trace.launched("swipe_hint") == n + 1
+        assert trace.counter("hint.lanes_host") == host
+        for (q, subs), res in zip(bins, got):
+            key = (id(q), go)
+            if key not in want:
+                want[key] = align_hint.hint_endpoints_many(q, subs, mat, go,
+                                                           ge)
+            assert res == want[key]
+    assert want[(id(nt1[0]), 5)][-1][2] == 2048 * 50 + 10 + 499
 
 
 def test_lax_lane_pack_on_card_matches_plain(dev, chunk):

@@ -179,7 +179,6 @@ def test_hint_kernel_routes_split_launches_and_single_bin(monkeypatch):
     assert len(calls) == 2 and all(c[1] % 16 == 0 and c[2] == 32
                                    for c in calls)
     monkeypatch.setattr(tah, "_on_cuda", lambda device: True)
-    monkeypatch.setattr(tah, "DEVICE_CELLS", 0)
     q, subs = jobs[0]
     assert tah.hint_endpoints_many(q, subs, m.matrix, 11, 1,
                                    device="cpu") == want[0]
@@ -198,7 +197,6 @@ def test_giant_hint_pass_matches_jax(monkeypatch, gapextend, kernel):
     monkeypatch.setattr(tah, "GIANT_HINT_MIN", 600)
     if kernel:
         monkeypatch.setattr(tah, "_on_cuda", lambda device: True)
-        monkeypatch.setattr(tah, "DEVICE_CELLS", 0)
     gapopen = 11 + (gapextend == 0)
     m = ScoreMatrix.builtin("BLOSUM62", gapopen=gapopen, gapextend=gapextend)
     rng = np.random.default_rng(8 + gapextend)
@@ -221,3 +219,57 @@ def test_giant_hint_pass_matches_jax(monkeypatch, gapextend, kernel):
                                    gapopen, gapextend, device="cpu",
                                    force_device=True)
     assert grid[0] == got
+
+
+def test_grid_pieces_ride_one_launch_with_their_bins(monkeypatch):
+    # two bins that each mix a chromosome-scale subject with ordinary
+    # ones, on the grid's kernel route (the plain version here): the
+    # giants' overlapped pieces ride beside the bins' other subjects in
+    # one launch, equal to the host pass; a piece never takes a column
+    # before its first tracked one, though a copy of the query sits
+    # there; the lanes count on the kernel route alone
+    monkeypatch.setattr(jah, "GIANT_HINT_MIN", 600)
+    monkeypatch.setattr(tah, "GIANT_HINT_MIN", 600)
+    m = ScoreMatrix.builtin("BLOSUM62", gapopen=11, gapextend=1)
+    rng = np.random.default_rng(21)
+    jobs = []
+    for n, plants in ((6000, (2048 + 5, 4096 + 100)), (7000, (2048 + 40,))):
+        q = rng.integers(1, 26, size=30, dtype=np.int8)
+        giant = rng.integers(1, 26, size=n, dtype=np.int8)
+        for pos in plants:      # the head of a piece another piece owns
+            giant[pos:pos + 30] = q
+        subs = [rng.integers(1, 26, size=int(k), dtype=np.int8)
+                for k in rng.integers(80, 300, size=5)]
+        subs[1][40:70] = q
+        subs.insert(2, giant)
+        jobs.append((q, subs))
+    seen = []
+    kernel = tsw.sw_hint_stream
+
+    def spy(qc, ql, mat, db, starts, **kw):
+        out = kernel(qc, ql, mat, db, starts, **kw)
+        free = kernel(qc, ql, mat, db, torch.zeros_like(starts), **kw)
+        seen.append((starts, out, free))
+        return out
+
+    monkeypatch.setattr(tsw, "sw_hint_stream", spy)
+    lanes, host = (trace.counter("hint.lanes_kernel"),
+                   trace.counter("hint.lanes_host"))
+    got = tah.hint_endpoints_grid(jobs, m.matrix, 11, 1, device="cpu",
+                                  force_device=True)
+    # 6 subjects a bin, the giants in 3 and 4 pieces: 17 lanes, all on the
+    # kernel route
+    assert trace.counter("hint.lanes_kernel") - lanes == 17
+    assert trace.counter("hint.lanes_host") == host
+    assert got == [tah.hint_endpoints_many(q, subs, m.matrix, 11, 1)
+                   for q, subs in jobs]
+    assert got == [jah.hint_endpoints_many(q, subs, m.matrix, 11, 1)
+                   for q, subs in jobs]
+    assert [r[2][2] for r in got] == [2048 + 5 + 29, 2048 + 40 + 29]
+    assert len(seen) == 1                   # both bins, one launch
+    starts, (S, bq, bp), (_, fbq, fbp) = seen[0]
+    late = starts > 0
+    assert int(late.sum()) == 2 + 3
+    assert bool(((bq < 0) | (bp >= starts))[late].all())
+    # unmasked, a late piece's best lies in the head it does not own
+    assert bool(((fbq >= 0) & (fbp < starts))[late].any())

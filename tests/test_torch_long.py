@@ -269,7 +269,6 @@ def test_hint_over_1024_rows_on_kernel_route(monkeypatch, giant):
     monkeypatch.setattr(jah, "GIANT_HINT_MIN", 6000)
     monkeypatch.setattr(tah, "GIANT_HINT_MIN", 6000)
     monkeypatch.setattr(tah, "_on_cuda", lambda device: True)
-    monkeypatch.setattr(tah, "DEVICE_CELLS", 0)
     launches = []
     kernel = tsw.sw_hint_stream
 
@@ -307,7 +306,6 @@ def test_hint_bin_over_scratch_cap_splits_its_lanes(monkeypatch, warps):
     q, base = _nt_hint_jobs(rng, False)
     subs = [s[:int(rng.integers(1, len(s) + 1))] for s in base * 10]
     monkeypatch.setattr(tah, "_on_cuda", lambda device: True)
-    monkeypatch.setattr(tah, "DEVICE_CELLS", 0)
     cap = warps * tah._scratch_bytes(
         [(q, [max(subs, key=len)])], m.matrix)
     monkeypatch.setattr(tah, "_SCRATCH_BYTES", cap)

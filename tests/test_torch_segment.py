@@ -307,8 +307,8 @@ def test_wide_hint_pieces_match_jax(monkeypatch):
     per-bin route runs the hint kernel's wide instantiation (its plain
     version here) on the subject's overlapped pieces with their first
     tracked columns, and on the bin's other subjects; the JAX package's
-    NumPy pass is the reference.  The giant threshold and DEVICE_CELLS
-    are cut to fit the CPU."""
+    NumPy pass is the reference.  The giant threshold is cut to fit the
+    CPU."""
     m, go, ge = WIDE
     rng = np.random.default_rng(9)
     q = rng.integers(1, 15, size=30, dtype=np.int8)
@@ -319,7 +319,6 @@ def test_wide_hint_pieces_match_jax(monkeypatch):
     subjects[3][5:35] = q
     for mod in (jah, tah):
         monkeypatch.setattr(mod, "GIANT_HINT_MIN", 1000)
-    monkeypatch.setattr(tah, "DEVICE_CELLS", 0)
     monkeypatch.setattr(tah, "_on_cuda", lambda device: True)
     real = tsw.sw_hint_stream
     calls = trace.launched("swipe_hint")
