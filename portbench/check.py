@@ -4,11 +4,13 @@ a sample of the window's queries, judged against the plain reference.
 Numbers compared, each with the limit its configuration file states:
 
 * ``lists_wrong``: sampled queries whose hit list (sequence number,
-  strand, raw score, in order) differs from the reference's;
+  key, raw score, in order) differs from the reference's; the key tells
+  a record's hits apart by their strands and reading frames (the mode
+  module's ``hit_key``);
 * ``alignments_wrong``: shown alignments that do not re-walk, over the
-  inputs, from their reported start to their reported end with the
-  reference's best score of that sequence and strand (or whose reported
-  score is not it);
+  inputs (the frames that the key names, in a translated mode), from
+  their reported start to their reported end with the reference's best
+  score of that sequence and key (or whose reported score is not it);
 * ``evalue_gap``: the largest relative gap between a hit's E-value as the
   program gives it and the reference's E-value at that list position;
 * ``requests_failed``: requests of the window that raised.
@@ -50,7 +52,7 @@ class Reference:
         self.corpus = corpus
         self.mode = workload.load_mode(config)
         self.letters, self.matrix = self.mode.scoring(config)
-        flat, starts, lens, self.unit_seqno, self.unit_strand = \
+        flat, starts, lens, self.unit_seqno, self.unit_key = \
             self.mode.units(corpus, config)
         self.subjects = sw.Subjects(sw.encode(self.letters, flat), starts,
                                     lens, device)
@@ -59,7 +61,7 @@ class Reference:
         return sw.encode(self.letters, np.asarray(seq, dtype=np.uint8))
 
     def rows(self, query: bytes):
-        """[(strand, letters)] of the query's rows."""
+        """[(row key, letters)] of the query's rows."""
         return self.mode.query_rows(np.frombuffer(query, dtype=np.uint8),
                                     self.config)
 
@@ -89,11 +91,11 @@ class Reference:
                                  *self.mode.stat_lengths(query,
                                                          self.corpus))
 
-    def strands(self, query: bytes, units=slice(None)) -> np.ndarray:
-        """[row, subject] strand that each pair's hit reports."""
-        rs = np.array([s for s, _ in self.rows(query)], dtype=np.int64)
+    def keys(self, query: bytes, units=slice(None)) -> np.ndarray:
+        """[row, subject] key of each pair's hit."""
+        rs = np.array([k for k, _ in self.rows(query)], dtype=np.int64)
         return self.mode.hit_strand(rs[:, None],
-                                    self.unit_strand[units][None, :])
+                                    self.unit_key[units][None, :])
 
     def hits(self, query: bytes, scores: np.ndarray):
         """(reference hit list, its statistics) from [row, subject]
@@ -102,30 +104,32 @@ class Reference:
         stats = self.statistics(query)
         thr = max(int(c["minscore"]), stats.min_score(float(c["expect"])))
         keep = min(max(c["descriptions"], c["alignments"]), scores.size)
-        strand = np.broadcast_to(self.strands(query), scores.shape)
+        key = np.broadcast_to(self.keys(query), scores.shape)
         seqno = np.broadcast_to(self.unit_seqno, scores.shape)
-        return search.hit_list(scores.ravel(), strand.ravel(),
+        return search.hit_list(scores.ravel(), key.ravel(),
                                seqno.ravel(), thr, keep), stats
 
     def best(self, query: bytes, scores: np.ndarray, seqno: int,
-             strand: int) -> int:
-        """The reference's best score of one record on one strand."""
+             key: int) -> int:
+        """The reference's best score of one record's hit with ``key``."""
         u = np.flatnonzero(self.unit_seqno == seqno)
-        sel = scores[:, u][self.strands(query, u) == strand]
+        sel = scores[:, u][self.keys(query, u) == key]
         return int(sel.max()) if sel.size else 0
 
 
 def judge(ref: Reference, sample, aligned: bool = True) -> dict:
     """Numbers of the comparison over ``sample``: [(query letters, hit
-    list)], each hit list with ``hits`` (seqno, dstrand, score and, for
-    the first -b, alignment and coordinates) and ``evalue(score)``."""
+    list)], each hit list with ``hits`` (seqno, strands and frames, score
+    and, for the first -b, alignment and coordinates; or ``Keyed``) and
+    ``evalue(score)``."""
     c = ref.config
     lists_wrong = alignments_wrong = 0
     gap = 0.0
     every = ref.scores([q for q, _ in sample])
     for (query, got), scores in zip(sample, every):
         want, stats = ref.hits(query, scores)
-        have = [(h.seqno, h.dstrand, h.score) for h in got.hits]
+        have = [(h.seqno, h.key if isinstance(h, Keyed) else
+                 ref.mode.hit_key(h), h.score) for h in got.hits]
         lists_wrong += have != want
         for (_, _, sp), (_, _, sr) in zip(have, want):
             ep, er = got.evalue(sp), stats.evalue(sr)
@@ -137,9 +141,9 @@ def judge(ref: Reference, sample, aligned: bool = True) -> dict:
             continue
         q0 = np.frombuffer(query, np.uint8)
         for h in got.hits[:c["alignments"]]:
-            best = ref.best(query, scores, h.seqno, h.dstrand)
-            q, d = ref.mode.walk_pair(q0, ref.corpus.record(h.seqno),
-                                      h.dstrand)
+            key = ref.mode.hit_key(h)
+            best = ref.best(query, scores, h.seqno, key)
+            q, d = ref.mode.walk_pair(q0, ref.corpus.record(h.seqno), key)
             q, d = ref.encode(q), ref.encode(d)
             walked = search.walk(h.alignment, q, d, h.align_q_start,
                                  h.align_d_start, ref.matrix, c["gapopen"],
@@ -150,9 +154,11 @@ def judge(ref: Reference, sample, aligned: bool = True) -> dict:
             "evalue_gap": gap}
 
 
-class _Hit:
-    def __init__(self, seqno, dstrand, score):
-        self.seqno, self.dstrand, self.score = seqno, dstrand, score
+class Keyed:
+    """A hit of the reference's own list, by its key."""
+
+    def __init__(self, seqno: int, key: int, score: int):
+        self.seqno, self.key, self.score = seqno, key, score
 
 
 class ControlList:
@@ -165,7 +171,7 @@ class ControlList:
 
     def __init__(self, ref: Reference, query: bytes, scores: np.ndarray):
         want, self._stats = ref.hits(query, scores)
-        self.hits = [_Hit(*h) for h in want]
+        self.hits = [Keyed(*h) for h in want]
 
     def evalue(self, score: int) -> float:
         return self._stats.evalue(score)

@@ -241,7 +241,10 @@ class Answer(NamedTuple):
     """What the judge reads of one returned hit."""
 
     seqno: int
+    qstrand: int
+    qframe: int
     dstrand: int
+    dframe: int
     score: int
     alignment: str
     align_q_start: int
@@ -256,7 +259,8 @@ class ProgramList:
     that the window keeps none of the program's objects alive."""
 
     def __init__(self, hl):
-        self.hits = [Answer(h.seqno, h.dstrand, h.score, h.alignment,
+        self.hits = [Answer(h.seqno, h.qstrand, h.qframe, h.dstrand,
+                            h.dframe, h.score, h.alignment,
                             h.align_q_start, h.align_d_start,
                             h.align_q_end, h.align_d_end, h.score_align)
                      for h in hl.hits]

@@ -42,12 +42,18 @@ def units(corpus, config: dict):
             np.arange(n, dtype=np.int64), np.zeros(n, dtype=np.int64))
 
 
-def hit_strand(row_strand: np.ndarray, unit_strand: np.ndarray):
-    return row_strand + unit_strand
+def hit_key(answer) -> int:
+    """The record's strand: the program records a minus-query hit as
+    plus-query, minus-record."""
+    return answer.dstrand
 
 
-def walk_pair(query: np.ndarray, record: np.ndarray, strand: int):
-    return query, revcomp(record) if strand else record
+def hit_strand(row_key: np.ndarray, unit_key: np.ndarray):
+    return row_key + unit_key
+
+
+def walk_pair(query: np.ndarray, record: np.ndarray, key: int):
+    return query, revcomp(record) if key else record
 
 
 def stat_lengths(query: bytes, corpus) -> tuple[int, int, int]:

@@ -1,9 +1,10 @@
 """What a SWIPE search must return, worked out from the inputs alone.
 
 Plain NumPy and the scores of ``sw.sw_scan``: the hit list (every
-(sequence, strand) whose best local score reaches the E-value cutoff,
+(sequence, key) whose best local score reaches the E-value cutoff,
 ordered by score descending, then sequence number descending, then
-strand, cut at max(-v, -b) entries), the E-value of each hit under the
+key, cut at max(-v, -b) entries; the key stands for a hit's strands
+and reading frames), the E-value of each hit under the
 Karlin-Altschul statistics that the configuration states, and a judge
 of reported alignments that re-walks them over the inputs.
 
@@ -81,15 +82,15 @@ class Statistics:
         return int(math.ceil(-math.log(expect / self.kmn) / self.lam))
 
 
-def hit_list(scores: np.ndarray, strand: np.ndarray, seqno: np.ndarray,
+def hit_list(scores: np.ndarray, key: np.ndarray, seqno: np.ndarray,
              threshold: int, keep: int) -> list[tuple[int, int, int]]:
-    """[(seqno, strand, score)] of the units scoring at least
-    ``threshold``: score descending, seqno descending, strand ascending,
+    """[(seqno, key, score)] of the units scoring at least
+    ``threshold``: score descending, seqno descending, key ascending,
     the first ``keep``."""
     sel = np.flatnonzero(scores >= threshold)
-    order = np.lexsort((strand[sel], -seqno[sel], -scores[sel]))[:keep]
+    order = np.lexsort((key[sel], -seqno[sel], -scores[sel]))[:keep]
     sel = sel[order]
-    return [(int(seqno[i]), int(strand[i]), int(scores[i])) for i in sel]
+    return [(int(seqno[i]), int(key[i]), int(scores[i])) for i in sel]
 
 
 def walk(ops: str, q: np.ndarray, d: np.ndarray, q0: int, d0: int,

@@ -133,10 +133,10 @@ def test_a_symtype_without_a_mode_module_raises(toy, capsys):
     path = os.path.join(harness.HERE, "configs", "toy-blastp.json")
     with open(path) as f:
         c = json.load(f)
-    c["symtype"] = 2                     # blastx
+    c["symtype"] = 5                     # SWIPE's sound mode
     with open(path, "w") as f:
         json.dump(c, f)
-    with pytest.raises(ValueError, match="modes/blastx.py"):
+    with pytest.raises(ValueError, match="modes/symtype5.py"):
         harness.main(["--workload", "toy-blastp.toy4", "--seed", "1",
                       "--seconds", "0.1", "--rehearse"])
     assert capsys.readouterr().out == ""

@@ -82,7 +82,13 @@ PROGRAMS = ("blastn", "blastp", "blastx", "tblastn", "tblastx")
 
 def load_mode(config: dict):
     """The mode module of the configuration's ``symtype``; raises where
-    ``modes/`` has none."""
+    ``modes/`` has none, and where the configuration reads a genetic code
+    other than 1, the only one that the harness hands the program and
+    that the reference translates."""
+    for k in ("query_gencode", "db_gencode"):
+        if int(config.get(k, 1)) != 1:
+            raise ValueError(f"{config['name']}: {k} {config[k]}; only "
+                             f"genetic code 1 is run and judged")
     st = int(config["symtype"])
     name = PROGRAMS[st] if 0 <= st < len(PROGRAMS) else f"symtype{st}"
     if not os.path.exists(os.path.join(HERE, "modes", name + ".py")):
