@@ -19,9 +19,9 @@ import struct
 
 import numpy as np
 
-from ..alphabet import translate, revcompl
+from ..alphabet import revcompl
 from .asn1 import parse_defline_set, render_defline
-from .db import Database
+from .db import Database, translate_frame
 
 __all__ = ["BlastDatabase"]
 
@@ -351,7 +351,8 @@ class BlastDatabase(Database):
         nt = self._raw_nt(seqno)
         ntlen = len(nt)
         if symtype in (3, 4):
-            return translate(nt, dstrand, dframe, self.db_gencode), ntlen
+            return translate_frame(nt, dstrand, dframe, self.db_gencode), \
+                ntlen
         if dstrand:
             return revcompl(nt), ntlen
         return nt, ntlen

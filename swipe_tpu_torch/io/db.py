@@ -23,11 +23,24 @@ from typing import Iterator
 
 import numpy as np
 
+from .. import trace
 from ..alphabet import (MAP_NCBI_AA, MAP_NCBI_NT16, MAP_SOUND, translate,
                         revcompl)
 from .fasta import read_fasta, scan_fasta_bytes
 
-__all__ = ["Database", "FastaDatabase", "SearchUnit"]
+__all__ = ["Database", "FastaDatabase", "SearchUnit", "translate_frame"]
+
+
+def translate_frame(nt: np.ndarray, dstrand: int, dframe: int,
+                    gencode: int) -> np.ndarray:
+    """One reading frame of a record's nucleotide codes, for the
+    translated-db modes: a ``db.translate`` span, its bases counted in
+    ``translate.bases``."""
+    with trace.span("db.translate", strand=dstrand, frame=dframe,
+                    bases=len(nt)):
+        aa = translate(nt, dstrand, dframe, gencode)
+    trace.count("translate.bases", len(nt))
+    return aa
 
 
 @dataclass(frozen=True)
@@ -198,7 +211,7 @@ class FastaDatabase(Database):
 
     def __init__(self, path_or_fp, dbtype: str, db_gencode: int = 1,
                  title: str | None = None, threads: int = 1):
-        from .. import native, trace
+        from .. import native
         with trace.span("setup.db", dbtype=dbtype):
             native.tune_malloc()
             self.dbtype = dbtype
@@ -347,7 +360,8 @@ class FastaDatabase(Database):
             return s, len(s)
         ntlen = len(s)
         if symtype in (3, 4):
-            return translate(s, dstrand, dframe, self.db_gencode), ntlen
+            return translate_frame(s, dstrand, dframe, self.db_gencode), \
+                ntlen
         if dstrand:
             return revcompl(np.asarray(s, dtype=np.int8)), ntlen
         return s, ntlen

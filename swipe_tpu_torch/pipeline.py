@@ -834,28 +834,33 @@ class SearchEngine:
                                     sw_scores_stream_carry_long)
         p = self.params
         chunks = self._carry_chunks(1024)
-        qc, ql, m8 = self._slot_tensors(slots, qlen_pad)
-        width = round_up(chunks[0].nseqs, 32)
-        kw = dict(gapopenextend=p.gapopenextend, gapextend=p.gapextend)
-        if qlen_pad > self.ROW_CAP and not lax:
-            score = sw_scores_stream_carry_long
-            kw["tile_rows"] = self.LONG_TILE_ROWS
-            state = make_stream_state_long(len(slots), qlen_pad, width,
-                                           self.LONG_TILE_ROWS, self.device)
-        else:
-            score = sw_scores_stream_carry
-            state = make_stream_state(len(slots), qlen_pad, width,
-                                      self.device)
-        for i, ch in enumerate(chunks):
-            data, start, eb, ln = chunk_tensors(ch.data_t, ch.start,
-                                                ch.end_block, ch.lane,
-                                                self.device)
-            out, *state = score(qc, ql, m8, data, start, *state,
-                                carry_in=i > 0, carry_out=i < len(chunks) - 1,
-                                **kw)
-            if len(ch.seqnos):
-                yield ch.seqnos, trace.to_host(
-                    gather_scores(out, eb, ln)).numpy()
+        done = []
+        with trace.span("giant.carry", slots=len(slots), qlen_pad=qlen_pad):
+            qc, ql, m8 = self._slot_tensors(slots, qlen_pad)
+            width = round_up(chunks[0].nseqs, 32)
+            kw = dict(gapopenextend=p.gapopenextend, gapextend=p.gapextend)
+            if qlen_pad > self.ROW_CAP and not lax:
+                score = sw_scores_stream_carry_long
+                kw["tile_rows"] = self.LONG_TILE_ROWS
+                state = make_stream_state_long(len(slots), qlen_pad, width,
+                                               self.LONG_TILE_ROWS,
+                                               self.device)
+            else:
+                score = sw_scores_stream_carry
+                state = make_stream_state(len(slots), qlen_pad, width,
+                                          self.device)
+            for i, ch in enumerate(chunks):
+                data, start, eb, ln = chunk_tensors(ch.data_t, ch.start,
+                                                    ch.end_block, ch.lane,
+                                                    self.device)
+                out, *state = score(qc, ql, m8, data, start, *state,
+                                    carry_in=i > 0,
+                                    carry_out=i < len(chunks) - 1, **kw)
+                if len(ch.seqnos):
+                    done.append((ch.seqnos, trace.to_host(
+                        gather_scores(out, eb, ln)).numpy()))
+            self._count_giant_cells("carry", slots)
+        yield from done
 
     def _overlap_bound(self, qlen_pad: int) -> int:
         """Upper bound on the db-span of any positive-score local
@@ -881,14 +886,17 @@ class SearchEngine:
         nseqs = 2048 if qlen_pad <= dict(self.STREAM_CONFIGS)[2048] \
             else 1024
         owner, dev_chunks = self._seg_giant_chunks(nseqs, V)
-        qc, ql, m8 = self._slot_tensors(slots, qlen_pad)
         best = np.zeros((len(slots), len(self._giant_ids)), dtype=np.int64)
-        for data, start, eb, ln, snos in dev_chunks:
-            out = sw_scores_stream(qc, ql, m8, data, start,
-                                   gapopenextend=p.gapopenextend,
-                                   gapextend=p.gapextend)
-            sc = trace.to_host(gather_scores(out, eb, ln)).numpy()
-            np.maximum.at(best, (slice(None), owner[snos]), sc)
+        with trace.span("giant.pieces", slots=len(slots), qlen_pad=qlen_pad,
+                        overlap=V):
+            qc, ql, m8 = self._slot_tensors(slots, qlen_pad)
+            for data, start, eb, ln, snos in dev_chunks:
+                out = sw_scores_stream(qc, ql, m8, data, start,
+                                       gapopenextend=p.gapopenextend,
+                                       gapextend=p.gapextend)
+                sc = trace.to_host(gather_scores(out, eb, ln)).numpy()
+                np.maximum.at(best, (slice(None), owner[snos]), sc)
+            self._count_giant_cells("pieces", slots)
         yield self._giant_ids, best
 
     def _seg_giant_chunks(self, nseqs: int, V: int):
@@ -941,14 +949,27 @@ class SearchEngine:
         from .ops.sw_stream import build_matrix8, build_qcodes
         from .ops.sw_wavefront import build_mq, sw_wavefront_scores
         p = self.params
-        qc, _ = build_qcodes([s[3] for s in slots], qlen_pad)
-        mq = trace.to_device(build_mq(
-            qc, build_matrix8(self.matrix.matrix)), self.device)
-        for gid, seq in zip(self._giant_ids, self._giant_seqs):
-            sc = sw_wavefront_scores(mq, seq, gapopenextend=p.gapopenextend,
-                                     gapextend=p.gapextend)
-            yield (np.array([gid], dtype=np.int64),
-                   trace.to_host(sc).numpy()[:, None])
+        with trace.span("giant.wavefront", slots=len(slots),
+                        qlen_pad=qlen_pad, giants=len(self._giant_ids)):
+            qc, _ = build_qcodes([s[3] for s in slots], qlen_pad)
+            mq = trace.to_device(build_mq(
+                qc, build_matrix8(self.matrix.matrix)), self.device)
+            done = [trace.to_host(sw_wavefront_scores(
+                mq, seq, gapopenextend=p.gapopenextend,
+                gapextend=p.gapextend)).numpy()
+                for seq in self._giant_seqs]
+            self._count_giant_cells("wavefront", slots)
+        # a giant a yield, as the cascade counters count them
+        for gid, sc in zip(self._giant_ids, done):
+            yield np.array([gid], dtype=np.int64), sc[:, None]
+
+    def _count_giant_cells(self, route: str, slots) -> None:
+        """Add the cells a giant route walked, ``giant.cells.<route>``:
+        the slots' query residues times the giants' residues, with no
+        padding and no piece overlap."""
+        trace.count(f"giant.cells.{route}",
+                    sum(len(s[3]) for s in slots)
+                    * sum(len(g) for g in self._giant_seqs))
 
     def _enter_chunk(self, slots, units, sc, timings):
         """Enter the giants' host scores [nslots, n] of ``units``."""

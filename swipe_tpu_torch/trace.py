@@ -18,8 +18,11 @@ one process-wide table of counters: kernel launches (``launch.<C
 entry>``, raised by ``ops.sw_stream._launch``), the host-to-device and
 device-to-host copies of ``to_device`` and ``to_host`` (``h2d_copies``,
 ``h2d_bytes``, ``d2h_copies``, ``d2h_bytes``), the hint pass's lanes by
-route (``hint.lanes_kernel``, ``hint.lanes_host``: ops.align_hint) and
-``trace.dropped``.
+route (``hint.lanes_kernel``, ``hint.lanes_host``: ops.align_hint), the
+cells each giant route walked (``giant.cells.pieces``, ``.wavefront``,
+``.carry``: pipeline, inside the spans ``giant.<route>``), the bases of
+the reading frames a database translated (``translate.bases``: io.db,
+inside the spans ``db.translate``) and ``trace.dropped``.
 
 Spans live in a ring of ``RING`` records, with no I/O: a span opened
 when the ring is full takes the oldest record's place and raises
