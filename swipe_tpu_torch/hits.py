@@ -67,11 +67,15 @@ class Hit:
 class HitList:
     def __init__(self, descriptions: int, alignments: int, minscore: int,
                  maxscore: int, minexpect: float, expect: float,
-                 evmodel: EvalueModel, db, symtype: int, querystrands: int):
+                 evmodel: EvalueModel, db, symtype: int, querystrands: int,
+                 engine=None):
         self.opt_descriptions = descriptions
         self.opt_alignments = alignments
         self.evmodel = evmodel
         self.db = db
+        # the search's engine answers a hit's subject from the units it
+        # holds (SearchEngine.subject); without one, the database does
+        self.engine = engine
         self.symtype = symtype
         self.querystrands = querystrands
 
@@ -211,11 +215,18 @@ class HitList:
             # not aligned, but displays may still need the sequence
             # length (-m 7 <len>); the reference prints stale memory
             # here — we report the true length (see report.show_xml)
-            h.dlen, h.dlennt = self.db.get_length(
-                h.seqno, self.symtype, h.dstrand, h.dframe)
+            if self.engine is not None:
+                h.dlen, h.dlennt = self.engine.subject_length(
+                    h.seqno, h.dstrand, h.dframe)
+            else:
+                h.dlen, h.dlennt = self.db.get_length(
+                    h.seqno, self.symtype, h.dstrand, h.dframe)
             return
-        dseq, ntlen = self.db.get_sequence(
-            h.seqno, self.symtype, h.dstrand, h.dframe)
+        if self.engine is not None:
+            dseq, ntlen = self.engine.subject(h.seqno, h.dstrand, h.dframe)
+        else:
+            dseq, ntlen = self.db.get_sequence(
+                h.seqno, self.symtype, h.dstrand, h.dframe)
         h.dseq = dseq
         h.dlen = len(dseq)
         h.dlennt = ntlen

@@ -374,6 +374,7 @@ class MultiHostEngine(SearchEngine):
         # chunks instead of re-decoding + re-packing ~3/4 of the shard
         self._wave2_cache: dict[tuple, list] = {}
         self._assign_speeds: np.ndarray | None = None
+        self._derived = {}
 
     def _load_units(self, lo: int, hi: int, *, keep_giants: bool):
         """Decode [lo, hi)'s units; NORMAL units go to (ids, seqs);
@@ -394,6 +395,16 @@ class MultiHostEngine(SearchEngine):
             self._giant_ids = ids[giant]
             self._giant_seqs = [seqs[i] for i in giant]
         return ids[normal], [seqs[i] for i in normal]
+
+    def _held_unit(self, u: int):
+        """Unit ``u``'s codes where this host decoded them at init (its
+        shard's normal units and its giants), else None."""
+        for ids, seqs in ((self._own_ids, self._own_seqs),
+                          (self._giant_ids, self._giant_seqs)):
+            i = int(np.searchsorted(ids, u))
+            if i < len(ids) and ids[i] == u:
+                return seqs[i]
+        return None
 
     def _units_for_range(self, lo: int, hi: int):
         """NORMAL units of [lo, hi): served from the shard decode done at

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from . import trace
+from .alphabet import revcompl
 from .batching import (PAD_SYMBOL, StreamChunk, pack_database, pack_stream,
                        pack_stream_carry, pack_stream_flow, round_up)
 from .hits import HitList
@@ -291,6 +292,8 @@ class SearchEngine:
             np.int64)
         self._giant_seqs = [self._unit_seqs[i] for i in self._giant_ids]
         self._norm_lens = lens[self._normal_ids]
+        # a giant's minus strand, made for the align phase at its first hit
+        self._derived: dict[int, np.ndarray] = {}
         # plain packs and their device copies by (lanes, chunk height)
         self._stream_packs: dict[tuple, list] = {}
         self._dev_stream: dict[tuple, list] = {}
@@ -442,8 +445,77 @@ class SearchEngine:
             hitlists.append(
                 HitList(p.descriptions, p.alignments, p.minscore,
                         p.maxscore, p.minexpect, p.expect, evmodel, self.db,
-                        p.symtype, p.querystrands))
+                        p.symtype, p.querystrands, engine=self))
         return hitlists
+
+    def _held_unit(self, u: int) -> np.ndarray | None:
+        """The codes of unit ``u`` as the engine holds them."""
+        return self._unit_seqs[u]
+
+    def _held(self, seqno: int, dstrand: int, dframe: int):
+        """(unit, its held codes) that a hit on (seqno, dstrand, dframe)
+        of a nucleotide database reads, or None where the engine holds
+        no such unit (a record check_inclusion dropped).  A blastn hit's
+        minus strand reads its plus strand's unit.  unit_meta is sorted
+        by (seqno, dstrand, dframe), as search_units yields the units."""
+        translated = self.params.symtype in (3, 4)
+        um = self.unit_meta
+        u = int(np.searchsorted(um[:, 0], seqno))
+        if translated:
+            u += 3 * dstrand + dframe
+        if u >= len(um) or um[u, 0] != seqno or (
+                translated and (um[u, 1], um[u, 2]) != (dstrand, dframe)):
+            return None
+        held = self._held_unit(u)
+        return None if held is None else (u, held)
+
+    def subject(self, seqno: int, dstrand: int, dframe: int
+                ) -> tuple[np.ndarray, int]:
+        """A hit's subject codes in its orientation and the record's
+        nucleotide length, as ``db.get_sequence`` gives them, read-only.
+
+        A nucleotide database's held unit answers as it is (every frame
+        of tblastn and tblastx, every blastn plus strand); a giant's
+        minus strand is made from its plus strand's unit at its first hit
+        and kept for the engine's life; anything else, and every protein
+        database, reads the database."""
+        p = self.params
+        if p.symtype not in (0, 3, 4):
+            return self.db.get_sequence(seqno, p.symtype, dstrand, dframe)
+        got = self._held(seqno, dstrand, dframe)
+        minus = p.symtype == 0 and dstrand
+        if got is None or (minus and got[0] not in self._giant_ids):
+            trace.count("align.subject.db")
+            return self.db.get_sequence(seqno, p.symtype, dstrand, dframe)
+        u, codes = got
+        if minus:
+            if u not in self._derived:
+                self._derived[u] = revcompl(codes)
+                trace.count("align.subject.derived")
+            codes = self._derived[u]
+        trace.count("align.subject.held")
+        view = codes.view()
+        view.flags.writeable = False
+        return view, self._ntlen(seqno, codes)
+
+    def subject_length(self, seqno: int, dstrand: int, dframe: int
+                       ) -> tuple[int, int]:
+        """(subject length, nucleotide length) of a hit, as
+        ``db.get_length`` gives them, from a held unit where there is
+        one."""
+        p = self.params
+        got = self._held(seqno, dstrand, dframe) \
+            if p.symtype in (0, 3, 4) else None
+        if got is None:
+            return self.db.get_length(seqno, p.symtype, dstrand, dframe)
+        return len(got[1]), self._ntlen(seqno, got[1])
+
+    def _ntlen(self, seqno: int, codes: np.ndarray) -> int:
+        """A record's nucleotide length: its blastn unit's, or for a
+        frame, what symtype 0 reads without translating."""
+        if self.params.symtype == 0:
+            return len(codes)
+        return self.db.get_length(seqno, 0)[1]
 
     def _align_phase(self, queries, hitlists, seqnos=None):
         """Fetch and align the finalized hit lists' hits (all, or with

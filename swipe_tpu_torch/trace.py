@@ -22,7 +22,11 @@ route (``hint.lanes_kernel``, ``hint.lanes_host``: ops.align_hint), the
 cells each giant route walked (``giant.cells.pieces``, ``.wavefront``,
 ``.carry``: pipeline, inside the spans ``giant.<route>``), the bases of
 the reading frames a database translated (``translate.bases``: io.db,
-inside the spans ``db.translate``) and ``trace.dropped``.
+inside the spans ``db.translate``), the align phase's subject fetches on
+a nucleotide database (pipeline ``SearchEngine.subject``:
+``align.subject.held`` those the engine's memory served,
+``align.subject.derived`` the giants' minus strands it made, once each,
+``align.subject.db`` those the database served) and ``trace.dropped``.
 
 Spans live in a ring of ``RING`` records, with no I/O: a span opened
 when the ring is full takes the oldest record's place and raises

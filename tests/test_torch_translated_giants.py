@@ -10,7 +10,8 @@ as ``test_torch_giants.py`` forces them) must give the reference's hit
 list (record, strand and frame, score), shown alignments that re-walk to
 the reference's score, its own ``giant.<route>`` span and the real cells
 in ``giant.cells.<route>``; the database's translations are
-``db.translate`` spans counted in ``translate.bases``."""
+``db.translate`` spans counted in ``translate.bases``, each frame once
+at set-up and none in the search."""
 
 import io
 
@@ -120,6 +121,11 @@ def test_tblastn_giant_route_matches_reference(route):
     for k, v in ROUTES[route].items():
         setattr(eng, k, v)
     assert eng._giant_ids.size == 12
+    # every frame of every record translated once, at set-up
+    assert "db.translate" in {s.name for s in trace.spans(since)}
+    assert trace.counter("translate.bases") - bases0 \
+        == 6 * sum(len(r) for r in recs)
+    bases0 = trace.counter("translate.bases")
     hl = eng.search_batch([preprocess_query("q0", q, 3, 3)])[0]
 
     # the route's span and the real cells it walked, and no other route
@@ -129,11 +135,9 @@ def test_tblastn_giant_route_matches_reference(route):
     for r in ROUTES:
         got = trace.counter(f"giant.cells.{r}") - cells0[r]
         assert got == (len(q) * giant_aa if r == route else 0), r
-    # every frame of every record translated at set-up, and the shown
-    # hits' frames again when the align phase fetches them
-    assert "db.translate" in names
-    assert trace.counter("translate.bases") - bases0 \
-        >= 6 * sum(len(r) for r in recs)
+    # the search translates nothing: the align phase reads the frames
+    # the engine holds
+    assert trace.counter("translate.bases") == bases0
 
     # the hit list: record, strand and frame, score
     want = search.hit_list(best, keys, seqno, 1, PARAMS["descriptions"])
