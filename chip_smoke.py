@@ -504,14 +504,12 @@ def _hint_tensor(results):
 def check_hint_bands(dev, m62, rng, report):
     """K4 on torch_row_cases' hint bins, against its plain version:
     queries one row either side of a strip edge and of a band edge,
-    inside a strip, over one band (the grid's 513-1024 rows) and over
-    1,100 rows (hint_endpoints_many's), ties across strip and band edges,
-    tails before a first tracked column, empty subjects and lanes; the
-    int8 matrix at gaps 11/1 and 150/2 and BLOSUM62 scaled by 100 at 255-
-    300 rows (the wide instantiation's 256-row bands).  Then both routes
-    that launch it, against the host pass: the grid on the bins up to
-    1,024 rows, and the per-bin route (hint_endpoints_many) on those over
-    1,100 rows and the wide ones."""
+    inside a strip, over one band (513-1024 rows) and over 1,100 rows,
+    ties across strip and band edges, tails before a first tracked
+    column, empty subjects and lanes; the int8 matrix at gaps 11/1 and
+    150/2 and BLOSUM62 scaled by 100 at 255-300 rows (the wide
+    instantiation's 256-row bands).  Then the entry point that launches
+    it (hint_endpoints_grid) on every case, against its NumPy pass."""
     mat = m62.matrix.astype(np.int64)
     for lengths, go, ge, scale in rc.HINT_CASES.values():
         bins, tails = rc.hint_bins(rng, lengths, nsub=60, maxlen=600)
@@ -525,14 +523,9 @@ def check_hint_bands(dev, m62, rng, report):
         kw = dict(gapopenextend=go + ge, gapextend=ge)
         _compare("sw_hint_stream", sw.sw_hint_stream(*hargs, **kw),
                  sw.sw_hint_stream_plain(*hargs, **kw), report)
-        host = [align_hint.hint_endpoints_many(q, ss, mat * scale, go, ge)
-                for q, ss in bins]
-        if max(lengths) <= 1024 and scale == 1:
-            got = align_hint.hint_endpoints_grid(bins, mat, go, ge,
-                                                 device=dev)
-        else:
-            got = [align_hint.hint_endpoints_many(
-                q, ss, mat * scale, go, ge, device=dev) for q, ss in bins]
+        host = align_hint.hint_endpoints_grid(bins, mat * scale, go, ge)
+        got = align_hint.hint_endpoints_grid(bins, mat * scale, go, ge,
+                                             device=dev)
         _compare("sw_hint_stream", _hint_tensor(got), _hint_tensor(host),
                  report)
 
@@ -1520,25 +1513,26 @@ def check_carry_forms(label, launches, nchunks, form="rows"):
 
 
 def track_hints(split):
-    """Wrap align_hint._hint_batch (the per-bin hint pass) so that a
-    batch that took the NumPy host pass on the card fails the run, and
-    the largest query of a launch is kept in split["k4_rows"].  Returns
-    the original."""
-    orig = align_hint._hint_batch
+    """Wrap align_hint's hint launch and NumPy pass (_hint_launch,
+    _hint_host) so that lanes that took the NumPy pass on the card fail
+    the run, and the largest query of a launch is kept in
+    split["k4_rows"].  Returns the function that restores both."""
+    launch, host = align_hint._hint_launch, align_hint._hint_host
 
-    def checked(q, dseqs, *a, **k):
-        n, host = trace.launched("swipe_hint"), trace.counter(
-            "hint.lanes_host")
-        out = orig(q, dseqs, *a, **k)
-        if trace.counter("hint.lanes_host") > host:
-            raise RuntimeError(f"a hint batch of {len(dseqs)} subjects "
-                               f"({len(q)} rows) ran on the host")
-        if trace.launched("swipe_hint") > n:
-            split["k4_rows"] = max(split.get("k4_rows", 0), len(q))
-        return out
+    def launched(bins, *a, **k):
+        split["k4_rows"] = max(split.get("k4_rows", 0),
+                               max(len(q) for q, _ in bins))
+        return launch(bins, *a, **k)
 
-    align_hint._hint_batch = checked
-    return orig
+    def on_host(q, dseqs, *a, **k):
+        raise RuntimeError(f"{len(dseqs)} hint lanes ({len(q)} rows) ran "
+                           f"on the host")
+
+    def restore():
+        align_hint._hint_launch, align_hint._hint_host = launch, host
+
+    align_hint._hint_launch, align_hint._hint_host = launched, on_host
+    return restore
 
 
 def long_genome(engine, db, chrom, genes, frames, card, calls, seed=6):
@@ -1556,14 +1550,14 @@ def long_genome(engine, db, chrom, genes, frames, card, calls, seed=6):
     queries = [preprocess_query("l0", q.tobytes().decode(), 0, 3)]
     groups = track_groups(engine)
     hints: dict = {}
-    orig = track_hints(hints)
+    untrack = track_hints(hints)
     try:
         hitlists, tim, wall, launches, split = run_search(
             "long-genome", engine, queries,
             ("stream_tile_pass", "stream_tile_carry_pass", "sw_hint_stream"),
             calls)
     finally:
-        align_hint._hint_batch = orig
+        untrack()
         untrack_groups(engine)
     if groups != [(2, -(-qlen // 512) * 512, 1024, True)]:
         raise RuntimeError(f"long-genome: slot groups {groups}")
@@ -1609,14 +1603,14 @@ def wide_genome(dev, db, nt_q, plants, int8_hits, frames, card, calls):
         f"{len(engine.chunks)} segment chunks, the chromosome in "
         f"{len(engine._carry_chunks(1024))} carry chunks")
     hints: dict = {}
-    orig = track_hints(hints)
+    untrack = track_hints(hints)
     try:
         hitlists, tim, wall, launches, split = run_search(
             "wide-genome", engine, queries,
             ("sw_scores_segmented", "sw_scores_stream_carry_rows",
              "sw_hint_stream"), calls)
     finally:
-        align_hint._hint_batch = orig
+        untrack()
     check_carry_forms("wide-genome", launches,
                       len(engine._carry_chunks(1024)))
     if any(launches[n] for n in ("build_dprofile_series", "sw_scores_stream",

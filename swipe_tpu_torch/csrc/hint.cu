@@ -30,8 +30,8 @@
 //     (the last band ends at its last row), and the virtual rows' H = 0
 //     never beats the max of 0 a column starts from, so no row outside
 //     the query enters a max;
-//   * a query over one band (any length: hint_endpoints_many takes bins
-//     of long queries, the wide matrix bands of 256 rows): band k's
+//   * a query over one band (any length; the wide matrix bands of 256
+//     rows): band k's
 //     thread 31 writes (H, F, column max, row) per column to a plane
 //     [L] of the pair, which band k + 1's thread 0 reads as its row above,
 //     staged with the db symbols; only the last band folds;

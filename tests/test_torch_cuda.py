@@ -130,15 +130,14 @@ def test_hint_grid_route_on_card_matches_host_pass(dev):
     n = trace.launched("swipe_hint")
     got = align_hint.hint_endpoints_grid(jobs, m, 11, 1, device=dev)
     assert trace.launched("swipe_hint") > n
-    assert got == [align_hint.hint_endpoints_many(q, subs, m, 11, 1)
-                   for q, subs in jobs]
+    assert got == align_hint.hint_endpoints_grid(jobs, m, 11, 1)
 
 
 def test_hint_bin_over_scratch_cap_on_card_matches_host_pass(
         dev, monkeypatch):
-    # a 700-nt query (two int8 bands) whose scratch between bands is
-    # capped at one warp of its longest subject: the bin's 70 lanes run
-    # on several launches, equal to the host pass
+    # a 700-nt query (two int8 bands) whose launch cap is one warp of its
+    # longest subject: the bin's 70 lanes run on several launches, equal
+    # to the host pass
     from swipe_tpu_torch.ops import align_hint
     rng = np.random.default_rng(5)
     m = ScoreMatrix.nucleotide(1, -3, 5, 2).matrix
@@ -148,12 +147,13 @@ def test_hint_bin_over_scratch_cap_on_card_matches_host_pass(
     for i in range(0, 70, 7):
         a, b = sorted(rng.integers(0, 700, size=2))
         subs[i] = np.concatenate([subs[i], q[a:b + 1]])
-    cap = align_hint._scratch_bytes([(q, [max(subs, key=len)])], m)
-    monkeypatch.setattr(align_hint, "_SCRATCH_BYTES", cap)
+    cap = align_hint.WARP * align_hint._launch_dims(
+        [[max(subs, key=len)]])[0]
+    monkeypatch.setattr(align_hint, "_LAUNCH_BYTES", cap)
     n = trace.launched("swipe_hint")
-    got = align_hint.hint_endpoints_many(q, subs, m, 5, 2, device=dev)
+    got = align_hint.hint_endpoints_grid([(q, subs)], m, 5, 2, device=dev)
     assert trace.launched("swipe_hint") - n > 1
-    assert got == align_hint.hint_endpoints_many(q, subs, m, 5, 2)
+    assert got == align_hint.hint_endpoints_grid([(q, subs)], m, 5, 2)
 
 
 def test_engine_on_card_matches_cpu(dev):
@@ -783,10 +783,10 @@ def test_engine_pallas_on_card_matches_stream(dev):
 
 
 def test_hint_endpoint_on_card_matches_host_pass(dev):
-    """hint_endpoint on the card against its NumPy pass, ties planted:
-    each subject, small as it is, takes one launch of the hint kernel
-    (int8 and int32 matrices) and no lane the host pass."""
-    from swipe_tpu_torch.ops.align_hint import hint_endpoint
+    """One subject a call on the card against its NumPy pass, ties
+    planted: each subject, small as it is, takes one launch of the hint
+    kernel (int8 and int32 matrices) and no lane the host pass."""
+    from swipe_tpu_torch.ops.align_hint import hint_endpoints_grid
     rng = np.random.default_rng(16)
     m = ScoreMatrix.builtin("BLOSUM62", 11, 1).matrix
     q = rng.integers(1, 24, size=1000, dtype=np.int8)
@@ -798,10 +798,10 @@ def test_hint_endpoint_on_card_matches_host_pass(dev):
         for mat, go, ge in ((m, 11, 1), (m * 100, 1100, 100)):
             n, host = (trace.launched("swipe_hint"),
                        trace.counter("hint.lanes_host"))
-            got = hint_endpoint(q, d, mat, go, ge, dev)
+            got = hint_endpoints_grid([(q, [d])], mat, go, ge, dev)
             assert trace.launched("swipe_hint") == n + 1
             assert trace.counter("hint.lanes_host") == host
-            assert got == hint_endpoint(q, d, mat, go, ge)
+            assert got == hint_endpoints_grid([(q, [d])], mat, go, ge)
 
 
 def test_hint_grid_takes_every_bin_to_the_card(dev):
@@ -852,8 +852,8 @@ def test_hint_grid_takes_every_bin_to_the_card(dev):
         for (q, subs), res in zip(bins, got):
             key = (id(q), go)
             if key not in want:
-                want[key] = align_hint.hint_endpoints_many(q, subs, mat, go,
-                                                           ge)
+                want[key] = align_hint.hint_endpoints_grid(
+                    [(q, subs)], mat, go, ge)[0]
             assert res == want[key]
     assert want[(id(nt1[0]), 5)][-1][2] == 2048 * 50 + 10 + 499
 

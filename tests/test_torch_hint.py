@@ -132,33 +132,40 @@ def test_hint_plain_matches_host_pass(gapopen, gapextend):
         assert port == host
 
 
-def test_hint_grid_route_matches_host_pass():
-    # the grid (kernel) route, forced onto the CPU, takes the kernel's
-    # plain version: bins grouped, padded and unpacked as on the card
+def test_hint_grid_route_matches_host_pass(monkeypatch):
+    # the kernel route, taken on the CPU with _on_cuda patched, runs the
+    # kernel's plain version: bins grouped, padded and unpacked as on the
+    # card
     m = ScoreMatrix.builtin("BLOSUM62", gapopen=11, gapextend=1)
     rng = np.random.default_rng(5)
     jobs = _bins(rng, 3, 12, 10, 50, 1, 90)
-    got = tah.hint_endpoints_grid(jobs, m.matrix, 11, 1, device="cpu",
-                                  force_device=True)
     want = [jah.hint_endpoints_many(q, subs, m.matrix, 11, 1)
             for q, subs in jobs]
-    assert got == want
-    # the default route on a CPU device is the host pass itself
+    # the default route on a CPU device is the NumPy pass
+    host = trace.counter("hint.lanes_host")
     assert tah.hint_endpoints_grid(jobs, m.matrix, 11, 1,
                                    device="cpu") == want
+    assert trace.counter("hint.lanes_host") - host == 36
+    monkeypatch.setattr(tah, "_on_cuda", lambda device: True)
+    lanes = trace.counter("hint.lanes_kernel")
+    assert tah.hint_endpoints_grid(jobs, m.matrix, 11, 1,
+                                   device="cpu") == want
+    assert trace.counter("hint.lanes_kernel") - lanes == 36
 
 
 def test_hint_host_passes_match_jax():
     m = ScoreMatrix.builtin("BLOSUM62", gapopen=11, gapextend=1)
     rng = np.random.default_rng(6)
     q, subs = _bins(rng, 1, 16, 10, 40, 1, 60)[0]
-    assert tah.hint_endpoints_many(q, subs, m.matrix, 11, 1) == \
-        jah.hint_endpoints_many(q, subs, m.matrix, 11, 1)
+    # the entry point on the CPU: one NumPy pass over the bin, and an
+    # empty bin without one
+    assert tah.hint_endpoints_grid([(q, subs), (q, [])], m.matrix, 11, 1) \
+        == [jah.hint_endpoints_many(q, subs, m.matrix, 11, 1), []]
 
 
 def test_hint_kernel_routes_split_launches_and_single_bin(monkeypatch):
     # on the kernel's plain version: bins cut into several launches under
-    # the footprint cap, and one large bin on the per-bin route
+    # the footprint cap, and a bin over the cap alone in whole warps
     m = ScoreMatrix.builtin("BLOSUM62", gapopen=11, gapextend=1)
     rng = np.random.default_rng(7)
     jobs = _bins(rng, 4, 10, 10, 40, 1, 70)
@@ -170,19 +177,27 @@ def test_hint_kernel_routes_split_launches_and_single_bin(monkeypatch):
         calls.append(tuple(a[3].shape))
         return kernel(*a, **k)
 
+    monkeypatch.setattr(tah, "_on_cuda", lambda device: True)
     monkeypatch.setattr(tah, "_LAUNCH_BYTES", 2 * 80 * 32)
     monkeypatch.setattr(tsw, "sw_hint_stream", counted)
-    got = tah.hint_endpoints_grid(jobs, m.matrix, 11, 1, device="cpu",
-                                  force_device=True)
+    got = tah.hint_endpoints_grid(jobs, m.matrix, 11, 1, device="cpu")
     assert got == want
     # columns round to whole blocks, lanes to a warp: 2 bins a launch
     assert len(calls) == 2 and all(c[1] % 16 == 0 and c[2] == 32
                                    for c in calls)
-    monkeypatch.setattr(tah, "_on_cuda", lambda device: True)
-    q, subs = jobs[0]
-    assert tah.hint_endpoints_many(q, subs, m.matrix, 11, 1,
-                                   device="cpu") == want[0]
-    assert len(calls) == 3
+    # the 40 subjects in one bin of two warps, over a cap of one warp at
+    # 80 columns: a warp a launch, the longest lanes first
+    cap = 80 * 32
+    monkeypatch.setattr(tah, "_LAUNCH_BYTES", cap)
+    q = jobs[0][0]
+    subs = [s for _, ss in jobs for s in ss]
+    cols, lanes = tah._launch_dims([subs])
+    assert lanes == 64 and cols * lanes > cap >= cols * 32
+    assert tah.hint_endpoints_grid([(q, subs)], m.matrix, 11, 1,
+                                   device="cpu") == \
+        [jah.hint_endpoints_many(q, subs, m.matrix, 11, 1)]
+    assert len(calls) == 4 and calls[2] == (1, cols, 32)
+    assert calls[3][2] == 32 and calls[3][1] * 32 <= cap
 
 
 @pytest.mark.parametrize("gapextend,kernel", [(1, False), (1, True),
@@ -190,9 +205,10 @@ def test_hint_kernel_routes_split_launches_and_single_bin(monkeypatch):
 def test_giant_hint_pass_matches_jax(monkeypatch, gapextend, kernel):
     # chromosome-scale subjects beside ordinary ones, with GIANT_HINT_MIN
     # cut down: overlapped owned-column pieces (segmentable scoring) or
-    # one subject alone (free gap extension: no span bound), on the host
-    # pass or on the hint kernel's plain version; two equal copies of the
-    # query's core make the endpoint a tie across pieces
+    # one lane whole (free gap extension: no span bound), on the NumPy
+    # pass or on the hint kernel's plain version (``kernel``: _on_cuda
+    # patched); two equal copies of the query's core make the endpoint a
+    # tie across pieces
     monkeypatch.setattr(jah, "GIANT_HINT_MIN", 600)
     monkeypatch.setattr(tah, "GIANT_HINT_MIN", 600)
     if kernel:
@@ -209,23 +225,22 @@ def test_giant_hint_pass_matches_jax(monkeypatch, gapextend, kernel):
         giants.append(s)
     subs = [giants[0], rng.integers(1, 26, size=70, dtype=np.int8),
             giants[1], np.concatenate([q, q])]
-    got = tah.hint_endpoints_many(q, subs, m.matrix, gapopen, gapextend,
-                                  device="cpu")
+    got = tah.hint_endpoints_grid([(q, subs)], m.matrix, gapopen,
+                                  gapextend, device="cpu")[0]
     assert got == jah.hint_endpoints_many(q, subs, m.matrix, gapopen,
                                           gapextend)
     assert got[0][2] == 2048 - 10 + 29          # the first of the tie
-    # the align phase's grid sends bins with giants to this pass
+    # beside another bin, the same hints
     grid = tah.hint_endpoints_grid([(q, subs), (q, subs[1:2])], m.matrix,
-                                   gapopen, gapextend, device="cpu",
-                                   force_device=True)
-    assert grid[0] == got
+                                   gapopen, gapextend, device="cpu")
+    assert grid == [got, got[1:2]]
 
 
 def test_grid_pieces_ride_one_launch_with_their_bins(monkeypatch):
     # two bins that each mix a chromosome-scale subject with ordinary
     # ones, on the grid's kernel route (the plain version here): the
     # giants' overlapped pieces ride beside the bins' other subjects in
-    # one launch, equal to the host pass; a piece never takes a column
+    # one launch, equal to the JAX package's NumPy pass; a piece never takes a column
     # before its first tracked one, though a copy of the query sits
     # there; the lanes count on the kernel route alone
     monkeypatch.setattr(jah, "GIANT_HINT_MIN", 600)
@@ -253,16 +268,14 @@ def test_grid_pieces_ride_one_launch_with_their_bins(monkeypatch):
         return out
 
     monkeypatch.setattr(tsw, "sw_hint_stream", spy)
+    monkeypatch.setattr(tah, "_on_cuda", lambda device: True)
     lanes, host = (trace.counter("hint.lanes_kernel"),
                    trace.counter("hint.lanes_host"))
-    got = tah.hint_endpoints_grid(jobs, m.matrix, 11, 1, device="cpu",
-                                  force_device=True)
+    got = tah.hint_endpoints_grid(jobs, m.matrix, 11, 1, device="cpu")
     # 6 subjects a bin, the giants in 3 and 4 pieces: 17 lanes, all on the
     # kernel route
     assert trace.counter("hint.lanes_kernel") - lanes == 17
     assert trace.counter("hint.lanes_host") == host
-    assert got == [tah.hint_endpoints_many(q, subs, m.matrix, 11, 1)
-                   for q, subs in jobs]
     assert got == [jah.hint_endpoints_many(q, subs, m.matrix, 11, 1)
                    for q, subs in jobs]
     assert [r[2][2] for r in got] == [2048 + 5 + 29, 2048 + 40 + 29]

@@ -260,9 +260,9 @@ def _nt_hint_jobs(rng, giant):
 
 @pytest.mark.parametrize("giant", [False, True])
 def test_hint_over_1024_rows_on_kernel_route(monkeypatch, giant):
-    # a bin over the grid's 1024-row domain reaches the hint kernel (its
-    # plain version here) through hint_endpoints_many, a giant cut into
-    # owned-column pieces; equal to the JAX package's host pass
+    # a bin over 1024 rows reaches the hint kernel (its plain version
+    # here, _on_cuda patched) in one launch, a giant's owned-column pieces
+    # beside the other subjects; equal to the JAX package's host pass
     m = ScoreMatrix.nucleotide(1, -3, 5, 2)
     rng = np.random.default_rng(40 + giant)
     q, subs = _nt_hint_jobs(rng, giant)
@@ -278,38 +278,38 @@ def test_hint_over_1024_rows_on_kernel_route(monkeypatch, giant):
 
     monkeypatch.setattr(tsw, "sw_hint_stream", counted)
     want = jah.hint_endpoints_many(q, subs, m.matrix, 5, 2)
-    got = tah.hint_endpoints_grid([(q, subs)], m.matrix, 5, 2, device="cpu",
-                                  force_device=True)[0]
+    got = tah.hint_endpoints_grid([(q, subs)], m.matrix, 5, 2,
+                                  device="cpu")[0]
     assert got == want
-    # one launch of 1,100 rows (two with the giant's pieces)
-    assert launches == [(1, 1100)] * (1 + giant)
+    # one launch of 1,100 rows, the giant's pieces in it
+    assert launches == [(1, 1100)]
     if giant:
         assert got[2][0] > 100 and got[2][2] >= 6000
-    # over the scratch cap (the planes between its query's bands) the bin
-    # stays on the host pass
-    cap = tah._scratch_bytes([(q, subs[:2])], m.matrix)
-    assert cap == 16 * -(-max(map(len, subs[:2])) // KSEG) * KSEG * 32
-    monkeypatch.setattr(tah, "_SCRATCH_BYTES", cap - 1)
-    assert tah.hint_endpoints_many(q, subs[:2], m.matrix, 5, 2,
-                                   device="cpu") == want[:2]
-    assert len(launches) == 1 + giant
+    # with the cap below a warp of either subject alone, the bin stays on
+    # the host pass
+    cols = tah._launch_dims([[min(subs[:2], key=len)]])[0]
+    assert cols == -(-min(map(len, subs[:2])) // KSEG) * KSEG
+    monkeypatch.setattr(tah, "_LAUNCH_BYTES", cols * tah.WARP - 1)
+    host = trace.counter("hint.lanes_host")
+    assert tah.hint_endpoints_grid([(q, subs[:2])], m.matrix, 5, 2,
+                                   device="cpu") == [want[:2]]
+    assert len(launches) == 1
+    assert trace.counter("hint.lanes_host") - host == 2
 
 
 @pytest.mark.parametrize("warps", [1, 2])
 def test_hint_bin_over_scratch_cap_splits_its_lanes(monkeypatch, warps):
-    # a bin of 70 subjects whose planes between the query's bands pass the
-    # scratch cap (set to ``warps`` warps of its longest subject) runs on
-    # several launches of whole warps under the cap, not on the host
-    # pass; equal to the JAX package's host pass
+    # a bin of 70 subjects over the launch cap (set to ``warps`` warps of
+    # its longest subject) runs on several launches of whole warps under
+    # the cap, not on the host pass; equal to the JAX package's host pass
     m = ScoreMatrix.nucleotide(1, -3, 5, 2)
     rng = np.random.default_rng(44)
     q, base = _nt_hint_jobs(rng, False)
     subs = [s[:int(rng.integers(1, len(s) + 1))] for s in base * 10]
     monkeypatch.setattr(tah, "_on_cuda", lambda device: True)
-    cap = warps * tah._scratch_bytes(
-        [(q, [max(subs, key=len)])], m.matrix)
-    monkeypatch.setattr(tah, "_SCRATCH_BYTES", cap)
-    assert tah._scratch_bytes([(q, subs)], m.matrix) > cap
+    cap = warps * tah.WARP * tah._launch_dims([[max(subs, key=len)]])[0]
+    monkeypatch.setattr(tah, "_LAUNCH_BYTES", cap)
+    assert np.prod(tah._launch_dims([subs])) > cap
     launches = []
     kernel = tsw.sw_hint_stream
 
@@ -318,8 +318,10 @@ def test_hint_bin_over_scratch_cap_splits_its_lanes(monkeypatch, warps):
         return kernel(*a, **k)
 
     monkeypatch.setattr(tsw, "sw_hint_stream", counted)
-    got = tah.hint_endpoints_many(q, subs, m.matrix, 5, 2, device="cpu")
+    host = trace.counter("hint.lanes_host")
+    got = tah.hint_endpoints_grid([(q, subs)], m.matrix, 5, 2,
+                                  device="cpu")[0]
     assert got == jah.hint_endpoints_many(q, subs, m.matrix, 5, 2)
-    assert len(launches) > 1
+    assert len(launches) > 1 and trace.counter("hint.lanes_host") == host
     assert sum(lanes for _, _, lanes in launches) >= len(subs)
-    assert all(16 * cols * lanes <= cap for _, cols, lanes in launches)
+    assert all(cols * lanes <= cap for _, cols, lanes in launches)

@@ -1,6 +1,7 @@
 """The port's multi-host engine (parallel/multihost.py) against the JAX
 package: its host decisions on random inputs, the single-host pieces it
-needs (unit_metas, hint_endpoint, fill_hit, align_all), in-process
+needs (unit_metas, the align phase's align_prepare, hint_endpoints_grid
+and align_finish), in-process
 engines of one rank against SearchEngine and JAX's MultiHostEngine, and
 two-process gloo runs of ``python -m swipe_tpu_torch --mh-procs 2``
 against the single-process ``swipe_tpu.cli`` bytes."""
@@ -37,7 +38,7 @@ from swipe_tpu_torch.io.db import FastaDatabase
 from swipe_tpu_torch.io.fasta import preprocess_query
 from swipe_tpu_torch.matrices import ScoreMatrix
 from swipe_tpu_torch.ops import sw_stream
-from swipe_tpu_torch.ops.align_hint import hint_endpoint
+from swipe_tpu_torch.ops.align_hint import hint_endpoints_grid
 from swipe_tpu_torch.parallel import multihost as tmh
 from swipe_tpu_torch.pipeline import SearchEngine, SearchParams, SearchTimings
 from swipe_tpu_torch.stats import EvalueModel
@@ -186,19 +187,24 @@ def test_lane_pack_from_fresh_carry_state_is_k2():
 # ---- the single-host pieces the align phase needs ---------------------------
 
 def test_hint_endpoint_and_fill_hit_match_jax():
+    # the port's hint pass against JAX's hint_endpoint a subject, then its
+    # align phase (align_prepare -> hint_endpoints_grid -> align_finish)
+    # against JAX's fill_hit and align_all
     rng = np.random.default_rng(12)
     m = ScoreMatrix.builtin("BLOSUM62", gapopen=11, gapextend=1).matrix
     q = rng.integers(1, 24, size=60, dtype=np.int8)
+    subs = []
     for i in range(12):
         d = rng.integers(1, 24, size=int(rng.integers(1, 300)),
                          dtype=np.int8)
         if i % 3 == 0:
             # the query's window twice: tied endpoints
             d = np.concatenate([d[:20], q[10:40], d[20:50], q[10:40]])
-        assert hint_endpoint(q, d, m, 11, 1) == \
-            jax_hint_endpoint(q, d, m, 11, 1)
-        assert hint_endpoint(q, d, m * 100, 1100, 100) == \
-            jax_hint_endpoint(q, d, m * 100, 1100, 100)
+        subs.append(d)
+    assert hint_endpoints_grid([(q, subs)], m, 11, 1)[0] == \
+        [jax_hint_endpoint(q, d, m, 11, 1) for d in subs]
+    assert hint_endpoints_grid([(q, subs)], m * 100, 1100, 100)[0] == \
+        [jax_hint_endpoint(q, d, m * 100, 1100, 100) for d in subs]
 
     qstr = "".join(rng.choice(list(AA), 60))
     recs = seqs(rng, 40, 20, 150, AA)
@@ -206,24 +212,33 @@ def test_hint_endpoint_and_fill_hit_match_jax():
     recs[9] = qstr[20:55] + recs[9] + qstr[20:55]
     fa = fasta(recs)
     lists = []
-    for Hits, Ev, Db, prep in (
-            (HitList, EvalueModel, FastaDatabase, preprocess_query),
+    for Hits, Ev, Db, prep, routes in (
+            (HitList, EvalueModel, FastaDatabase, preprocess_query,
+             ("phases",)),
             (JaxHitList, JaxEvalueModel, JaxFastaDatabase,
-             jax_preprocess_query)):
+             jax_preprocess_query, ("fill", "all"))):
         db = Db(io.StringIO(fa), "aa")
         query = prep("q", qstr, 1, 3)
         ev = Ev(1, query.length, db.seqcount_masked(),
                 db.symcount_masked(), matrixname="BLOSUM62", gapopen=11,
                 gapextend=1)
         out = []
-        for fill in (True, False):
+        for route in routes:
             hl = Hits(25, 10, 1, 2**63 - 1, 0.0, 1e9, ev, db, 1, 3)
             sc = np.array([int(db.get_sequence(s, 1)[0].sum(
                 dtype=np.int64)) % 97 for s in range(40)])
             hl.enter_batch(np.arange(40), sc, 0, 0, np.zeros(40, int),
                            np.zeros(40, int))
             hl.finalize()
-            if fill:
+            if route == "phases":
+                shown, bins = hl.align_prepare(query)
+                res = hint_endpoints_grid(
+                    [(qs, [h.dseq for _, h in items]) for qs, items in bins],
+                    m, 11, 1)
+                hints = {i: r for (_, items), rs in zip(bins, res)
+                         for (i, _), r in zip(items, rs) if r[1] > 0 and r[2]}
+                hl.align_finish(query, m, 11, 1, shown, hints)
+            elif route == "fill":
                 for i, h in enumerate(hl.hits):
                     hl.fill_hit(i, h, query, m, 11, 1)
             else:
@@ -231,7 +246,7 @@ def test_hint_endpoint_and_fill_hit_match_jax():
             out.append([(h.seqno, h.score, h.score_align, h.align_q_start,
                          h.align_d_start, h.align_q_end, h.align_d_end,
                          h.alignment, h.header, h.dlen) for h in hl.hits])
-        assert out[0] == out[1]
+        assert all(o == out[0] for o in out)
         lists.append(out[0])
     assert lists[0] == lists[1] and len(lists[0]) == 25
 

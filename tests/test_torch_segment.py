@@ -304,11 +304,11 @@ def test_wide_carry_plain_matches_lax_twin():
 
 def test_wide_hint_pieces_match_jax(monkeypatch):
     """A wide-matrix bin with a chromosome-scale subject: the port's
-    per-bin route runs the hint kernel's wide instantiation (its plain
-    version here) on the subject's overlapped pieces with their first
-    tracked columns, and on the bin's other subjects; the JAX package's
-    NumPy pass is the reference.  The giant threshold is cut to fit the
-    CPU."""
+    entry point runs the hint kernel's wide instantiation (its plain
+    version here) in one launch on the subject's overlapped pieces with
+    their first tracked columns beside the bin's other subjects; the JAX
+    package's NumPy pass is the reference.  The giant threshold is cut
+    to fit the CPU."""
     m, go, ge = WIDE
     rng = np.random.default_rng(9)
     q = rng.integers(1, 15, size=30, dtype=np.int8)
@@ -329,11 +329,11 @@ def test_wide_hint_pieces_match_jax(monkeypatch):
         return real(qc, ql, mat, *a, **k)
 
     monkeypatch.setattr(tsw, "sw_hint_stream", spy)
-    got = tah.hint_endpoints_many(q, subjects, m.matrix, go, ge,
-                                  device="cpu")
+    got = tah.hint_endpoints_grid([(q, subjects)], m.matrix, go, ge,
+                                  device="cpu")[0]
     want = jah.hint_endpoints_many(q, subjects, m.matrix, go, ge)
     assert got == [tuple(w) for w in want]
-    assert seen == [torch.int32, torch.int32]   # the others, the pieces
+    assert seen == [torch.int32]                # the pieces among the rest
     # the plain version launches nothing
     assert trace.launched("swipe_hint") == calls
     assert got[0][0] > 0 and got[3][0] > 0
