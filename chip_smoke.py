@@ -256,8 +256,8 @@ KERNELS = {   # wrapper -> (its module, source, TPU kernel it replaces)
                                     "swipe_tpu/ops/sw_stream.py:733"),
     "sw_hint_stream": (sw, "swipe_tpu_torch/csrc/hint.cu",
                        "swipe_tpu/ops/sw_stream.py:990"),
-    "sw_wavefront": (wf, "swipe_tpu_torch/csrc/wavefront.cu",
-                     "swipe_tpu/ops/sw_wavefront.py:227"),
+    "sw_wavefront_giants": (wf, "swipe_tpu_torch/csrc/wavefront.cu",
+                            "swipe_tpu/ops/sw_wavefront.py:227"),
     "stream_tile_pass": (sw, "swipe_tpu_torch/csrc/carry_rows.cu",
                          "swipe_tpu/ops/sw_stream.py:1263"),
     "stream_tile_carry_pass": (sw, "swipe_tpu_torch/csrc/carry_rows.cu",
@@ -276,7 +276,8 @@ ENTRIES = {"build_dprofile_series": "swipe_dprofile",
            "sw_scores_stream": "swipe_stream_rows",
            "sw_scores_stream_carry_flow": "swipe_carry_flow",
            "sw_scores_stream_carry_rows": "swipe_carry_rows",
-           "sw_hint_stream": "swipe_hint", "sw_wavefront": "swipe_wavefront",
+           "sw_hint_stream": "swipe_hint",
+           "sw_wavefront_giants": "swipe_wavefront",
            "stream_tile_pass": "swipe_stream_tile",
            "stream_tile_carry_pass": "swipe_stream_tile_carry",
            "sw_scores_tiled": "swipe_segment_tiled",
@@ -290,14 +291,14 @@ PLAIN = {"sw_scores_tiled": seg.sw_scores_segmented_plain,
          peak.peak_chain_plain(x, iters * peak.PEAK_STEPS)}
 # state arguments each wrapper updates in place (cloned before a replay)
 STATE_ARGS = {"sw_scores_stream_carry_flow": (5, 6, 7),
-              "sw_scores_stream_carry_rows": (5, 6, 7), "sw_wavefront": (2, 3, 4),
+              "sw_scores_stream_carry_rows": (5, 6, 7),
               "stream_tile_pass": (6, 7, 8),
               "stream_tile_carry_pass": (6, 7, 8, 9, 10)}
 # the kernels' times at their largest calls before their redesign as a
 # warp a (query, lane) (ms, this script on an NVIDIA H100 80GB HBM3,
 # 700.00 W), printed in brackets beside this run's
 REDESIGNED_FROM_MS = {"stream_tile_pass": 247.789, "sw_hint_stream": 115.292,
-                      "sw_scores_stream": 108.812, "sw_wavefront": 55.319,
+                      "sw_scores_stream": 108.812,
                       "sw_scores_tiled": 54.596,
                       "sw_scores_segmented": 83.401,
                       "sw_scores_stream_carry_flow": 19.296}
@@ -748,6 +749,39 @@ def check_wavefront(dev, m8, rng, report):
                                                         **kw), want, report)
     finally:
         wf.SEG_STRIPS = seg_strips
+    check_wavefront_giants(dev, m8, rng, report)
+
+
+def check_wavefront_giants(dev, m8, rng, report):
+    """K7 as the engine calls it: torch_row_cases' three giants, cut into
+    the pieces the plans for 1, 3 and 16 queries of 128 rows make on this
+    card, with alignments across every cut, gaps inside the overlaps and
+    across slab edges; each plan in one launch against the plain
+    version's whole giants."""
+    rows, V = rc.WAVE_GIANT_ROWS, rc.WAVE_GIANT_V
+    resident = wf.wavefront_resident(rows, dev)
+    plans = {nq: wf.plan_pieces(rc.WAVE_GIANTS, nq, rows, V, resident)
+             for nq in (1, 3, 16)}
+    cuts = sorted({(p.giant, p.own[0]) for plan in plans.values()
+                   for p in plan if p.own[0]})
+    best = 1 + np.argsort(-np.diag(m8.cpu().numpy())[1:26].astype(int),
+                          kind="stable")[:4]
+    qs, giants = rc.wavefront_giants_case(rng, cuts, best)
+    qc, ql = sw.build_qcodes(qs, rows)
+    mq = torch.from_numpy(wf.build_mq(qc, m8.cpu().numpy())).to(dev)
+    held = wf.hold_giants(giants, dev)
+    kw = dict(overlap=V, gapopenextend=12, gapextend=1)
+    want = wf.sw_wavefront_giants_plain(mq, ql, held, **kw)
+    for nq, plan in plans.items():
+        n = trace.launched("swipe_wavefront")
+        got = wf.sw_wavefront_giants(mq[:nq].contiguous(), ql[:nq], held,
+                                     **kw)
+        if trace.launched("swipe_wavefront") != n + 1 or len(plan) <= 3:
+            raise RuntimeError(f"check: {nq} queries' giants did not take "
+                               "one launch of their pieces")
+        _compare("sw_wavefront_giants", got, want[:nq], report)
+    log(f"check: sw_wavefront_giants, {len(cuts)} piece cuts, resident "
+        f"{resident} blocks at {rows} rows")
 
 
 def plain_tiles(fn, *a, **k):
@@ -1007,7 +1041,8 @@ def segment_search(label, dev, db, queries, want, backend, kernel, card,
     hitlists, timings, wall, launches, split = run_search(
         label, engine, queries, expect, calls)
     # the giants' carry series takes no profiles: K3's row form
-    others = {"build_dprofile_series", "sw_scores_stream", "sw_wavefront",
+    others = {"build_dprofile_series", "sw_scores_stream",
+              "sw_wavefront_giants",
               "stream_tile_pass", "stream_tile_carry_pass",
               "sw_scores_stream_carry_flow", "sw_scores_tiled",
               "sw_scores_segmented"} - {kernel}
@@ -1451,7 +1486,7 @@ def genome_searches(dev, workdir, card, calls, seed=5):
                   for f in range(3)] for d in range(2)}
     keys = []
     for route, expect in (
-            ("wavefront", ("sw_wavefront", "sw_scores_stream",
+            ("wavefront", ("sw_wavefront_giants", "sw_scores_stream",
                            "sw_hint_stream")),
             ("carry", ("sw_scores_stream_carry_rows", "sw_scores_stream",
                        "sw_hint_stream"))):
@@ -1615,7 +1650,8 @@ def wide_genome(dev, db, nt_q, plants, int8_hits, frames, card, calls):
                       len(engine._carry_chunks(1024)))
     if any(launches[n] for n in ("build_dprofile_series", "sw_scores_stream",
                                  "sw_scores_tiled", "stream_tile_pass",
-                                 "stream_tile_carry_pass", "sw_wavefront")):
+                                 "stream_tile_carry_pass",
+                                 "sw_wavefront_giants")):
         raise RuntimeError("wide-genome: a kernel of another route launched")
     n = check_genome_hits("wide-genome", db, engine, queries, hitlists,
                           plants[:nq], (500, 200), frames)
@@ -1741,12 +1777,10 @@ def _work(name, args, kw, out):
         x, iters = args
         steps = x.numel() * iters * peak.PEAK_STEPS
         return (_nbytes(x, out), *_ops(steps, PEAK_STEP_OPS))
-    if name == "sw_wavefront":
-        mq, db = args[:2]
-        qlens = (mq != -128).any(dim=2).sum(dim=1)   # rows of real symbols
-        cells = int(qlens.sum()) * int((db != PAD_SYMBOL).sum())
-        return (_nbytes(mq, db) + 2 * _nbytes(*args[2:]),
-                *_ops(cells, CELL_OPS))
+    if name == "sw_wavefront_giants":
+        mq, ql, held = args
+        cells = int(np.sum(ql)) * sum(held.lengths)
+        return (_nbytes(mq, held.db, out), *_ops(cells, CELL_OPS))
     qc, ql, m8, db, starts = args
     residues = (db != PAD_SYMBOL).sum(dim=(1, 2))     # per bin
     cells = int((ql.long() * residues).sum())
@@ -1787,10 +1821,13 @@ def _chain(name, args, kw):
         rows = int(seg.query_lengths(qpt).max())
         # the widest segment (seg_ids' last entry repeats the last block's)
         cols = int(torch.bincount(seg_ids[:-1].long()).max()) * SEG_BLK
-    elif name == "sw_wavefront":
-        mq, db = args[:2]
-        rows = int((mq != -128).any(dim=2).sum(dim=1).max())
-        cols = int((db != PAD_SYMBOL).sum())
+    elif name == "sw_wavefront_giants":
+        # the longest chain: the longest piece the call walks
+        mq, ql, held = args
+        rows = int(np.max(ql))
+        cols = max(p.walk[1] - p.walk[0] for p in wf.plan_pieces(
+            held.lengths, len(ql), mq.shape[1], kw["overlap"],
+            wf.wavefront_resident(mq.shape[1], mq.device)))
     else:                                              # sw_hint_stream
         _, ql, _, db, _ = args
         rows = int(ql.max())
@@ -1830,6 +1867,19 @@ def _plain(name):
     return PLAIN.get(name) or getattr(KERNELS[name][0], name + "_plain")
 
 
+def _checked(name, args):
+    """A call's arguments as check_paths holds them against the plain
+    version: K7's giants cut to the first 262,144 columns of the first
+    (its plain version walks a column a step, about 77 s there; the
+    tblastn phase holds the whole call's hit lists against the carry
+    series')."""
+    if name != "sw_wavefront_giants":
+        return args
+    mq, ql, held = args
+    return mq, ql, wf.HeldGiants(held.db, held.starts[:1], (min(
+        held.lengths[0], wf.SEG_STRIPS * wf.STRIP),))
+
+
 def check_paths(calls, report):
     """Every kernel each search launched, held against its plain version
     at that search's largest call of it: the inputs as they came in, the
@@ -1838,6 +1888,7 @@ def check_paths(calls, report):
     kernel)."""
     plain_ms, errs = {}, {}
     for (label, name), (_, args, kw) in calls.items():
+        args = _checked(name, args)
         mod = KERNELS[name][0]
         out = getattr(mod, name)(*_fresh(name, args), **kw)
         plain, pargs, ref = _plain(name), _fresh(name, args), []
@@ -1863,12 +1914,7 @@ def time_kernels(calls, plain_ms, report):
         _, args, kw = calls[label, name]
         fn = getattr(mod, name)
         out = fn(*_fresh(name, args), **kw)
-        # K7's first query alone, from the state as it came in
-        one = (args[0][:1].contiguous(), args[1],
-               *(x[:1].clone() for x in args[2:])) \
-            if name == "sw_wavefront" else None
-        # replays update the recorded state in place: the same work
-        reps = 2 if name == "sw_wavefront" else 5
+        reps = 2 if name == "sw_wavefront_giants" else 5
         ms = _time(lambda: fn(*args, **kw), reps)
         nbytes, alu, ops, int32_ops = _work(name, args, kw, out)
         chain = _chain(name, args, kw)
@@ -1895,23 +1941,39 @@ def time_kernels(calls, plain_ms, report):
             f"ceiling, {chain} dependent instructions on the critical path "
             f"{path_ms:.4f} ms; as two-operand int32 on the ALU pipe "
             f"{int32_ops / INT32_OPS_PER_S * 1e3:.4f} ms)")
-        if one is not None:
-            rows[name]["one_query_ms"] = time_one_query(one, kw, out,
-                                                        report)
+        if name == "sw_wavefront_giants":
+            rows[name].update(time_wavefront(args, kw, out, report))
     return rows
 
 
-def time_one_query(one, kw, out, report):
-    """K7 at its largest call with the first query alone (the usual
-    tblastn search is one protein against a genome): its state must be
-    the first query's of the whole call (``out``)."""
-    got = wf.sw_wavefront(*(x.clone() for x in one), **kw)
-    _compare("sw_wavefront", got, tuple(x[:1] for x in out), report)
-    ms = _time(lambda: wf.sw_wavefront(*one, **kw), 2)
-    log(f"time: sw_wavefront at {[tuple(x.shape) for x in one[:2]]} "
-        f"(one query): {ms:.3f} ms, the same state as the first query of "
+def time_wavefront(args, kw, out, report):
+    """K7 at its largest call (every query against the six frames) with
+    the first query alone, the usual tblastn search: its scores must be
+    the first query's of the whole call (``out``); then one 262,144-column
+    segment of the first giant through sw_wavefront, a chain a query,
+    with the whole call's queries and with the first alone."""
+    mq, ql, held = args
+    one = (mq[:1].contiguous(), ql[:1], held)
+    got = wf.sw_wavefront_giants(*one, **kw)
+    _compare("sw_wavefront_giants", got, out[:1], report)
+    pieces = wf.plan_pieces(held.lengths, 1, mq.shape[1], kw["overlap"],
+                            wf.wavefront_resident(mq.shape[1], mq.device))
+    times = {"one_query_ms": _time(
+        lambda: wf.sw_wavefront_giants(*one, **kw), 3)}
+    log(f"time: sw_wavefront_giants, one query of {mq.shape[1]} rows "
+        f"against giants of {list(held.lengths)} in {len(pieces)} pieces: "
+        f"{times['one_query_ms']:.3f} ms, the scores of the first query of "
         "the whole call")
-    return ms
+    seg = held.db[:wf.SEG_STRIPS * wf.STRIP]
+    gaps = dict(gapopenextend=kw["gapopenextend"], gapextend=kw["gapextend"])
+    for key, q in (("segment_ms", len(ql)), ("segment_one_query_ms", 1)):
+        full = mq[:q].contiguous()
+        state = wf.make_wavefront_state(q, mq.shape[1], mq.device)
+        times[key] = _time(lambda: wf.sw_wavefront(full, seg, *state,
+                                                   **gaps), 3)
+        log(f"time: sw_wavefront at {tuple(full.shape)} x {seg.shape[0]} "
+            f"columns: {times[key]:.3f} ms")
+    return times
 
 
 def summed_device_ms():
@@ -2217,7 +2279,7 @@ def multihost_procs(dbpath, qpath, workdir, card):
               if counts["blastn-giant", r]["giants"]["owned"]]
     if len(owners) != 1 or not any(
             counts["blastn-giant", owners[0]]["giants"]["launches"][n] > 0
-            for n in ("sw_scores_stream", "sw_wavefront",
+            for n in ("sw_scores_stream", "sw_wavefront_giants",
                       "sw_scores_stream_carry_rows",
                       "stream_tile_carry_pass")):
         raise RuntimeError("multihost-2proc blastn-giant: no rank scored "
@@ -2337,7 +2399,8 @@ def main() -> int:
         log(f"time: {time.time() - t:.1f} s")
         if any(r["mismatches"] for r in report.values()):
             raise RuntimeError("sw_scores_stream over 2,048 rows, or "
-                               "sw_wavefront with one query, differs")
+                               "sw_wavefront_giants with one query, "
+                               "differs")
         dbpath, qpath, recs = cli(workdir)
         more, st = multihost(dev, dbpath, recs, workdir, card)
         launches.update(more)

@@ -9,8 +9,8 @@ the search path written by hand in CUDA C++ for sm_90a (``csrc/``):
   * the grouped stream scoring of NQ queries against every lane, its
     carry forms for flow and carry series and the query-tiled passes
     (csrc/carry_rows.cu);
-  * the anti-diagonal wavefront over one giant sequence
-    (csrc/wavefront.cu);
+  * the anti-diagonal wavefront over the giant sequences, in chains of
+    slabs (csrc/wavefront.cu);
   * the alignment-endpoint hints of the align phase (csrc/hint.cu);
   * the segment-packed route's scoring (csrc/segment.cu) and the ALU-rate
     probe (csrc/peak.cu).

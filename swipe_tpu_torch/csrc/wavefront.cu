@@ -1,12 +1,26 @@
-// Wavefront scoring of one giant db segment (K7): the segment's columns
-// cut into slabs that run at once across the card.
+// Wavefront scoring of chains of giant db columns (K7): each chain's
+// columns cut into slabs that run at once across the card.
 //
 // Replaces the TPU kernel swipe_tpu/ops/sw_wavefront.py sw_wavefront
-// (_wavefront_kernel).  NQ queries against ONE db sequence, streamed
-// through segments with the cross-segment state carried between launches:
-// per query row the H and E of the segment's last column, and the
-// query's running max S.  Used for the few chromosome-scale units whose
-// positive-score span is too large to cut them into overlapped pieces.
+// (_wavefront_kernel).  A launch walks CHAINS: a chain is one query
+// against one run of consecutive db columns, whose own running max it
+// folds into its own slot of S.  Two kinds of launch:
+//   * the TPU kernel's one segment (carry): a chain a query over the same
+//     columns, starting from the caller's H and E of column -1 and
+//     leaving those of its last column in their place, the state carried
+//     segment to segment;
+//   * a query group against every giant at once (no carry): a chain a
+//     (query, giant, piece), each piece from a fresh state (H 0, E -inf)
+//     and S[query, giant] the max over the giant's pieces.  The pieces
+//     (ops/sw_wavefront.py plan_pieces) overlap by V, the db span of any
+//     positive-score local alignment (pipeline._overlap_bound): every
+//     such alignment lies whole in the piece that owns its last column,
+//     and a fresh state never raises an H above the whole walk's (the
+//     recurrence is monotone in H and E and the fresh state is the
+//     least), so the max over pieces is the giant's score, EXACT.  The
+//     pieces give one query's walk the card's width: a chain keeps about
+//     (rows + 31) / 39 warps busy (below), a few dozen of the card's
+//     hundreds of resident blocks.
 //
 // The TPU kernel walks a segment in 1024-column strips one after another,
 // the query's rows its time axis.  Here the strips become slabs that run
@@ -34,29 +48,42 @@
 //     rows, which never raise S; neither is stored.
 // A warp (a block) covers a slab of 32 * COLS columns.  Its left edge (H
 // and E + Q of every row at the column before the slab) comes from the
-// slab to its left through global memory, which the wrapper zeroes before
-// the launch: that slab's thread 31 writes each row's 16 bytes {H, 1, E +
-// Q, 1} with one store, and this slab loads them GROUP rows at a time,
-// one group ahead, into shared memory, polling a row again until its 1s
-// are there (the 8-byte halves are single copies: the handoff of NCCL's
-// LL protocol, so no fence is needed).  Slab 0 stages the carried state
-// (column -1); the segment's last slab writes the new one.  Each warp
-// folds its S into s[q] with atomicMax.
+// slab to its left through global memory: that slab's thread 31 writes
+// each row's 16 bytes {H, tag, E + Q, tag} with one store, and this slab
+// loads them GROUP rows at a time, one group ahead, into shared memory,
+// polling a row again until both its tags are the slab's (the 8-byte
+// halves are single copies: the handoff of NCCL's LL protocol, so no
+// fence is needed).  A chain's first slab stages column -1 (the carried
+// state, or H 0 and E -inf); a carrying chain's last slab writes the new
+// one.  Each warp folds its S into its chain's slot with atomicMax.
 //
-// No deadlock: blocks take (query, slab) tickets from a counter in the
-// order they start (slab-major, so the queries advance together), and a
-// ticket waits only on a smaller one, held by a block that is running.
-// The grid is no larger than the blocks the card holds at once.  The
-// wrapper zeroes the counter and the edges on the launch's stream before
-// each launch.
+// Edges: a ring of two per chain.  Slab j writes ring slot j & 1 with
+// tag j + 1 and slab j + 1 polls it for that tag; slab j + 2 writes the
+// same slot again only after it has computed the row, so after slab j +
+// 1 has read it (its row r needs slab j + 1's row r, which needs the
+// row r slab j + 1 staged).  The wrapper zeroes the ring (tag 0, never
+// awaited) on the launch's stream: 2 * 16 bytes a row and chain, 3 MB
+// for 96 chains of 1,024 rows, whatever the columns walked.
 //
-// Bound: the DP's critical path at tblastn's shape (16 queries of 512
-// rows, 262,144 columns; the throughput term is a third of it).  A step
-// carries the wavefront COLS columns along a row and a slab starts about
-// 2 * GROUP + 31 steps after the one to its left; a warp alone on its SM
-// quarter issues the step's instructions one after another, so a
-// query's time is about its columns times the instructions of a cell, not
-// the critical path's three.
+// Tickets, and why none waits on a larger one: blocks take (chain, slab)
+// tickets from a counter in the order they start, slab-major across the
+// chains, so that every chain advances together.  The chains come sorted
+// by slabs, most first, so slab j's tickets are those of the chains
+// 0 .. n_j - 1 with more than j slabs, a prefix: ticket first[j] + c is
+// chain c's slab j (first[j], the tickets before slab j, from the
+// wrapper).  Slab j of chain c waits only on slab j - 1 of chain c,
+// ticket first[j - 1] + c, which is smaller.  Every smaller ticket is
+// done or held by a running block, since the grid is no larger than the
+// blocks the card holds at once: the walk cannot deadlock.
+//
+// Bound: the throughput term at tblastn's call (16 queries of 512 rows
+// against six 1.55-M-column frames), the critical path at one
+// 262,144-column segment.  A step carries the wavefront COLS columns
+// along a row and a slab starts about 2 * GROUP + 31 steps after the one
+// to its left, so a chain of R rows keeps about (R + 31) / 39 warps busy;
+// a warp issues the step's instructions one after another, and each
+// thread's E runs through its COLS columns one dependent instruction
+// after another, so a warp's step takes several times its issue time.
 #include "sw_common.cuh"
 
 using namespace swipe;
@@ -94,10 +121,10 @@ __host__ __device__ constexpr size_t wave_smem(int qlen_pad) {
          sizeof(int4) * row_stride(qlen_pad) + sizeof(int);
 }
 
-// A row of an edge, {H, 1, E + Q, 1}, as one 16-byte store and load.
-__device__ __forceinline__ void put_row(int4* p, int h, int e) {
+// A row of an edge, {H, tag, E + Q, tag}, as one 16-byte store and load.
+__device__ __forceinline__ void put_row(int4* p, int h, int e, int tag) {
   asm volatile("st.volatile.global.v4.s32 [%0], {%1, %2, %3, %4};" ::"l"(p),
-               "r"(h), "r"(1), "r"(e), "r"(1)
+               "r"(h), "r"(tag), "r"(e), "r"(tag)
                : "memory");
 }
 
@@ -110,7 +137,27 @@ __device__ __forceinline__ int4 get_row(const int4* p) {
   return v;
 }
 
-__device__ __forceinline__ bool whole(int4 v) { return v.y == 1 && v.w == 1; }
+__device__ __forceinline__ bool whole(int4 v, int tag) {
+  return v.y == tag && v.w == tag;
+}
+
+// The ticket's slab: the largest j with first[j] <= k, first rising from
+// first[0] = 0 over nslab + 1 entries; a warp-wide search, 32 entries a
+// round (3 rounds up to 32,768 slabs).
+__device__ __forceinline__ int ticket_slab(const long long* first,
+                                           int nslab, int k) {
+  int lo = 0, n = nslab;
+  while (n > 1) {
+    const int step = (n + 31) / 32;
+    const int i = lo + (int)threadIdx.x * step;
+    const unsigned le =
+        __ballot_sync(FULL, i < lo + n && __ldg(first + i) <= k);
+    const int w = 31 - __clz(le);
+    lo += w * step;
+    n = min(step, n - w * step);
+  }
+  return lo;
+}
 
 // The query's profile, int16 [sym][stride] from int8 mq [qlen_pad][32],
 // row r at r + pad; rows outside the query score as PAD: a thread takes
@@ -148,11 +195,20 @@ __device__ __forceinline__ void load_profile(const int8_t* mqq, int qlen_pad,
   }
 }
 
+// A chain: its first column in db, its query, its slot in s and its
+// slabs (the wrapper's int64 [nchains, 4]).
+struct Chain {
+  long long off, q, slot, nslabs;
+};
+
 __global__ void __launch_bounds__(32)
 wavefront_kernel(const int8_t* __restrict__ mq,
-                 const int8_t* __restrict__ db, int32_t* h, int32_t* e,
-                 int32_t* s, int4* edge, int* ticket_counter, int nq,
-                 int qlen_pad, int L, int Q, int R) {
+                 const int8_t* __restrict__ db,
+                 const Chain* __restrict__ chains,
+                 const long long* __restrict__ first, int nslab,
+                 int32_t* h,
+                 int32_t* e, int32_t* s, int4* edge, int* ticket_counter,
+                 int qlen_pad, int Q, int R, int carry) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int stride = row_stride(qlen_pad);
   const int pstride = prof_stride(qlen_pad);
@@ -160,22 +216,28 @@ wavefront_kernel(const int8_t* __restrict__ mq,
   int4* stage = reinterpret_cast<int4*>(prof + NSYM * pstride);
   int* ticket = reinterpret_cast<int*>(stage + stride);
   const int t = threadIdx.x;
-  const int nslabs = L / (32 * COLS);
+  const int tickets = (int)__ldg(first + nslab);
 
   for (;;) {
     __syncwarp();          // the previous ticket's walk is over
     if (t == 0) *ticket = atomicAdd(ticket_counter, 1);
     __syncwarp();
     const int k = *ticket;
-    if (k >= nq * nslabs) return;
-    const int q = k % nq, slab = k / nq;
+    if (k >= tickets) return;
+    const int slab = ticket_slab(first, nslab, k);
+    const int c = k - (int)__ldg(first + slab);
+    const Chain ch = chains[c];
+    const int q = (int)ch.q;
     load_profile(mq + (long long)q * qlen_pad * NSYM, qlen_pad, pstride,
                  PAD_ROWS, prof);
-    const bool last = slab == nslabs - 1;  // writes the carried state
+    const bool head = slab == 0;
+    const bool last = slab == ch.nslabs - 1;  // a carry writes the state
     int32_t* hq = h + (long long)q * qlen_pad;
     int32_t* eq = e + (long long)q * qlen_pad;
-    const int4* left = edge + ((long long)q * nslabs + slab - 1) * stride;
-    int4* right = edge + ((long long)q * nslabs + slab) * stride;
+    // the ring: the left edge in slot (slab - 1) & 1 with tag slab, the
+    // right edge into slot slab & 1 with tag slab + 1
+    const int4* left = edge + ((long long)c * 2 + ((slab + 1) & 1)) * stride;
+    int4* right = edge + ((long long)c * 2 + (slab & 1)) * stride;
 
     // the thread's columns: the byte offsets of their symbols' profile
     // rows, less the thread's row lag, so that row st - t of column i is
@@ -184,8 +246,8 @@ wavefront_kernel(const int8_t* __restrict__ mq,
     // the symbols every step
     int off[COLS];
     {
-      const int* col =
-          reinterpret_cast<const int*>(db + (slab * 32 + t) * COLS);
+      const int* col = reinterpret_cast<const int*>(
+          db + ch.off + ((long long)slab * 32 + t) * COLS);
 #pragma unroll
       for (int i = 0; i < COLS / 4; ++i) {
         const int v = col[i];
@@ -199,14 +261,17 @@ wavefront_kernel(const int8_t* __restrict__ mq,
     }
 
     // the left edge, staged GROUP rows at a time, loaded one group ahead:
-    // the carried state for slab 0 (H and the cell's own E, made E + Q of
-    // the next column when stored), else the slab to the left's edge.
-    // Thread t < GROUP holds row r0 + t until it is stored.
-    int4 fv = make_int4(0, 1, NEG_INF, 1);
+    // column -1 for the chain's first slab (the carried H and the cell's
+    // own E, or H 0 and E -inf; made E + Q of the next column when
+    // stored), else the slab to the left's edge.  Thread t < GROUP holds
+    // row r0 + t until it is stored.
+    int4 fv = make_int4(0, 0, NEG_INF, 0);
     auto fetch = [&](int r0) {
       const int r = r0 + t;
       if (t >= GROUP || r >= qlen_pad) return;
-      fv = slab == 0 ? make_int4(hq[r], 1, eq[r], 1) : get_row(left + r);
+      fv = !head   ? get_row(left + r)
+           : carry ? make_int4(hq[r], 0, eq[r], 0)
+                   : make_int4(0, 0, NEG_INF, 0);
     };
     fetch(0);
     __syncwarp();          // the profile
@@ -227,11 +292,11 @@ wavefront_kernel(const int8_t* __restrict__ mq,
         // store group st / GROUP (loaded one group ago, polled again
         // until whole), load the next
         if (t < GROUP && st + t < qlen_pad) {
-          while (!whole(fv)) {
+          while (!whole(fv, slab)) {
             __nanosleep(20);
             fv = get_row(left + st + t);
           }
-          if (slab == 0) fv.z = __viaddmax_s32(fv.z, Q - R, fv.x);
+          if (head) fv.z = __viaddmax_s32(fv.z, Q - R, fv.x);
           stage[st + t] = fv;
         }
         __syncwarp();
@@ -270,11 +335,11 @@ wavefront_kernel(const int8_t* __restrict__ mq,
       hout = Hc[COLS - 1];
       eout = E;
       if (t == 31 && r >= 0 && r < qlen_pad) {
-        if (last) {
+        if (!last) {
+          put_row(right + r, hout, eout, slab + 1);
+        } else if (carry) {
           hq[r] = hout;
           eq[r] = eown - Q;
-        } else {
-          put_row(right + r, hout, eout);
         }
       }
       hprev = hl;
@@ -282,40 +347,64 @@ wavefront_kernel(const int8_t* __restrict__ mq,
       el = __shfl_up_sync(FULL, eout, 1);
     }
     S = __reduce_max_sync(FULL, S);
-    if (t == 0) atomicMax(s + q, S);
+    if (t == 0) atomicMax(s + ch.slot, S);
   }
 }
 
 }  // namespace
 
-// mq [nq, qlen_pad, 32] int8 per-row scores, db [L] int8 symbols; h/e
-// [nq, qlen_pad] and s [nq] int32, the carried state, updated in place;
-// edge the slabs' right edges (int4 [nq, L / 1024, row_stride(qlen_pad)])
-// and ticket the ticket counter (int32 [1]), both zeroed before each
-// launch.  L a multiple of 1024 (32 * COLS); needs Q >= R.
-extern "C" int swipe_wavefront(const int8_t* mq, const int8_t* db,
-                               int32_t* h, int32_t* e, int32_t* s,
-                               int4* edge, int* ticket, int nq, int qlen_pad,
-                               int L, int Q, int R, void* stream) {
-  if (nq <= 0 || L <= 0 || qlen_pad <= 0) return (int)cudaGetLastError();
-  if (qlen_pad > MAX_ROWS || Q < R || L % (32 * COLS))
-    return (int)cudaErrorInvalidValue;
+// The blocks of wavefront_kernel the card holds at once at qlen_pad rows
+// (its SMs times the blocks an SM holds), written to *out.
+static cudaError_t resident_blocks(int qlen_pad, int* out) {
   const size_t smem = wave_smem(qlen_pad);
   cudaError_t err = cudaFuncSetAttribute(
       wavefront_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess ||
       (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            &per_sm, wavefront_kernel, 32, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int tickets = nq * (L / (32 * COLS));
-  wavefront_kernel<<<min(tickets, per_sm * sms), 32, smem,
-                     (cudaStream_t)stream>>>(mq, db, h, e, s, edge, ticket,
-                                             nq, qlen_pad, L, Q, R);
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *out = per_sm * sms;
+  return cudaSuccess;
+}
+
+extern "C" int swipe_wavefront_resident(int qlen_pad, int* out) {
+  if (qlen_pad <= 0 || qlen_pad > MAX_ROWS) return (int)cudaErrorInvalidValue;
+  return (int)resident_blocks(qlen_pad, out);
+}
+
+// mq [nq, qlen_pad, 32] int8 per-row scores, db int8 symbols; chains
+// int64 [nchains, 4] (first column in db, query, slot in s, slabs of
+// 32 * COLS columns), sorted by slabs, most first, and first int64
+// [nslab + 1] the tickets before each slab (first[nslab] = tickets, all
+// of them);
+// s the chains' slots, int32, folded into with atomicMax.  carry: h/e
+// [nq, qlen_pad] int32 are column -1's state, replaced by the last
+// column's (one chain a query); else every chain starts fresh and h/e
+// are not read.  edge the ring (int4 [nchains, 2, row_stride(qlen_pad)])
+// and ticket the ticket counter (int32 [1]), both zeroed before each
+// launch.  Needs Q >= R.
+extern "C" int swipe_wavefront(const int8_t* mq, const int8_t* db,
+                               const long long* chains,
+                               const long long* first,
+                               int nchains, int nslab, int32_t* h,
+                               int32_t* e, int32_t* s, int4* edge,
+                               int* ticket, int tickets, int qlen_pad, int Q,
+                               int R, int carry, void* stream) {
+  if (nchains <= 0 || nslab <= 0 || tickets <= 0 || qlen_pad <= 0)
+    return (int)cudaGetLastError();
+  if (qlen_pad > MAX_ROWS || Q < R) return (int)cudaErrorInvalidValue;
+  int resident = 0;
+  const cudaError_t err = resident_blocks(qlen_pad, &resident);
+  if (err != cudaSuccess) return (int)err;
+  wavefront_kernel<<<min(tickets, resident), 32, wave_smem(qlen_pad),
+                     (cudaStream_t)stream>>>(
+      mq, db, reinterpret_cast<const Chain*>(chains), first, nslab, h, e, s,
+      edge, ticket, qlen_pad, Q, R, carry);
   return (int)cudaGetLastError();
 }

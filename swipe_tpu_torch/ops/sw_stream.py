@@ -156,7 +156,9 @@ _SIGNATURES = {
     "swipe_stream_tile_carry": ("carry_rows", [_P] * 12 + [_I] * 10 + [_P]),
     "swipe_carry_rows": ("carry_rows", [_P] * 11 + [_I] * 10 + [_P]),
     "swipe_carry_flow": ("carry_rows", [_P] * 11 + [_I] * 10 + [_P]),
-    "swipe_wavefront": ("wavefront", [_P] * 7 + [_I] * 5 + [_P]),
+    "swipe_wavefront": ("wavefront", [_P] * 4 + [_I] * 2 + [_P] * 5
+                        + [_I] * 5 + [_P]),
+    "swipe_wavefront_resident": ("wavefront", [_I, _P]),
     "swipe_segment": ("segment", [_P] * 2 + [_I] + [_P] * 5 + [_I] * 8
                       + [_P]),
     "swipe_segment_tiled": ("segment", [_P] * 7 + [_I] * 8 + [_P]),

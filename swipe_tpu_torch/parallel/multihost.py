@@ -361,12 +361,14 @@ class MultiHostEngine(SearchEngine):
             self._wave_splits.append(min(max(w, rlo), rhi))
         # caches the giant routes reach through the base class
         # (_iter_carry_scores -> _iter_segmented_giants/_seg_giant_chunks,
-        # _iter_carry_series -> _carry_chunks)
+        # _iter_wavefront_scores -> _held_giants, _iter_carry_series ->
+        # _carry_chunks)
         self._carry_packs = {}
         self._stream_packs = {}
         self._dev_stream = {}
         self._seg_packs = {}
         self._dev_seg = {}
+        self._dev_giants = None
         self._wave1_chunks = None
         # wave-2 pack cache: two entries, keyed by the assigned ranges —
         # steady-state query streams (speeds within SPEED_DRIFT of the

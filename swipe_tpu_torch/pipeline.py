@@ -304,6 +304,8 @@ class SearchEngine:
         self._dev_seg: dict[tuple, list] = {}
         self._seg_chunks = None
         self._dev_segpack: dict[int, list] = {}
+        # the giants' one device copy for the wavefront route
+        self._dev_giants = None
         if self._segment_route:
             # the segment route reads only its own pack
             self.chunks = self._segment_chunks()
@@ -874,7 +876,7 @@ class SearchEngine:
                 yield from self._iter_segmented_giants(slots, qlen_pad, V)
                 return
             if len(self._giant_ids) <= self.WAVEFRONT_MAX_GIANTS:
-                yield from self._iter_wavefront_scores(slots, qlen_pad)
+                yield from self._iter_wavefront_scores(slots, qlen_pad, V)
                 return
         yield from self._iter_carry_series(slots, qlen_pad)
 
@@ -1001,13 +1003,9 @@ class SearchEngine:
             return (*chunk_tensors(ch.data_t, ch.start, ch.end_block,
                                    ch.lane, self.device), ch.seqnos)
 
-        cached = sum(sum(c.data_t.size for c in self._stream_packs[k])
-                     for k in self._dev_stream if k in self._stream_packs)
-        cached += sum(sum(c.data_t.size for c in self._seg_packs[k][1])
-                      for k in self._dev_seg if k in self._seg_packs)
         total = sum(c.data_t.size for c in chunks)
         if key in self._dev_seg or \
-                cached + total <= self.DEVICE_CACHE_BYTES:
+                self._cached_bytes() + total <= self.DEVICE_CACHE_BYTES:
             if key not in self._dev_seg:
                 with trace.span("setup.upload", chunks=len(chunks),
                                 bytes=total):
@@ -1015,25 +1013,53 @@ class SearchEngine:
             return owner, self._dev_seg[key]
         return owner, (prep(c) for c in chunks)
 
-    def _iter_wavefront_scores(self, slots, qlen_pad):
-        """Score each giant with the anti-diagonal wavefront kernel (K7),
-        streamed through fixed-width segments."""
+    def _cached_bytes(self) -> int:
+        """The device copies the giant routes' budget counts: the plain
+        and piece packs' and the held giants'."""
+        cached = sum(sum(c.data_t.size for c in self._stream_packs[k])
+                     for k in self._dev_stream if k in self._stream_packs)
+        cached += sum(sum(c.data_t.size for c in self._seg_packs[k][1])
+                      for k in self._dev_seg if k in self._seg_packs)
+        if self._dev_giants is not None:
+            cached += self._dev_giants.db.numel()
+        return cached
+
+    def _held_giants(self):
+        """The giants' one device copy (ops.sw_wavefront.hold_giants),
+        made once and kept within the budget the piece packs share; over
+        it, made for each call."""
+        from .ops.sw_wavefront import SLAB_COLS, hold_giants
+        if self._dev_giants is not None:
+            return self._dev_giants
+        size = sum(round_up(len(g), SLAB_COLS) for g in self._giant_seqs)
+        if self._cached_bytes() + size > self.DEVICE_CACHE_BYTES:
+            return hold_giants(self._giant_seqs, self.device)
+        with trace.span("setup.upload", giants=len(self._giant_seqs),
+                        bytes=size):
+            self._dev_giants = hold_giants(self._giant_seqs, self.device)
+        return self._dev_giants
+
+    def _iter_wavefront_scores(self, slots, qlen_pad, V):
+        """Score every giant with the anti-diagonal wavefront kernel (K7)
+        in one call: the giants held on the device, cut into pieces
+        overlapped by V where the slots alone would leave the card idle
+        (ops.sw_wavefront.plan_pieces)."""
         from .ops.sw_stream import build_matrix8, build_qcodes
-        from .ops.sw_wavefront import build_mq, sw_wavefront_scores
+        from .ops.sw_wavefront import build_mq, sw_wavefront_giants
         p = self.params
+        giants = self._held_giants()
         with trace.span("giant.wavefront", slots=len(slots),
                         qlen_pad=qlen_pad, giants=len(self._giant_ids)):
-            qc, _ = build_qcodes([s[3] for s in slots], qlen_pad)
+            qc, ql = build_qcodes([s[3] for s in slots], qlen_pad)
             mq = trace.to_device(build_mq(
                 qc, build_matrix8(self.matrix.matrix)), self.device)
-            done = [trace.to_host(sw_wavefront_scores(
-                mq, seq, gapopenextend=p.gapopenextend,
+            done = trace.to_host(sw_wavefront_giants(
+                mq, ql, giants, overlap=V, gapopenextend=p.gapopenextend,
                 gapextend=p.gapextend)).numpy()
-                for seq in self._giant_seqs]
             self._count_giant_cells("wavefront", slots)
         # a giant a yield, as the cascade counters count them
-        for gid, sc in zip(self._giant_ids, done):
-            yield np.array([gid], dtype=np.int64), sc[:, None]
+        for i, gid in enumerate(self._giant_ids):
+            yield np.array([gid], dtype=np.int64), done[:, i:i + 1]
 
     def _count_giant_cells(self, route: str, slots) -> None:
         """Add the cells a giant route walked, ``giant.cells.<route>``:

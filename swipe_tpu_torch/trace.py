@@ -20,7 +20,11 @@ device-to-host copies of ``to_device`` and ``to_host`` (``h2d_copies``,
 ``h2d_bytes``, ``d2h_copies``, ``d2h_bytes``), the hint pass's lanes by
 route (``hint.lanes_kernel``, ``hint.lanes_host``: ops.align_hint), the
 cells each giant route walked (``giant.cells.pieces``, ``.wavefront``,
-``.carry``: pipeline, inside the spans ``giant.<route>``), the bases of
+``.carry``: pipeline, inside the spans ``giant.<route>``), the wavefront
+kernel's chains (``wavefront.chains``: a query through one piece of a
+giant) and the cells they walk, overlap and padding included
+(``wavefront.cells_walked``: the slots' query residues times the
+columns; ops.sw_wavefront.sw_wavefront_giants), the bases of
 the reading frames a database translated (``translate.bases``: io.db,
 inside the spans ``db.translate``), the align phase's subject fetches on
 a nucleotide database (pipeline ``SearchEngine.subject``:

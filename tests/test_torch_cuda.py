@@ -270,7 +270,9 @@ def test_carry_kernel_matches_plain(dev, chunk, flow, form, queries, wide,
 
 
 def test_wavefront_kernel_matches_plain(dev, chunk):
-    # three segments of a giant, hits and a gap across the segment cuts
+    # three segments of a giant, hits and a gap across the segment cuts:
+    # threaded segment by segment (a launch each), and the engine's call
+    # (one launch, the giant whole)
     from swipe_tpu_torch.ops import sw_wavefront as wf
     m8 = chunk[0].cpu().numpy()
     rng = np.random.default_rng(6)
@@ -279,8 +281,8 @@ def test_wavefront_kernel_matches_plain(dev, chunk):
     seq[4080:4120] = qs[0]
     seq[8000:8150] = qs[1][:150]
     seq[8160:8310] = qs[1][150:]
-    mq = torch.from_numpy(wf.build_mq(sw.build_qcodes(qs, 1024)[0],
-                                      m8)).to(dev)
+    qc, ql = sw.build_qcodes(qs, 1024)
+    mq = torch.from_numpy(wf.build_mq(qc, m8)).to(dev)
     n = trace.launched("swipe_wavefront")
     old = wf.SEG_STRIPS
     wf.SEG_STRIPS = 4
@@ -295,6 +297,11 @@ def test_wavefront_kernel_matches_plain(dev, chunk):
     plain = wf.sw_wavefront_plain(mq, segs, *state, gapopenextend=12,
                                   gapextend=1)
     assert torch.equal(got, plain[2])
+    held = wf.hold_giants([seq], dev)
+    whole = wf.sw_wavefront_giants(mq, ql, held, overlap=12 * 1024,
+                                   gapopenextend=12, gapextend=1)
+    assert trace.launched("swipe_wavefront") == n + 4
+    assert torch.equal(whole[:, 0], plain[2])
     # one segment: the carried H/E rows too
     a = wf.make_wavefront_state(3, 1024, dev)
     b = wf.make_wavefront_state(3, 1024, dev)
@@ -302,6 +309,54 @@ def test_wavefront_kernel_matches_plain(dev, chunk):
     wf.sw_wavefront_plain(mq, segs[:3072], *b, gapopenextend=12, gapextend=1)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.fixture(scope="module")
+def wave_giants(dev, chunk):
+    """torch_row_cases' three giants, alignments planted across every
+    piece cut the plans for 1, 3 and 16 queries make, and the plain
+    version's scores of its 16 queries (the first nq are the nq's)."""
+    from swipe_tpu_torch.ops import sw_wavefront as wf
+    m8 = chunk[0].cpu().numpy()
+    rng = np.random.default_rng(21)
+    best = 1 + np.argsort(-np.diag(ScoreMatrix.builtin(
+        "BLOSUM62", 11, 1).matrix)[1:26], kind="stable")[:4]
+    rows, V = rc.WAVE_GIANT_ROWS, rc.WAVE_GIANT_V
+    resident = wf.wavefront_resident(rows, dev)
+    cuts = {(p.giant, p.own[0]) for nq in (1, 3, 16)
+            for p in wf.plan_pieces(rc.WAVE_GIANTS, nq, rows, V, resident)
+            if p.own[0]}
+    qs, giants = rc.wavefront_giants_case(rng, sorted(cuts), best)
+    qc, ql = sw.build_qcodes(qs, rows)
+    mq = torch.from_numpy(wf.build_mq(qc, m8)).to(dev)
+    held = wf.hold_giants(giants, dev)
+    kw = dict(overlap=V, gapopenextend=12, gapextend=1)
+    want = wf.sw_wavefront_giants_plain(mq, ql, held, **kw)
+    return mq, ql, held, kw, want, resident
+
+
+@pytest.mark.parametrize("nq", [1, 3, 16])
+def test_wavefront_giants_match_plain(wave_giants, nq):
+    # the engine's call: every (query, piece) chain in one launch, the
+    # giants cut where the chains alone leave the card idle
+    from swipe_tpu_torch.ops import sw_wavefront as wf
+    mq, ql, held, kw, want, resident = wave_giants
+    pieces = wf.plan_pieces(held.lengths, nq, rc.WAVE_GIANT_ROWS,
+                            kw["overlap"], resident)
+    assert len(pieces) > 3
+    before = trace.counters()
+    got = wf.sw_wavefront_giants(mq[:nq].contiguous(), ql[:nq], held, **kw)
+    after = trace.counters()
+
+    def moved(name):
+        return after.get(name, 0) - before.get(name, 0)
+
+    assert moved("launch.swipe_wavefront") == 1
+    assert moved("wavefront.chains") == nq * len(pieces)
+    assert moved("wavefront.cells_walked") == int(ql[:nq].sum()) * sum(
+        p.walk[1] - p.walk[0] for p in pieces)
+    assert torch.equal(got, want[:nq])
+    assert (want[:2] > 500).all()
 
 
 @pytest.mark.parametrize("nq", [1, 3, 16])

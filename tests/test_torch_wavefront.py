@@ -160,3 +160,141 @@ def test_wavefront_slab_counts():
     assert TW.wavefront_slabs(TW.STRIP * TW.SEG_STRIPS) == 256
     with pytest.raises(ValueError):
         TW.wavefront_slabs(1000)
+
+
+# ---- the giants' pieces (plan_pieces) ---------------------------------------
+
+def _check_plan(lengths, nq, qlen_pad, V, resident):
+    pieces = TW.plan_pieces(lengths, nq, qlen_pad, V, resident)
+    for g, n in enumerate(lengths):
+        mine = [p for p in pieces if p.giant == g]
+        # the owned ranges tile [0, n) in order: every column owned once
+        assert [p.own[0] for p in mine] == [0] + [p.own[1]
+                                                  for p in mine[:-1]]
+        assert mine[-1].own[1] == n
+        for i, p in enumerate(mine):
+            assert p.own[0] < p.own[1]
+            width = p.walk[1] - p.walk[0]
+            assert width > 0 and width % TW.SLAB_COLS == 0
+            assert p.walk[0] % TW.SLAB_COLS == 0
+            assert p.walk[1] >= p.own[1]
+            assert p.walk[1] <= -(-n // TW.SLAB_COLS) * TW.SLAB_COLS
+            if i == 0:
+                assert p.walk[0] == 0
+            else:
+                # starts at least V before the columns it owns
+                assert p.walk[0] <= p.own[0] - V
+            if len(mine) > 1:
+                assert p.own[1] - p.own[0] >= TW.MIN_PIECE_OVERLAPS * V
+    return pieces
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_plan_pieces_cover_and_overlap(seed):
+    rng = np.random.default_rng(seed)
+    lengths = [int(n) for n in rng.integers(65_537, 2_000_000,
+                                            size=rng.integers(1, 7))]
+    qlen_pad = int(rng.choice([64, 256, 384, 512, 1024]))
+    nq = int(rng.integers(1, 4))
+    resident = int(rng.choice([264, 660, 792]))
+    V = 12 * qlen_pad
+    pieces = _check_plan(lengths, nq, qlen_pad, V, resident)
+    # the fewest pieces whose chains fill the resident blocks, unless
+    # the 8-overlap floor holds a giant back
+    need = -(-resident * TW.SLAB_LAG // (qlen_pad + 31))
+    floor = all(sum(p.giant == g for p in pieces)
+                < n // (TW.MIN_PIECE_OVERLAPS * V + TW.SLAB_COLS)
+                for g, n in enumerate(lengths))
+    if floor:
+        assert nq * len(pieces) >= need
+        fewer = -(-need // nq) - 1
+        assert len(pieces) - len(lengths) < fewer + len(lengths)
+
+
+def test_plan_pieces_one_a_giant():
+    lengths = [1_547_217] * 6
+    one = [(g, (0, n), (0, -(-n // 1024) * 1024))
+           for g, n in enumerate(lengths)]
+    # free gap extension, no card, the chains already fill the card
+    assert TW.plan_pieces(lengths, 1, 384, None, 792) == one
+    assert TW.plan_pieces(lengths, 1, 384, 4608, None) == one
+    assert TW.plan_pieces(lengths, 16, 384, 4608, 792) == one
+    assert TW.plan_pieces(lengths, 1, 384, 1 << 62, 792) == one
+    # one tblastn query: 78 pieces of 384 rows, 12 of 1,024, overlap
+    # under 5% of the frames
+    for rows, resident, n in ((384, 792, 78), (1024, 264, 12)):
+        pieces = _check_plan(lengths, 1, rows, 12 * rows, resident)
+        assert len(pieces) == n
+        walked = sum(p.walk[1] - p.walk[0] for p in pieces)
+        assert walked / sum(lengths) < 1.05
+
+
+def test_plan_pieces_exact(m62):
+    # max over the planned pieces, each from a fresh state, equals the
+    # whole giant's score: a query planted across every cut, a gapped
+    # alignment with its gap inside each overlap; walked from the owned
+    # columns alone, a straddling alignment is lost
+    rng = np.random.default_rng(11)
+    best = 1 + np.argsort(-np.diag(m62.matrix)[1:26], kind="stable")[:2]
+    queries = [rc.rich_query(rng, 32, best), rc.rich_query(rng, 30, best),
+               rng.integers(1, 26, size=17, dtype=np.int8)]
+    qlen_pad = 32
+    V = 12 * qlen_pad
+    lengths = [20_000, 13_000, 9_000]
+    pieces = _check_plan(lengths, len(queries), qlen_pad, V, 264)
+    assert [sum(p.giant == g for p in pieces) for g in range(3)] == [4, 3, 2]
+    giants = [rng.integers(1, 26, size=n, dtype=np.int8) for n in lengths]
+    for p in pieces:
+        if p.own[0]:
+            b, seq = p.own[0], giants[p.giant]
+            seq[b - 16:b + 16] = queries[0]
+            rc.plant_gapped(seq, queries[1], 15, b - 50, 40)
+    qc, _ = build_qcodes(queries, qlen_pad)
+    mq = torch.from_numpy(TW.build_mq(qc, build_matrix8(m62.matrix)))
+    held = TW.hold_giants(giants, "cpu")
+    whole = TW.sw_wavefront_giants_plain(mq, [len(q) for q in queries], held,
+                                         overlap=V, **KW)
+    for g, seq in enumerate(giants):
+        assert np.array_equal(whole[:, g].numpy(),
+                              _oracle(queries, seq, m62))
+
+    def walk(lo, hi, g):
+        st = TW.make_wavefront_state(len(queries), qlen_pad)
+        at = held.starts[g]
+        TW.sw_wavefront_plain(mq, held.db[at + lo:at + hi], *st, **KW)
+        return st[2]
+
+    pieces_max = torch.zeros_like(whole)
+    owned_max = torch.zeros_like(whole)
+    for p in pieces:
+        pieces_max[:, p.giant] = torch.maximum(pieces_max[:, p.giant],
+                                               walk(*p.walk, p.giant))
+        owned_max[:, p.giant] = torch.maximum(owned_max[:, p.giant],
+                                              walk(*p.own, p.giant))
+    assert torch.equal(pieces_max, whole)
+    assert (owned_max[:2] < whole[:2]).all()
+
+
+def test_wavefront_giants_on_the_cpu(m62):
+    # the engine's call on the CPU: one piece a giant, the counters
+    rng = np.random.default_rng(12)
+    queries = [rng.integers(1, 26, size=n, dtype=np.int8) for n in (20, 9)]
+    giants = [rng.integers(1, 26, size=n, dtype=np.int8)
+              for n in (3000, 1024)]
+    giants[0][2000:2020] = queries[0]
+    qc, ql = build_qcodes(queries, 32)
+    mq = torch.from_numpy(TW.build_mq(qc, build_matrix8(m62.matrix)))
+    held = TW.hold_giants(giants, "cpu")
+    assert held.starts == (0, 3072) and held.lengths == (3000, 1024)
+    assert held.db.shape == (4096,) and (held.db[3000:3072] == 31).all()
+    before = trace.counters()
+    got = TW.sw_wavefront_giants(mq, ql, held, overlap=384, **KW)
+    after = trace.counters()
+    assert after.get("wavefront.chains", 0) - \
+        before.get("wavefront.chains", 0) == 4
+    assert after.get("wavefront.cells_walked", 0) - \
+        before.get("wavefront.cells_walked", 0) == 29 * (3072 + 1024)
+    for g, seq in enumerate(giants):
+        assert np.array_equal(got[:, g].numpy(),
+                              _oracle(queries, seq, m62))
+    assert trace.launched("swipe_wavefront") == 0

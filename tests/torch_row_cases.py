@@ -25,7 +25,10 @@ versions).  Imports numpy only: the card's machine has no JAX.
   query's end, two bands over 512 rows);
 * the wavefront kernel's (K7) giants (``wavefront_case``): alignments
   whose halves sit either side of a long horizontal gap (a gap in the
-  query) across slab edges and a segment cut, so that E crosses them.
+  query) across slab edges and a segment cut, so that E crosses them;
+  and three giants of unequal length (``wavefront_giants_case``) with
+  alignments across the cuts of the pieces the engine's call walks them
+  in, gaps inside the pieces' overlaps and across slab edges.
 """
 
 from __future__ import annotations
@@ -239,3 +242,35 @@ def wavefront_case(rng, symbols=None):
     plant_gapped(seq, qs[1], 300, 8100, 700)
     seq[4080:4120] = qs[2]
     return qs, seq
+
+
+# the giants' case: their lengths, the queries' padded rows and the span
+# bound V at those rows under BLOSUM62 11/1
+WAVE_GIANTS = (70_000, 45_000, 30_500)
+WAVE_GIANT_ROWS = 128
+WAVE_GIANT_V = 12 * WAVE_GIANT_ROWS
+
+
+def wavefront_giants_case(rng, cuts, symbols):
+    """16 queries of up to WAVE_GIANT_ROWS residues (the first three of
+    ``symbols``, the rest random) and giants of WAVE_GIANTS: at each
+    (giant, column) of ``cuts`` (the first columns pieces own) the first
+    query whole across the cut, the second with a gap of 300 columns up
+    to 30 before it, the third with a gap of 900 inside the overlap
+    before it; every 5 slabs from column 2,048 the second or third with a
+    gap of 200 over the slab edge.  Returns (queries, giants)."""
+    V = WAVE_GIANT_V
+    qs = [rich_query(rng, n, symbols) for n in (128, 100, 64)]
+    qs += [rng.integers(1, 26, size=int(n), dtype=np.int8)
+           for n in rng.integers(1, WAVE_GIANT_ROWS + 1, size=13)]
+    giants = [rng.integers(1, 26, size=n, dtype=np.int8)
+              for n in WAVE_GIANTS]
+    for g, seq in enumerate(giants):
+        for edge in range(2048, len(seq) - 2048, 5 * 1024):
+            plant_gapped(seq, qs[1 + g % 2], 40, edge - 10, 200)
+    for g, b in cuts:
+        seq = giants[g]
+        seq[b - 64:b + 64] = qs[0]
+        plant_gapped(seq, qs[1], 50, b - 30, 300)
+        plant_gapped(seq, qs[2], 32, b - V + 100, 900)
+    return qs, giants
