@@ -696,6 +696,9 @@ class SearchEngine:
 
     def _score_stream_group(self, slots, qlen_pad, nseqs, timings, route):
         from .ops.sw_stream import build_matrix8, build_qcodes
+        # one walk of the route's pack, and the live slots it carries
+        trace.count(f"scoring.passes.{route}")
+        trace.count(f"scoring.slots.{route}", len(slots))
         qc, ql = build_qcodes([s[3] for s in slots], qlen_pad)
         # pad the slot count to a power of two, as the JAX engine does;
         # a dead slot has length 0 and scores 0

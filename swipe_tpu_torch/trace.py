@@ -19,8 +19,12 @@ entry>``, raised by ``ops.sw_stream._launch``), the host-to-device and
 device-to-host copies of ``to_device`` and ``to_host`` (``h2d_copies``,
 ``h2d_bytes``, ``d2h_copies``, ``d2h_bytes``), the hint pass's lanes by
 route (``hint.lanes_kernel``, ``hint.lanes_host``: ops.align_hint), the
-cells each giant route walked (``giant.cells.pieces``, ``.wavefront``,
-``.carry``: pipeline, inside the spans ``giant.<route>``), the wavefront
+walks of a pack by one slot group and the live slots they carried, the
+power-of-two padding slots left out (``scoring.passes.<route>``,
+``scoring.slots.<route>``, route ``stream``, ``flow`` or ``long``:
+pipeline), the cells each giant route walked (``giant.cells.pieces``,
+``.wavefront``, ``.carry``: pipeline, inside the spans
+``giant.<route>``), the wavefront
 kernel's chains (``wavefront.chains``: a query through one piece of a
 giant) and the cells they walk, overlap and padding included
 (``wavefront.cells_walked``: the slots' query residues times the
